@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line with its wall time:
+  1. environment: torch / CUDA versions, the card, its power limit;
+  2. build: the one nvcc call that compiles every kernel (csrc/*.cu);
+  3. kernels: mont_mul, fold_all, sumcheck_round and ec_add against their
+     plain PyTorch versions on the card, bit for bit, then timed;
+  4. small proof: a Lasso range proof (range_table(8, 4), 16 lookups, SRS
+     seed 3) on the card and through the plain path on the CPU; both must
+     hash to SMALL_PROOF_SHA256, the hash of the JAX package's proof
+     (tests/test_torch_lasso.py holds the two packages to it);
+  5. the slice: 2^16 lookups into range_table(16, 16), SRS setup, prove and
+     verify on the card with per-stage times; a proof with one flipped byte
+     must be rejected. Kernel launch counts are reset just before this phase
+     and read just after it.
+
+The last lines are a JSON object with every kernel's numbers, the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+Any failure exits non-zero; a watchdog turns a hang into a traceback and a
+non-zero exit. Without a CUDA device, or without the package beside it, the
+script exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+WATCHDOG_S = 1000  # below the smoke's 1200 s limit, with a margin
+SMALL_PROOF_SHA256 = "efdcdbf4dea8fa963635aa51725015c5674d43549b67e0e11f91054ed81db806"
+SMALL = {"index_bits": 8, "chunk_bits": 4, "lookups": 16, "srs_seed": 3, "index_seed": 77}
+SLICE = {"index_bits": 16, "chunk_bits": 16, "lookups": 1 << 16, "srs_seed": 3, "index_seed": 1}
+
+# Published H100 SXM peaks (NVIDIA H100 datasheet): 3.35 TB/s of HBM;
+# 67 TFLOP/s fp32 on the CUDA cores, i.e. 33.5 T fma/s. Hopper issues int32
+# multiply-adds at half the fp32 rate (64 vs 128 lanes per SM per clock),
+# so 16.75 T IMAD/s; a 32x32->64-bit product costs two (low and high word).
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 16.75e12
+IMAD_PER_MONT_MUL = 2 * 2 * 8 * 8  # CIOS: 64 products a*b + 64 products m*p
+
+
+def stage(name, t0, msg=""):
+    print(f"[{name}] {time.perf_counter() - t0:.3f}s {msg}".rstrip(), flush=True)
+
+
+def bound(bytes_moved, imads):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / IMAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from halo2_lasso_tpu_torch.ops import native
+
+    # 1. environment
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    stage("env", t0, f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} | {smi}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    native.lib()
+    stage("build", t0, f"nvcc {native.build_seconds:.1f}s" if native.build_seconds else "cached")
+
+    # 3. kernels
+    t0 = time.perf_counter()
+    kernels = check_kernels(torch, np, dev)
+    stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
+    print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
+
+    # 4. small proof against the JAX package's bytes
+    t0 = time.perf_counter()
+    gpu_proof = lasso_proof(np, SMALL, "cuda")[0]
+    cpu_proof = lasso_proof(np, SMALL, "cpu")[0]
+    sha = hashlib.sha256(gpu_proof).hexdigest()
+    if sha != SMALL_PROOF_SHA256 or cpu_proof != gpu_proof:
+        raise SystemExit(f"small proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
+    stage("small_proof", t0, f"{len(gpu_proof)} bytes sha256 {sha[:16]} == JAX, == CPU plain path")
+
+    # 5. the slice
+    t0 = time.perf_counter()
+    native.reset_counts()
+    proof, records = lasso_proof(np, SLICE, "cuda", tamper=True)
+    launches = dict(native.counts)
+    stage("slice", t0, f"2^16 lookups range_table(16,16): {len(proof)} bytes, verified, tamper rejected")
+    for name, ms in records:
+        print(f"  stage {name}: {ms:.1f}ms", flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise SystemExit(f"main path did not launch: {missing}")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def lasso_proof(np, cfg, device, tamper=False):
+    """Setup, prove and verify one Lasso range proof; returns (proof bytes,
+    stage records). With `tamper`, a proof with one flipped byte must fail."""
+    from halo2_lasso_tpu_torch.errors import Halo2LassoError
+    from halo2_lasso_tpu_torch.lasso import prove, verify
+    from halo2_lasso_tpu_torch.lasso.tables import range_table
+    from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
+    from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
+    from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+    from halo2_lasso_tpu_torch.utils.timer import timed
+
+    def transcript(proof=None):
+        return Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, proof=proof, curve_b=3)
+
+    table = range_table(cfg["index_bits"], cfg["chunk_bits"])
+    m = cfg["lookups"]
+    nv_m = m.bit_length() - 1
+    nv = max(nv_m, table.memories[0].subtable.index_bits)
+    rng = np.random.RandomState(cfg["index_seed"])
+    indices = [int(rng.randint(1 << cfg["index_bits"])) for _ in range(m)]
+    timed.clear()
+    with timed.scope("lasso_setup"):
+        param = MultilinearKzg.setup(1 << nv, np.random.RandomState(cfg["srs_seed"]), device=device)
+        pp, vp = MultilinearKzg.trim(param, 1 << nv)
+    tw = transcript()
+    prove(pp, table, indices, tw, device=device)
+    proof = tw.into_proof()
+    verify(vp, table, nv_m, transcript(proof))
+    if tamper:
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 0x01
+        try:
+            verify(vp, table, nv_m, transcript(bytes(bad)))
+        except Halo2LassoError:
+            pass
+        else:
+            raise SystemExit("a proof with a flipped byte was accepted")
+    return proof, timed.records()
+
+
+def check_kernels(torch, np, dev):
+    """Each kernel against its plain version on the same card inputs."""
+    from halo2_lasso_tpu_torch.expression import Expression
+    from halo2_lasso_tpu_torch.lasso.tables import range_table
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+    from halo2_lasso_tpu_torch.piop import gkr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    rng = np.random.RandomState(2024)
+
+    def rand_field(spec, n, edges=()):
+        limbs = rng.randint(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+        limbs[:, 7] = rng.randint(0, spec.modulus >> 224, size=n)  # below p
+        t = F.from_numpy_u32(limbs, dev)
+        if edges:
+            t[: len(edges)] = F.from_numpy_u32(F.ints_to_u32(edges), dev)
+        return t
+
+    def same(name, kernel_fn, plain_fn):
+        """Bit-exact check; returns the largest limb difference (0)."""
+        flat_k = torch.cat([t.reshape(-1) for t in kernel_fn()])
+        flat_p = torch.cat([t.reshape(-1) for t in plain_fn()])
+        if not torch.equal(flat_k, flat_p):
+            raise SystemExit(f"kernel {name} disagrees with its plain version")
+        return int(((flat_k.long() & 0xFFFFFFFF) - (flat_p.long() & 0xFFFFFFFF)).abs().max())
+
+    results = {}
+
+    def record(name, src, replaces, kernel_fn, plain_fn, bytes_moved, imads, err):
+        """Check and time one kernel at a shape of the main path."""
+        err = max(err, same(name, kernel_fn, plain_fn))
+        b_ms, b_by = bound(bytes_moved, imads)
+        results[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": 0, "max_abs_err": err,
+            "ms": cuda_ms(torch, kernel_fn, 20), "plain_ms": cuda_ms(torch, plain_fn, 2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+
+    # K4 mont_mul, Fr and Fq, 2^16 elements (the witness encodes) with
+    # 0, 1, p-1, R mod p among the inputs
+    n = 1 << 16
+    err = 0
+    for spec in (Fq, Fr):
+        p = spec.modulus
+        a = rand_field(spec, n, [0, 1, p - 1, spec.R])
+        b = rand_field(spec, n, [p - 1, spec.R, p - 1, 1])
+        kernel_fn, plain_fn = (lambda: [F.mont_mul(spec, a, b)]), (lambda: [F.mont_mul_plain(spec, a, b)])
+        err = max(err, same("mont_mul", kernel_fn, plain_fn))
+    record("mont_mul", "halo2_lasso_tpu_torch/csrc/mont_mul.cu", "halo2_lasso_tpu/ops/pallas_field.py:225",
+           kernel_fn, plain_fn, 96 * n, n * IMAD_PER_MONT_MUL, err)
+
+    # K2 fold_all: 8 tables of 2^14; timed at the batch open's first fold
+    # (3 eq tables + 3 polys of 2^16)
+    x = rand_field(Fr, 1)[0]
+    tabs = [rand_field(Fr, 1 << 14) for _ in range(8)]
+    err = same("fold_all", lambda: mle.fold_all(Fr, tabs, x), lambda: mle.fold_all_plain(Fr, tabs, x))
+    tabs = [rand_field(Fr, n) for _ in range(6)]
+    record("fold_all", "halo2_lasso_tpu_torch/csrc/fold.cu", "halo2_lasso_tpu/ops/pallas_field.py:293",
+           lambda: mle.fold_all(Fr, tabs, x), lambda: mle.fold_all_plain(Fr, tabs, x),
+           6 * n * 48, 6 * (n // 2) * IMAD_PER_MONT_MUL, err)
+
+    # K1 round message: the Lasso primary expression and a GKR degree-3
+    # layer at 2^14; timed at the primary sumcheck's first round (2^16)
+    err = 0
+    for expr, n_polys, size in (
+        (gkr.sum_check_expression_pure(2), 4, 1 << 14),
+        (Expression.eq_xy(0) * range_table(16, 16).g, 1, 1 << 14),
+        (Expression.eq_xy(0) * range_table(16, 16).g, 1, n),
+    ):
+        keys = SC._leaf_keys(expr, n_polys)
+        prog = SC.lower_expression(expr, keys)
+        leaves = [rand_field(Fr, size) for _ in keys]
+        chal = rand_field(Fr, 1) if expr.used_challenge else None
+        kernel_fn = lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)]  # noqa: E731
+        plain_fn = lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]  # noqa: E731
+        err = max(err, same("sumcheck_round", kernel_fn, plain_fn))
+    muls = sum(op in (SC.OP_MUL, SC.OP_SCALED) for op, _ in prog.ops)
+    record("sumcheck_round", "halo2_lasso_tpu_torch/csrc/sumcheck_round.cu",
+           "halo2_lasso_tpu/ops/pallas_field.py:376", kernel_fn, plain_fn,
+           len(leaves) * n * 32, expr.degree * muls * (n // 2) * IMAD_PER_MONT_MUL, err)
+
+    # K3 ec_add: 2^12 lanes over the five cases (generic, P = Q, P = -Q,
+    # P = O, Q = O), also against host arithmetic; timed at the first level
+    # of a 2^16-point MSM (26 windows x 2^15 pairs + 26 x 2^10 buckets)
+    pts_p, pts_q = ec_cases(np, rng, MJ, Fq.modulus, 1 << 12)
+    P = {k: Fq.encode([pt[i] for pt in pts_p], dev) for i, k in enumerate(ec.COORDS)}
+    Q = {k: Fq.encode([pt[i] for pt in pts_q], dev) for i, k in enumerate(ec.COORDS)}
+    err = same("ec_add", lambda: list(ec.ec_add(P, Q).values()), lambda: list(ec.ec_add_plain(P, Q).values()))
+    want = MJ.host_batch_affine([MJ.host_jac_add(a, b, Fq.modulus) for a, b in zip(pts_p, pts_q)], Fq.modulus)
+    if ec.jacobian_to_affine(ec.ec_add(P, Q)) != want:
+        raise SystemExit("ec_add disagrees with host arithmetic")
+    c = MJ.best_c(n)
+    windows = -(-Fr.num_bits // c)
+    lanes = windows * (n // 2 + (1 << c))
+    reps = -(-lanes // (1 << 12))
+    P = {k: v.repeat(reps, 1)[:lanes] for k, v in P.items()}
+    Q = {k: v.repeat(reps, 1)[:lanes] for k, v in Q.items()}
+    record("ec_add", "halo2_lasso_tpu_torch/csrc/ec_add.cu", "halo2_lasso_tpu/ops/pallas_ec.py:144",
+           lambda: list(ec.ec_add(P, Q).values()), lambda: list(ec.ec_add_plain(P, Q).values()),
+           lanes * 9 * 32, lanes * 23 * IMAD_PER_MONT_MUL, err)
+    return [results[k] for k in ("mont_mul", "fold_all", "sumcheck_round", "ec_add")]
+
+
+def ec_cases(np, rng, MJ, mod, n):
+    """Jacobian lane pairs over the five cases of the complete add."""
+    def mul(k):
+        acc, base = (0, 0, 0), (1, 2, 1)
+        while k:
+            if k & 1:
+                acc = MJ.host_jac_add(acc, base, mod)
+            base = MJ.host_jac_double(base, mod)
+            k >>= 1
+        return acc
+
+    def rescale(pt, lam):
+        return (pt[0] * lam * lam % mod, pt[1] * lam ** 3 % mod, pt[2] * lam % mod)
+
+    base = [mul(int(rng.randint(1, 1 << 62))) for _ in range(64)]
+    ident = (1, 1, 0)
+    ps, qs = [], []
+    for i in range(n):
+        a = rescale(base[i % 64], int(rng.randint(1, 1 << 62)))
+        b = rescale(base[(i * 7 + 3) % 64], int(rng.randint(1, 1 << 62)))
+        case = i % 5
+        if case == 1:
+            b = rescale(a, 3)
+        elif case == 2:
+            b = (a[0], (-a[1]) % mod, a[2])
+        elif case == 3:
+            a = ident
+        elif case == 4:
+            b = ident
+        ps.append(a)
+        qs.append(b)
+    return ps, qs
+
+
+if __name__ == "__main__":
+    sys.exit(main())

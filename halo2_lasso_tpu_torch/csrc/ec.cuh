@@ -1,0 +1,48 @@
+// Complete Jacobian addition on BN254 G1 over Fq for one lane, shared by
+// csrc/ec_add.cu and the host-compiled CPU test (see field.cuh).
+#pragma once
+
+#include "field.cuh"
+
+FD_NOINLINE Fe qmul(Fe a, Fe b) { return fe_mul<Fq>(a, b); }
+FD Fe qadd(const Fe& a, const Fe& b) { return fe_add<Fq>(a, b); }
+FD Fe qsub(const Fe& a, const Fe& b) { return fe_sub<Fq>(a, b); }
+
+FD void ec_add_lane(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& x2, const Fe& y2,
+                    const Fe& z2, Fe& ox, Fe& oy, Fe& oz) {
+  Fe z1z1 = qmul(z1, z1), z2z2 = qmul(z2, z2);
+  Fe u1 = qmul(x1, z2z2), u2 = qmul(x2, z1z1);
+  Fe s1 = qmul(qmul(y1, z2), z2z2), s2 = qmul(qmul(y2, z1), z1z1);
+  Fe h = qsub(u2, u1), r = qsub(s2, s1);
+  Fe hh = qmul(h, h);
+  Fe hhh = qmul(hh, h);
+  Fe v = qmul(u1, hh);
+  Fe x3 = qsub(qsub(qmul(r, r), hhh), qadd(v, v));
+  Fe y3 = qsub(qmul(r, qsub(v, x3)), qmul(s1, hhh));
+  Fe z3 = qmul(qmul(z1, z2), h);
+  // doubling of P (dbl-2009-l, a = 0)
+  Fe a = qmul(x1, x1), b = qmul(y1, y1);
+  Fe c = qmul(b, b);
+  Fe xb = qadd(x1, b);
+  Fe t = qsub(qsub(qmul(xb, xb), a), c);
+  Fe d = qadd(t, t);
+  Fe e = qadd(qadd(a, a), a);
+  Fe xd = qsub(qmul(e, e), qadd(d, d));
+  Fe c8 = qadd(qadd(c, c), qadd(c, c));
+  c8 = qadd(c8, c8);
+  Fe yd = qsub(qmul(e, qsub(d, xd)), c8);
+  Fe zd = qmul(qadd(y1, y1), z1);
+
+  bool p_id = fe_is_zero(z1), q_id = fe_is_zero(z2);
+  bool both = !p_id && !q_id;
+  bool use_dbl = both && fe_is_zero(h) && fe_is_zero(r);
+  bool use_id = both && fe_is_zero(h) && !fe_is_zero(r);
+  bool take_q = p_id && !q_id, take_id = p_id && q_id, take_p = q_id && !p_id;
+  Fe one = fe_one<Fq>(), zero = fe_zero();
+  ox = fe_sel(use_dbl, xd, x3);
+  oy = fe_sel(use_dbl, yd, y3);
+  oz = fe_sel(use_dbl, zd, z3);
+  ox = fe_sel(use_id || take_id, one, fe_sel(take_q, x2, fe_sel(take_p, x1, ox)));
+  oy = fe_sel(use_id || take_id, one, fe_sel(take_q, y2, fe_sel(take_p, y1, oy)));
+  oz = fe_sel(use_id || take_id, zero, fe_sel(take_q, z2, fe_sel(take_p, z1, oz)));
+}

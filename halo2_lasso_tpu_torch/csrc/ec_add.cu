@@ -1,0 +1,36 @@
+// Complete Jacobian addition on BN254 G1 over Fq, lane by lane, the port of
+// _ec_add_kernel (halo2_lasso_tpu/ops/pallas_ec.py:144; math _ec_add_body
+// :85, launcher _ec_add_call :154, pallas_call :167).
+//
+// add-2007-bl for the generic lanes, dbl-2009-l computed alongside for
+// P = Q, identity (x = y = R mod p, z = 0) for P = -Q, pass-through when
+// either input is the identity; the choice is branch-free per lane, as in
+// the TPU kernel. Bound: operations (about 30 Montgomery products per lane
+// against 288 bytes moved). The product is kept out of line so the kernel
+// body stays small enough for a build of seconds.
+#include "ec.cuh"
+
+__global__ void ec_add_kernel(const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                              const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
+                              uint32_t* x3, uint32_t* y3, uint32_t* z3, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe ox, oy, oz;
+  ec_add_lane(fe_load(x1, i), fe_load(y1, i), fe_load(z1, i), fe_load(x2, i), fe_load(y2, i),
+              fe_load(z2, i), ox, oy, oz);
+  fe_store(x3, i, ox);
+  fe_store(y3, i, oy);
+  fe_store(z3, i, oz);
+}
+
+extern "C" int h2l_ec_add(const void* x1, const void* y1, const void* z1, const void* x2,
+                          const void* y2, const void* z2, void* x3, void* y3, void* z3,
+                          long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  long long blocks = (n + threads - 1) / threads;
+  ec_add_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
+      (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,300 @@
+"""Constraint-system expression IR (the port's copy of
+halo2_lasso_tpu/expression.py).
+
+Semantics mirror the Rust reference AST (util/expression.rs): Constant /
+CommonPolynomial{Identity, Lagrange(i), EqXY(idx)} / Polynomial(Query{poly,
+rotation}) / Challenge(idx) / Neg / Sum / Product / Scaled /
+DistributePowers (expr0 + sum_{i>=1} base^i * expr_i).
+
+`evaluate_host` evaluates over Python ints (the verifier); `evaluate_torch`
+over field tensors (the prover). The sumcheck round kernel does not walk
+this tree: piop/sum_check.py lowers it to a postfix program once per
+`structural_key`.
+
+Constants/scalars are canonical python ints (mod p applied by the evaluators).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Dict, FrozenSet, Sequence, Tuple
+
+import torch
+
+from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops.field import FieldSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class Query:
+    poly: int
+    rotation: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Expression:
+    """Algebraic expression node. `kind` in {const, identity, lagrange, eq_xy,
+    poly, challenge, neg, sum, product, scaled, powers}."""
+
+    kind: str
+    args: Tuple = ()
+
+    # ---- constructors ----
+
+    @staticmethod
+    def constant(v: int) -> "Expression":
+        return Expression("const", (int(v),))
+
+    @staticmethod
+    def identity() -> "Expression":
+        return Expression("identity")
+
+    @staticmethod
+    def lagrange(i: int) -> "Expression":
+        return Expression("lagrange", (int(i),))
+
+    @staticmethod
+    def eq_xy(idx: int) -> "Expression":
+        return Expression("eq_xy", (int(idx),))
+
+    @staticmethod
+    def poly(idx: int, rotation: int = 0) -> "Expression":
+        return Expression("poly", (Query(idx, rotation),))
+
+    @staticmethod
+    def challenge(idx: int) -> "Expression":
+        return Expression("challenge", (int(idx),))
+
+    @staticmethod
+    def distribute_powers(exprs: Sequence["Expression"], base: "Expression") -> "Expression":
+        exprs = list(exprs)
+        assert exprs
+        if len(exprs) == 1:
+            return exprs[0]
+        return Expression("powers", (tuple(exprs), base))
+
+    # ---- operators ----
+
+    def __neg__(self):
+        return Expression("neg", (self,))
+
+    def __add__(self, other):
+        other = _coerce(other)
+        return Expression("sum", (self, other))
+
+    def __radd__(self, other):
+        return _coerce(other) + self
+
+    def __sub__(self, other):
+        return self + (-_coerce(other))
+
+    def __rsub__(self, other):
+        return _coerce(other) + (-self)
+
+    def __mul__(self, other):
+        if isinstance(other, int):
+            return Expression("scaled", (self, other))
+        return Expression("product", (self, other))
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    # ---- generic catamorphism with DAG memoization ----
+
+    def evaluate(
+        self,
+        constant: Callable,
+        common_poly: Callable,
+        poly: Callable,
+        challenge: Callable,
+        negated: Callable,
+        sum_: Callable,
+        product: Callable,
+        scaled: Callable,
+    ):
+        memo: Dict[int, object] = {}
+
+        def go(e: "Expression"):
+            key = id(e)
+            if key in memo:
+                return memo[key]
+            k = e.kind
+            if k == "const":
+                r = constant(e.args[0])
+            elif k in ("identity", "lagrange", "eq_xy"):
+                r = common_poly(e)
+            elif k == "poly":
+                r = poly(e.args[0])
+            elif k == "challenge":
+                r = challenge(e.args[0])
+            elif k == "neg":
+                r = negated(go(e.args[0]))
+            elif k == "sum":
+                r = sum_(go(e.args[0]), go(e.args[1]))
+            elif k == "product":
+                r = product(go(e.args[0]), go(e.args[1]))
+            elif k == "scaled":
+                r = scaled(go(e.args[0]), e.args[1])
+            elif k == "powers":
+                exprs, base = e.args
+                if len(exprs) == 1:
+                    r = go(exprs[0])
+                else:
+                    b = go(base)
+                    acc = go(exprs[0])
+                    power = b
+                    for i, ex in enumerate(exprs[1:]):
+                        if i > 0:
+                            power = product(power, b)
+                        acc = sum_(acc, product(power, go(ex)))
+                    r = acc
+            else:
+                raise ValueError(f"unknown kind {k}")
+            memo[key] = r
+            return r
+
+        return go(self)
+
+    # ---- queries ----
+
+    @functools.cached_property
+    def degree(self) -> int:
+        return self.evaluate(
+            lambda _: 0,
+            lambda _: 1,
+            lambda _: 1,
+            lambda _: 0,
+            lambda a: a,
+            lambda a, b: max(a, b),
+            lambda a, b: a + b,
+            lambda a, _: a,
+        )
+
+    def _collect(self, select: Callable) -> FrozenSet:
+        return self.evaluate(
+            lambda v: frozenset(),
+            lambda e: select("common", e),
+            lambda q: select("poly", q),
+            lambda c: select("challenge", c),
+            lambda a: a,
+            lambda a, b: a | b,
+            lambda a, b: a | b,
+            lambda a, _: a,
+        )
+
+    @functools.cached_property
+    def used_query(self) -> FrozenSet[Query]:
+        return self._collect(
+            lambda t, v: frozenset([v]) if t == "poly" else frozenset()
+        )
+
+    @functools.cached_property
+    def used_lagrange(self) -> FrozenSet[int]:
+        return self._collect(
+            lambda t, v: frozenset([v.args[0]])
+            if t == "common" and v.kind == "lagrange"
+            else frozenset()
+        )
+
+    @functools.cached_property
+    def used_eq_xy(self) -> FrozenSet[int]:
+        return self._collect(
+            lambda t, v: frozenset([v.args[0]])
+            if t == "common" and v.kind == "eq_xy"
+            else frozenset()
+        )
+
+    @functools.cached_property
+    def used_identity(self) -> bool:
+        return bool(
+            self._collect(
+                lambda t, v: frozenset([0])
+                if t == "common" and v.kind == "identity"
+                else frozenset()
+            )
+        )
+
+    @functools.cached_property
+    def used_challenge(self) -> FrozenSet[int]:
+        return self._collect(
+            lambda t, v: frozenset([v]) if t == "challenge" else frozenset()
+        )
+
+    @functools.cached_property
+    def structural_key(self) -> Tuple:
+        """Canonical hashable tree: equal keys <=> identical computations.
+        Used to share compiled round-kernel chunks across circuits/provers
+        (id()-based caching only dedups within one prover param object)."""
+        k = self.kind
+        if k == "const":
+            return ("const", self.args[0])
+        if k in ("identity",):
+            return ("identity",)
+        if k in ("lagrange", "eq_xy", "challenge"):
+            return (k, self.args[0])
+        if k == "poly":
+            q = self.args[0]
+            return ("poly", q.poly, q.rotation)
+        if k == "powers":
+            exprs, base = self.args
+            return ("powers", tuple(e.structural_key for e in exprs), base.structural_key)
+        if k == "scaled":
+            return ("scaled", self.args[0].structural_key, self.args[1])
+        return (k,) + tuple(a.structural_key for a in self.args)
+
+
+def _coerce(v) -> Expression:
+    if isinstance(v, Expression):
+        return v
+    if isinstance(v, int):
+        return Expression.constant(v)
+    raise TypeError(f"cannot coerce {type(v)} to Expression")
+
+
+# ---------------------------------------------------------------------------
+# evaluators
+# ---------------------------------------------------------------------------
+
+
+def evaluate_host(expr: Expression, p: int, leaf_fn: Callable, challenges: Sequence[int]) -> int:
+    """Evaluate over python ints mod p. `leaf_fn(kind, arg)` supplies values for
+    'identity' / ('lagrange', i) / ('eq_xy', idx) / Query leaves."""
+    return expr.evaluate(
+        lambda v: v % p,
+        lambda e: leaf_fn(e.kind, e.args[0] if e.args else None) % p,
+        lambda q: leaf_fn("poly", q) % p,
+        lambda c: challenges[c] % p,
+        lambda a: (-a) % p,
+        lambda a, b: (a + b) % p,
+        lambda a, b: (a * b) % p,
+        lambda a, s: (a * s) % p,
+    )
+
+
+def evaluate_torch(
+    spec: FieldSpec,
+    expr: Expression,
+    leaf_fn: Callable,
+    challenges: Sequence[torch.Tensor],
+    device,
+):
+    """Evaluate the expression over field tensors on `device`.
+
+    `leaf_fn(kind, arg)` returns an (n, 8) tensor for 'identity' /
+    ('lagrange', i) / ('eq_xy', idx) / Query leaves. Challenges are (8,)
+    Montgomery rows. Constants/scalars are encoded on the fly."""
+
+    def const(v):
+        return spec.encode([v % spec.modulus], device)[0]
+
+    return expr.evaluate(
+        lambda v: const(v),
+        lambda e: leaf_fn(e.kind, e.args[0] if e.args else None),
+        lambda q: leaf_fn("poly", q),
+        lambda c: challenges[c],
+        lambda a: F.neg(spec, a),
+        lambda a, b: F.add(spec, a, b),
+        lambda a, b: F.mont_mul(spec, a, b),
+        lambda a, s: F.mont_mul(spec, a, const(s)),
+    )

@@ -1,0 +1,174 @@
+"""BN254 G1 arithmetic (the port of halo2_lasso_tpu/ops/ec.py).
+
+A point batch is a dict {"x", "y", "z"} of (n, 8) Fq tensors in Jacobian
+coordinates; the identity has z = 0 (and x = y = R mod p when this module
+makes it). ``ec_add`` is the port of the TPU kernel _ec_add_kernel
+(ops/pallas_ec.py:144): on a CUDA tensor it launches csrc/ec_add.cu or
+raises; only CPU tensors take ``ec_add_plain``, the same formulas in plain
+field ops, bit for bit.
+
+MSMs run the halving-tree Pippenger of ops/msm_jacobian.py; commitments
+leave the device as affine (x, y) canonical ints, (0, 0) for the identity.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops import native
+from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+
+Points = Dict[str, torch.Tensor]
+COORDS = ("x", "y", "z")
+
+
+def identity_point(n: int, device="cpu") -> Points:
+    one = Fq.one(device).expand(n, F.LIMBS).contiguous()
+    return {"x": one, "y": one.clone(), "z": Fq.zeros(n, device)}
+
+
+def affine_to_jacobian(pts_xy: Sequence[Tuple[int, int]], device="cpu") -> Points:
+    """Canonical affine ints ((0, 0) = identity) -> Jacobian point batch."""
+    is_id = [x == 0 and y == 0 for x, y in pts_xy]
+    xs = [1 if i else x for (x, _), i in zip(pts_xy, is_id)]
+    ys = [1 if i else y for (_, y), i in zip(pts_xy, is_id)]
+    zs = [0 if i else 1 for i in is_id]
+    return {"x": Fq.encode(xs, device), "y": Fq.encode(ys, device), "z": Fq.encode(zs, device)}
+
+
+def jacobian_to_affine(pts: Points) -> List[Tuple[int, int]]:
+    """Device Jacobian batch -> host affine ints, one batch inversion."""
+    zinv = F.batch_inv(Fq, pts["z"])
+    zinv2 = F.mont_mul(Fq, zinv, zinv)
+    ax = Fq.decode_ints(F.mont_mul(Fq, pts["x"], zinv2))
+    ay = Fq.decode_ints(F.mont_mul(Fq, pts["y"], F.mont_mul(Fq, zinv2, zinv)))
+    zero = F.is_zero(pts["z"]).tolist()
+    return [(0, 0) if z else (x, y) for x, y, z in zip(ax, ay, zero)]
+
+
+# ---------------------------------------------------------------------------
+# complete Jacobian add: kernel wrapper + plain version
+# ---------------------------------------------------------------------------
+
+
+def ec_add_plain(p: Points, q: Points) -> Points:
+    """add-2007-bl with the dbl-2009-l doubling alongside and the same lane
+    selection as the kernel (ops/pallas_ec.py:85-141)."""
+    s = Fq
+    mul = functools.partial(F.mont_mul, s)
+    add = functools.partial(F.add, s)
+    sub = functools.partial(F.sub, s)
+    x1, y1, z1, x2, y2, z2 = p["x"], p["y"], p["z"], q["x"], q["y"], q["z"]
+    z1z1, z2z2 = mul(z1, z1), mul(z2, z2)
+    u1, u2 = mul(x1, z2z2), mul(x2, z1z1)
+    s1, s2 = mul(mul(y1, z2), z2z2), mul(mul(y2, z1), z1z1)
+    h, r = sub(u2, u1), sub(s2, s1)
+    hh = mul(h, h)
+    hhh = mul(hh, h)
+    v = mul(u1, hh)
+    x3 = sub(sub(mul(r, r), hhh), add(v, v))
+    y3 = sub(mul(r, sub(v, x3)), mul(s1, hhh))
+    z3 = mul(mul(z1, z2), h)
+    a, b = mul(x1, x1), mul(y1, y1)
+    c = mul(b, b)
+    xb = add(x1, b)
+    t = sub(sub(mul(xb, xb), a), c)
+    d = add(t, t)
+    e = add(add(a, a), a)
+    xd = sub(mul(e, e), add(d, d))
+    c8 = add(add(c, c), add(c, c))
+    c8 = add(c8, c8)
+    yd = sub(mul(e, sub(d, xd)), c8)
+    zd = mul(add(y1, y1), z1)
+
+    p_id, q_id = F.is_zero(z1), F.is_zero(z2)
+    both = ~p_id & ~q_id
+    use_dbl = both & F.is_zero(h) & F.is_zero(r)
+    use_id = both & F.is_zero(h) & ~F.is_zero(r)
+    take_q, take_id, take_p = p_id & ~q_id, p_id & q_id, q_id & ~p_id
+    one = s.one(x1.device)
+    zero = torch.zeros_like(one)
+
+    def pick(add_v, dbl_v, idp_v, p_v, q_v):
+        out = torch.where(use_dbl[:, None], dbl_v, add_v)
+        out = torch.where(take_p[:, None], p_v, out)
+        out = torch.where(take_q[:, None], q_v, out)
+        return torch.where((use_id | take_id)[:, None], idp_v, out)
+
+    return {
+        "x": pick(x3, xd, one, x1, x2),
+        "y": pick(y3, yd, one, y1, y2),
+        "z": pick(z3, zd, zero, z1, z2),
+    }
+
+
+def ec_add(p: Points, q: Points) -> Points:
+    """Lane-wise complete Jacobian add of two (n,) batches over Fq.
+    Kernel: csrc/ec_add.cu (port of pallas_ec._ec_add_kernel)."""
+    if p["x"].device.type == "cpu":
+        return ec_add_plain(p, q)
+    ins = [t.contiguous() for t in (p["x"], p["y"], p["z"], q["x"], q["y"], q["z"])]
+    n = ins[0].shape[0]
+    if any(t.shape != (n, F.LIMBS) for t in ins):
+        raise ValueError("ec_add: coordinates must be (n, 8) tensors of one length")
+    native.require_cuda("ec_add", *ins)
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    rc = native.lib().h2l_ec_add(
+        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n, native.stream()
+    )
+    native.check(rc, "ec_add")
+    native.counts["ec_add"] += 1
+    return dict(zip(COORDS, outs))
+
+
+def cat_points(*batches: Points) -> Points:
+    return {k: torch.cat([b[k] for b in batches]) for k in COORDS}
+
+
+def split_points(pts: Points, sizes: Sequence[int]) -> List[Points]:
+    parts = {k: pts[k].split(list(sizes)) for k in COORDS}
+    return [{k: parts[k][i] for k in COORDS} for i in range(len(sizes))]
+
+
+# ---------------------------------------------------------------------------
+# MSM entry points
+# ---------------------------------------------------------------------------
+
+
+def msm_to_affine_int(points: Points, scalars_mont: torch.Tensor) -> Tuple[int, int]:
+    """sum_i s_i * P_i for (n,) points and (n, 8) Montgomery Fr scalars."""
+    return msm_list_to_affine_int([(points, scalars_mont)])[0]
+
+
+def msm_list_to_affine_int(jobs: Sequence[Tuple[Points, torch.Tensor]]) -> List[Tuple[int, int]]:
+    """Independent MSMs (any sizes) -> affine ints, one inversion in all."""
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+
+    totals = [MJ.msm(points, scal) for points, scal in jobs]
+    return MJ.host_batch_affine(totals, Fq.modulus)
+
+
+def fixed_base_msm(base_xy: Tuple[int, int], scalars_mont: torch.Tensor, c: int = 8) -> Points:
+    """[s_i] * G for (n, 8) Montgomery scalars (msm.rs:67 semantics): a
+    per-base window table T[w, v] = v * 2^(c w) * G built once on the host,
+    one gather per window and a halving tree of adds over the windows."""
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+
+    device = scalars_mont.device
+    W = -(-Fr.num_bits // c)
+    Wp = 1 << (W - 1).bit_length()
+    table = MJ.fixed_base_table(base_xy, c, W, Wp, str(device))
+    digits = MJ.digits_all(F.from_mont(Fr, scalars_mont), c, Wp)  # (Wp, n)
+    n = scalars_mont.shape[0]
+    woff = (torch.arange(Wp, device=device) << c)[:, None]
+    idx = (digits + woff).reshape(-1)
+    pts = {k: table[k][idx] for k in COORDS}
+    while pts["x"].shape[0] > n:
+        half = pts["x"].shape[0] // 2
+        lo, hi = split_points(pts, [half, half])
+        pts = ec_add(lo, hi)
+    return pts

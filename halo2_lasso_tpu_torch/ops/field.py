@@ -1,0 +1,288 @@
+"""Prime-field arithmetic on torch tensors.
+
+Layout (the port's one field layout, see the package docstring): an element
+is a row of 8 little-endian 32-bit limbs held in ``torch.int32`` storage
+(the bit pattern of ``uint32``), shape ``(..., 8)``, in Montgomery form with
+R = 2^256 and always fully reduced into [0, p). The JAX package keeps the
+same 256-bit numbers as 16 limbs of 16 bits (``ops/field.py:86``), so
+``from_jax_limbs`` / ``to_jax_limbs`` are a repack, not a bigint decode.
+
+The plain versions compute on 16-bit limbs in ``int64``, where every product
+and lazy column sum fits exactly (torch has no general ``uint32`` arithmetic
+on the CPU). ``mont_mul`` is the one kernel of this module: on a CUDA tensor
+it launches ``csrc/mont_mul.cu`` or raises; only a CPU tensor takes the
+plain version. ``add``/``sub``/``neg`` are plain tensor code on any device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from halo2_lasso_tpu_torch.ops import native
+
+LIMBS = 8  # 32-bit limbs per element
+_M16 = 0xFFFF
+
+
+def ints_to_u32(values) -> np.ndarray:
+    """Python ints in [0, 2^256) -> uint32 (n, 8) little-endian limbs."""
+    buf = b"".join(int(v).to_bytes(32, "little") for v in values)
+    return np.frombuffer(buf, dtype="<u4").reshape(-1, LIMBS).astype(np.uint32)
+
+
+def u32_to_ints(arr: np.ndarray) -> list:
+    buf = np.ascontiguousarray(arr, dtype="<u4").tobytes()
+    return [int.from_bytes(buf[i : i + 32], "little") for i in range(0, len(buf), 32)]
+
+
+def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def from_numpy_u32(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    a = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def from_jax_limbs(arr, device="cpu") -> torch.Tensor:
+    """JAX package limbs (uint32[..., 16], 16-bit) -> port tensor int32[..., 8]."""
+    a = np.asarray(arr).astype(np.uint32)
+    return from_numpy_u32(a[..., 0::2] | (a[..., 1::2] << np.uint32(16)), device)
+
+
+def to_jax_limbs(t: torch.Tensor) -> np.ndarray:
+    """Port tensor int32[..., 8] -> JAX package limbs uint32[..., 16]."""
+    a = to_numpy_u32(t)
+    out = np.empty(a.shape[:-1] + (2 * LIMBS,), np.uint32)
+    out[..., 0::2] = a & np.uint32(_M16)
+    out[..., 1::2] = a >> np.uint32(16)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldSpec:
+    """A prime field in the port's Montgomery layout. ``kernel_id`` selects
+    the modulus compiled into the CUDA kernels (0 = Fr, 1 = Fq)."""
+
+    name: str
+    modulus: int
+    kernel_id: int
+
+    def __post_init__(self):
+        p = self.modulus
+        R = 1 << (32 * LIMBS)
+        object.__setattr__(self, "R", R % p)
+        object.__setattr__(self, "R2", R * R % p)
+        object.__setattr__(self, "Rinv", pow(R, -1, p))
+        object.__setattr__(self, "npr16", (-pow(p, -1, 1 << 16)) % (1 << 16))
+        object.__setattr__(self, "num_bits", p.bit_length())
+
+    def to_mont_int(self, x: int) -> int:
+        return x * self.R % self.modulus
+
+    def from_mont_int(self, x: int) -> int:
+        return x * self.Rinv % self.modulus
+
+    def encode(self, values, device="cpu") -> torch.Tensor:
+        """Canonical ints (any shape) -> Montgomery tensor (..., 8)."""
+        arr = np.asarray(values, dtype=object)
+        flat = [self.to_mont_int(int(v) % self.modulus) for v in arr.reshape(-1)]
+        out = from_numpy_u32(ints_to_u32(flat), device)
+        return out.reshape(arr.shape + (LIMBS,))
+
+    def decode(self, t: torch.Tensor) -> np.ndarray:
+        """Montgomery tensor (..., 8) -> object array of canonical ints."""
+        ints = u32_to_ints(to_numpy_u32(t).reshape(-1, LIMBS))
+        out = np.empty(len(ints), dtype=object)
+        for i, v in enumerate(ints):
+            out[i] = self.from_mont_int(v)
+        return out.reshape(tuple(t.shape[:-1]))
+
+    def decode_ints(self, t: torch.Tensor) -> list:
+        return [int(v) for v in self.decode(t).reshape(-1)]
+
+    def one(self, device="cpu") -> torch.Tensor:
+        return _const(self, "one", str(device))
+
+    def zeros(self, n: int, device="cpu") -> torch.Tensor:
+        return torch.zeros((n, LIMBS), dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(spec: FieldSpec, what: str, device: str) -> torch.Tensor:
+    if what == "p16":
+        p = spec.modulus
+        return torch.tensor([(p >> (16 * i)) & _M16 for i in range(16)], dtype=torch.int64, device=device)
+    val = {"one": spec.R, "r2": spec.R2, "canon_one": 1}[what]
+    return from_numpy_u32(ints_to_u32([val])[0], device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions on 16-bit limbs in int64
+# ---------------------------------------------------------------------------
+
+
+def _split(a: torch.Tensor) -> torch.Tensor:
+    """int32 (..., 8) -> int64 (..., 16) 16-bit limbs."""
+    a = a.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([a & _M16, a >> 16], dim=-1).flatten(-2)
+
+
+def _join(t: torch.Tensor) -> torch.Tensor:
+    """Normalized int64 (..., 16) -> int32 (..., 8)."""
+    t = t.unflatten(-1, (LIMBS, 2))
+    v = t[..., 0] | (t[..., 1] << 16)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Resolve lazy (possibly negative) limbs of a non-negative number."""
+    v = v.clone()
+    while True:
+        c = v[..., :-1] >> 16
+        if not bool(c.any()):
+            return v
+        v[..., :-1] -= c << 16
+        v[..., 1:] += c
+
+
+def _geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a >= b for normalized limb arrays (broadcasting)."""
+    d = a - b
+    idx = ((d != 0) * torch.arange(d.shape[-1], device=d.device)).amax(-1, keepdim=True)
+    return d.gather(-1, idx).squeeze(-1) >= 0
+
+
+def _p16(spec: FieldSpec, device) -> torch.Tensor:
+    return _const(spec, "p16", str(device))
+
+
+def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    p16 = _p16(spec, a.device)
+    s = _norm(_split(a) + _split(b))
+    return _join(_norm(s - _geq(s, p16)[..., None] * p16))
+
+
+def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    A, B = torch.broadcast_tensors(_split(a), _split(b))
+    lt = ~_geq(A, B)
+    return _join(_norm(A - B + lt[..., None] * _p16(spec, a.device)))
+
+
+def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    A = _split(a)
+    nz = A.any(-1, keepdim=True)
+    return _join(_norm(nz * _p16(spec, a.device) - A))
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b/R mod p: schoolbook over 16-bit limbs, then
+    limb-by-limb Montgomery reduction with -p^-1 mod 2^16. Columns stay
+    below 2^38, exact in int64. Limb-major (16, n) so every row update is
+    one contiguous slice."""
+    A, B = torch.broadcast_tensors(_split(a), _split(b))
+    shape = A.shape[:-1]
+    A = A.reshape(-1, 16).T.contiguous()
+    B = B.reshape(-1, 16).T.contiguous()
+    t = torch.zeros((33, A.shape[1]), dtype=torch.int64, device=A.device)
+    for i in range(16):
+        t[i : i + 16] += A[i] * B
+    p16 = _p16(spec, A.device)
+    pcol = p16[:, None]
+    for i in range(16):
+        m = (t[i] * spec.npr16) & _M16
+        t[i : i + 16] += m * pcol
+        t[i + 1] += t[i] >> 16
+    p17 = torch.cat([p16, p16.new_zeros(1)])
+    r = _norm(t[16:].T)
+    r = _norm(r - _geq(r, p17)[..., None] * p17)
+    return _join(r[..., :16]).reshape(shape + (LIMBS,))
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Montgomery product; ``b`` may be a single element (8,).
+    Kernel: csrc/mont_mul.cu (port of pallas_field.make_mont_mul)."""
+    if a.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    a = a.expand(shape).contiguous()
+    bcast = tuple(b.shape) == (LIMBS,)
+    b = b.contiguous() if bcast else b.expand(shape).contiguous()
+    native.require_cuda("mont_mul", a, b)
+    out = torch.empty_like(a)
+    rc = native.lib().h2l_mont_mul(
+        spec.kernel_id, a.data_ptr(), b.data_ptr(), int(bcast), out.data_ptr(),
+        a.numel() // LIMBS, native.stream(),
+    )
+    native.check(rc, "mont_mul")
+    native.counts["mont_mul"] += 1
+    return out
+
+
+def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(spec, a, _const(spec, "r2", str(a.device)))
+
+
+def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(spec, a, _const(spec, "canon_one", str(a.device)))
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    return (a == 0).all(-1)
+
+
+def u32_to_mont(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Small non-negative integers (..., ) -> Montgomery elements (..., 8)."""
+    x = x.to(torch.int64)
+    limbs = torch.zeros(x.shape + (LIMBS,), dtype=torch.int64, device=x.device)
+    limbs[..., 0] = x & 0xFFFFFFFF
+    limbs = torch.where(limbs >= 1 << 31, limbs - (1 << 32), limbs).to(torch.int32)
+    return to_mont(spec, limbs)
+
+
+def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    result = spec.one(a.device).expand(a.shape).contiguous()
+    base = a
+    while exponent:
+        if exponent & 1:
+            result = mont_mul(spec, result, base)
+        exponent >>= 1
+        if exponent:
+            base = mont_mul(spec, base, base)
+    return result
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Invert every row of (n, 8) (zeros stay zero): log-depth prefix and
+    suffix products and ONE Fermat inversion, as ops/field.py:416 does."""
+    zero = is_zero(a)
+    one = spec.one(a.device)
+    aa = torch.where(zero[:, None], one, a)
+
+    def scan(x):  # inclusive prefix products, Hillis-Steele
+        k = 1
+        while k < x.shape[0]:
+            x = torch.cat([x[:k], mont_mul(spec, x[k:], x[:-k])])
+            k *= 2
+        return x
+
+    pre = scan(aa)
+    suf = scan(aa.flip(0)).flip(0)
+    total_inv = pow_fixed(spec, pre[-1:], spec.modulus - 2)
+    pre_ex = torch.cat([one[None], pre[:-1]])
+    suf_ex = torch.cat([suf[1:], one[None]])
+    out = mont_mul(spec, mont_mul(spec, pre_ex, suf_ex), total_inv.expand_as(pre_ex))
+    return torch.where(zero[:, None], torch.zeros_like(out), out)
+
+
+def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Field sum over axis 0 by a pairwise tree of adds -> (8,)."""
+    while a.shape[0] > 1:
+        if a.shape[0] % 2:
+            a = torch.cat([a, torch.zeros_like(a[:1])])
+        a = add(spec, a[0::2], a[1::2])
+    return a[0]

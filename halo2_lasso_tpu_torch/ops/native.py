@@ -1,0 +1,133 @@
+"""Build, load and launch the hand-written CUDA kernels of the port.
+
+All kernel sources (``halo2_lasso_tpu_torch/csrc/*.cu`` over the shared
+``field.cuh``) are compiled by ONE ``nvcc`` call into one shared library with
+a plain C interface, loaded with ``ctypes``. Nothing includes PyTorch's
+headers, so the build takes seconds, and nothing compiles after it: the
+library is named by a hash of its sources, so a stale build is never loaded
+and an existing one is reused.
+
+The build happens on the first launch of any kernel (never at import time:
+the CPU tests import every module and have no ``nvcc``). Every C entry point
+returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
+
+``counts`` holds one launch counter per kernel. A wrapper adds one where it
+launches its kernel and nowhere else; ``reset_counts`` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+BUILD_TIMEOUT_S = 600
+
+KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add")
+counts = {k: 0 for k in KERNELS}
+build_seconds = None  # wall time of the nvcc call, when this process built
+
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "h2l_mont_mul": [_I, _P, _P, _I, _P, _LL, _P],
+    "h2l_fold_all": [_P, _P, _I, _LL, _LL, _P, _P],
+    "h2l_sumcheck_round": [_P, _LL, _P, _I, _P, _P, _I, _P, _I, _P, _P],
+    "h2l_round_max_stack": [],
+    "h2l_ec_add": [_P] * 9 + [_LL, _P],
+}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile every kernel source into one library; returns its path."""
+    global build_seconds
+    h = hashlib.sha256()
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR, f"libh2l_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cu = [s for s in sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    build_seconds = time.perf_counter() - t0
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        dll = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = dll
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Validate the tensors a kernel receives: int32 field rows on one card,
+    contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every input must lie on the same CUDA device")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous int32 tensors")
+
+
+def pointer_table(tensors, device) -> torch.Tensor:
+    """Device array of the tensors' data pointers (for one-launch batches)."""
+    return torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64).to(
+        device, non_blocking=False
+    )

@@ -1,0 +1,122 @@
+"""Polynomial commitment schemes (the port of halo2_lasso_tpu/pcs/__init__.py).
+
+Commitments cross the host boundary as affine (x, y) canonical int pairs
+((0, 0) = identity); the MSMs run on the device. The additive batch open
+reduces many (poly, point) claims to one opening through the degree-2
+coefficient sumcheck (pcs/multilinear.rs:109-276 semantics).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import torch
+
+from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops import pairing as hostec
+from halo2_lasso_tpu_torch.ops.bn254 import Fr
+from halo2_lasso_tpu_torch.piop import sum_check
+from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+from halo2_lasso_tpu_torch.utils.timer import timed
+
+
+@dataclasses.dataclass(frozen=True)
+class Evaluation:
+    """(poly index, point index, claimed value) — pcs.rs:133-155."""
+
+    poly: int
+    point: int
+    value: int
+
+
+def g1_sum_with_scalar(scalars: Sequence[int], bases: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
+    """Host small MSM over commitment points (pcs.rs:157-177)."""
+    acc = None
+    for s, b in zip(scalars, bases):
+        if s % Fr.modulus == 0 or (b[0] == 0 and b[1] == 0):
+            continue
+        acc = hostec._add(acc, hostec._mul(b, s % Fr.modulus))
+    return (0, 0) if acc is None else acc
+
+
+def _eq_xt(t: Sequence[int], device) -> List[int]:
+    if not t:
+        return [1]
+    return Fr.decode_ints(mle.eq_xy(Fr, Fr.encode(list(t), device)))
+
+
+def additive_batch_open(
+    pcs,
+    pp,
+    num_vars: int,
+    polys: Sequence[torch.Tensor],
+    points: Sequence[Sequence[int]],
+    evals: Sequence[Evaluation],
+    transcript: Keccak256Transcript,
+) -> None:
+    """pcs/multilinear.rs:134-235 semantics. `polys` are (2^k, 8) tensors."""
+    spec = Fr
+    p = spec.modulus
+    device = polys[0].device
+    ell = (len(evals) - 1).bit_length() if len(evals) > 1 else 0
+    eq_xt = _eq_xt(transcript.squeeze_challenges(ell), device)
+
+    def scaled(arr, c):
+        return F.mont_mul(spec, arr, spec.encode([c], device)[0])
+
+    # merge polys per point (scalar bookkeeping mirrors the reference fold)
+    merged: List = [None] * len(points)  # (scalar, tensor) | None
+    for ev, eq_i in zip(evals, eq_xt):
+        j = ev.point
+        if merged[j] is None:
+            merged[j] = (eq_i, polys[ev.poly])
+        else:
+            coeff, arr = merged[j]
+            if coeff != 1:
+                arr = scaled(arr, coeff)
+            merged[j] = (1, F.add(spec, arr, scaled(polys[ev.poly], eq_i)))
+
+    terms = []
+    for j, m in enumerate(merged):
+        if m is not None:
+            scalar, arr = m
+            terms.append((scalar, mle.eq_xy(spec, spec.encode(list(points[j]), device)), arr, j))
+
+    tilde_gs_sum = sum(ev.value * eq_i for ev, eq_i in zip(evals, eq_xt)) % p
+    with timed.scope("batch_open_sumcheck"):
+        challenges, _ = sum_check.prove_coeff_products(
+            spec, num_vars, [(s, e, a) for s, e, a, _ in terms], tilde_gs_sum, transcript
+        )
+
+    # g' = sum_j (scalar_j * eq_xy_eval(challenges, point_j)) * merged_j
+    g_prime = None
+    for scalar, _, arr, j in terms:
+        contrib = scaled(arr, scalar * mle.eq_xy_eval_host(p, challenges, list(points[j])) % p)
+        g_prime = contrib if g_prime is None else F.add(spec, g_prime, contrib)
+
+    with timed.scope("batch_open_pcs_open"):
+        pcs.open(pp, g_prime, challenges, None, transcript)
+
+
+def additive_batch_verify(
+    pcs,
+    vp,
+    num_vars: int,
+    comms: Sequence[Tuple[int, int]],
+    points: Sequence[Sequence[int]],
+    evals: Sequence[Evaluation],
+    transcript: Keccak256Transcript,
+) -> None:
+    """pcs/multilinear.rs:237-275 semantics."""
+    p = Fr.modulus
+    ell = (len(evals) - 1).bit_length() if len(evals) > 1 else 0
+    t = transcript.squeeze_challenges(ell)
+    eq_xt = [1] if not t else [mle.lagrange_eval_host(p, t, b) for b in range(1 << ell)]
+    tilde_gs_sum = sum(ev.value * eq_i for ev, eq_i in zip(evals, eq_xt)) % p
+    g_prime_eval, challenges = sum_check.verify_coeff(p, num_vars, 2, tilde_gs_sum, transcript)
+    eq_xy_evals = [mle.eq_xy_eval_host(p, challenges, list(pt)) for pt in points]
+    scalars = [eq_xy_evals[ev.point] * eq_i % p for ev, eq_i in zip(evals, eq_xt)]
+    bases = [comms[ev.poly] for ev in evals]
+    pcs.verify(vp, g1_sum_with_scalar(scalars, bases), challenges, g_prime_eval, transcript)

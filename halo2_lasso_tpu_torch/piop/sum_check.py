@@ -1,0 +1,460 @@
+"""Sumcheck PIOP, EvaluationsProver semantics (the port of
+halo2_lasso_tpu/piop/sum_check.py).
+
+Each round writes the round polynomial's evaluations at t = 0..degree
+(evals[0] = sum - evals[1]), squeezes a challenge and folds every leaf
+table; the verifier checks evals[0] + evals[1] == claim and interpolates at
+the challenge. Leaf tables are uniform MLEs (polys, eq tables, identity and
+Lagrange columns), `_leaf_keys` as in the reference.
+
+``round_message`` is the port of the TPU kernel make_sumcheck_round
+(ops/pallas_field.py:376). Instead of generating a kernel per expression,
+the host lowers the expression ONCE per structural key to a postfix program
+(``lower_expression``) that csrc/sumcheck_round.cu interprets; the message
+is summed exactly on the card. On a CUDA tensor the wrapper launches the
+kernel or raises; only CPU tensors take ``round_message_plain``, which runs
+the same program with plain field ops. The TPU policies of the reference
+(host tail rounds, PALLAS_MIN, the 40-leaf cap, term chunking) are dropped:
+every round of every size goes through the kernel and the proof bytes are
+unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from halo2_lasso_tpu_torch.errors import Halo2LassoError
+from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host
+from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops import native
+from halo2_lasso_tpu_torch.ops.field import FieldSpec
+from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.poly.bh import BooleanHypercube
+from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+
+class SumcheckError(Halo2LassoError):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# host scalar helpers
+# ---------------------------------------------------------------------------
+
+
+def barycentric_weights(p: int, points: Sequence[int]) -> List[int]:
+    ws = []
+    for j, pj in enumerate(points):
+        w = 1
+        for i, pi in enumerate(points):
+            if i != j:
+                w = w * (pj - pi) % p
+        ws.append(pow(w, -1, p))
+    return ws
+
+
+def barycentric_interpolate(
+    p: int, weights: Sequence[int], points: Sequence[int], evals: Sequence[int], x: int
+) -> int:
+    coeffs = [pow((x - pt) % p, -1, p) * w % p for pt, w in zip(points, weights)]
+    s = sum(coeffs) % p
+    num = sum(c * e for c, e in zip(coeffs, evals)) % p
+    return num * pow(s, -1, p) % p
+
+
+def evaluate_at_point(
+    expr: Expression,
+    p: int,
+    num_vars: int,
+    evals: Dict[Query, int],
+    challenges: Sequence[int],
+    ys: Sequence[Sequence[int]],
+    x: Sequence[int],
+) -> int:
+    """Verifier-side evaluation of the composed expression at point x
+    (piop/sum_check.rs:60-98 semantics)."""
+    bh_seq = BooleanHypercube(num_vars).iter_indices()
+    identity = mle.identity_eval_host(p, x)
+    eq_vals = [mle.eq_xy_eval_host(p, x, y) for y in ys]
+
+    def leaf(kind, arg):
+        if kind == "identity":
+            return identity
+        if kind == "lagrange":
+            b = int(bh_seq[arg % (1 << num_vars)])
+            return mle.lagrange_eval_host(p, x, b)
+        if kind == "eq_xy":
+            return eq_vals[arg]
+        if kind == "poly":
+            return evals[arg]
+        raise ValueError(kind)
+
+    return evaluate_host(expr, p, leaf, list(challenges))
+
+
+# ---------------------------------------------------------------------------
+# the round kernel: postfix program + launcher + plain version
+# ---------------------------------------------------------------------------
+
+OP_LEAF, OP_CONST, OP_CHAL, OP_NEG, OP_ADD, OP_MUL, OP_SCALED = range(7)
+MAX_STACK = 8  # csrc/sumcheck_round.cu MAX_STACK, checked before each launch
+MAX_DEGREE = 8  # csrc/sumcheck_round.cu MAX_DEGREE, checked by its launcher
+_THREADS = 256
+_MAX_BLOCKS = 1024
+
+
+@dataclasses.dataclass
+class RoundProgram:
+    """Postfix form of an expression over leaf tables: (op, arg) pairs;
+    ``consts`` are the canonical ints that CONST / SCALED args index."""
+
+    ops: Tuple[Tuple[int, int], ...]
+    consts: Tuple[int, ...]
+    max_stack: int
+    _dev: dict = dataclasses.field(default_factory=dict)
+
+    def device_tensors(self, spec: FieldSpec, device):
+        key = str(device)
+        if key not in self._dev:
+            prog = torch.tensor(self.ops, dtype=torch.int32).reshape(-1, 2).to(device)
+            consts = spec.encode(list(self.consts) or [0], device)
+            self._dev[key] = (prog, consts)
+        return self._dev[key]
+
+
+_PROGRAMS: Dict[Tuple, RoundProgram] = {}
+
+
+def lower_expression(expression: Expression, keys: Sequence[Tuple]) -> RoundProgram:
+    """Lower the expression to a postfix program over the leaf tables in
+    `keys` order, cached on its structural key. DistributePowers becomes
+    Horner's rule: e0 + b(e1 + b(e2 + ...))."""
+    cache_key = (expression.structural_key, tuple(keys))
+    prog = _PROGRAMS.get(cache_key)
+    if prog is not None:
+        return prog
+    leaf_index = {k: i for i, k in enumerate(keys)}
+    ops: List[Tuple[int, int]] = []
+    consts: List[int] = []
+
+    def const(v: int) -> int:
+        consts.append(int(v))
+        return len(consts) - 1
+
+    def emit(e: Expression):
+        k = e.kind
+        if k == "const":
+            ops.append((OP_CONST, const(e.args[0])))
+        elif k == "challenge":
+            ops.append((OP_CHAL, e.args[0]))
+        elif k == "poly":
+            q = e.args[0]
+            ops.append((OP_LEAF, leaf_index[("poly", q.poly, q.rotation)]))
+        elif k == "eq_xy":
+            ops.append((OP_LEAF, leaf_index[("eq", e.args[0])]))
+        elif k == "identity":
+            ops.append((OP_LEAF, leaf_index[("identity",)]))
+        elif k == "lagrange":
+            ops.append((OP_LEAF, leaf_index[("lagrange", e.args[0])]))
+        elif k == "neg":
+            emit(e.args[0])
+            ops.append((OP_NEG, 0))
+        elif k in ("sum", "product"):
+            emit(e.args[0])
+            emit(e.args[1])
+            ops.append((OP_ADD if k == "sum" else OP_MUL, 0))
+        elif k == "scaled":
+            emit(e.args[0])
+            ops.append((OP_SCALED, const(e.args[1])))
+        elif k == "powers":
+            exprs, base = e.args
+            emit(exprs[-1])
+            for ex in reversed(exprs[:-1]):
+                emit(base)
+                ops.append((OP_MUL, 0))
+                emit(ex)
+                ops.append((OP_ADD, 0))
+        else:
+            raise ValueError(f"unknown kind {k}")
+
+    emit(expression)
+    depth = max_depth = 0
+    for op, _ in ops:
+        depth += 1 if op in (OP_LEAF, OP_CONST, OP_CHAL) else (-1 if op in (OP_ADD, OP_MUL) else 0)
+        max_depth = max(max_depth, depth)
+    if max_depth > MAX_STACK:
+        raise SumcheckError(f"expression needs a stack of {max_depth} > {MAX_STACK}")
+    prog = RoundProgram(tuple(ops), tuple(consts), max_depth)
+    _PROGRAMS[cache_key] = prog
+    return prog
+
+
+def round_message_plain(
+    spec: FieldSpec,
+    tables: Sequence[torch.Tensor],
+    program: RoundProgram,
+    challenges: torch.Tensor,
+    degree: int,
+) -> torch.Tensor:
+    """(degree, 8): sum over pairs of the program at t = 1..degree."""
+    device = tables[0].device
+    h = tables[0].shape[0] // 2
+    lo = [t[0::2] for t in tables]
+    vals = [t[1::2] for t in tables]
+    steps = [F.sub(spec, v, l) for v, l in zip(vals, lo)] if degree > 1 else None
+    consts = spec.encode(list(program.consts) or [0], device)
+    out = []
+    for t in range(1, degree + 1):
+        if t > 1:
+            vals = [F.add(spec, v, s) for v, s in zip(vals, steps)]
+        st: List[torch.Tensor] = []
+        for op, arg in program.ops:
+            if op == OP_LEAF:
+                st.append(vals[arg])
+            elif op == OP_CONST:
+                st.append(consts[arg])
+            elif op == OP_CHAL:
+                st.append(challenges[arg])
+            elif op == OP_NEG:
+                st.append(F.neg(spec, st.pop()))
+            elif op == OP_ADD:
+                b = st.pop()
+                st.append(F.add(spec, st.pop(), b))
+            else:
+                b = st.pop() if op == OP_MUL else consts[arg]
+                st.append(F.mont_mul(spec, st.pop(), b))
+        out.append(F.sum_reduce(spec, st[0].expand(h, F.LIMBS)))
+    return torch.stack(out)
+
+
+def round_message(
+    spec: FieldSpec,
+    tables: Sequence[torch.Tensor],
+    program: RoundProgram,
+    challenges: torch.Tensor,
+    degree: int,
+) -> torch.Tensor:
+    """Round message at t = 1..degree over the leaf tables (each (2h, 8),
+    pairs (2i, 2i+1)); challenges (c, 8) or None. Kernel:
+    csrc/sumcheck_round.cu."""
+    tables = list(tables)
+    if tables[0].device.type == "cpu":
+        return round_message_plain(spec, tables, program, challenges, degree)
+    if spec.kernel_id != 0:
+        raise ValueError("sumcheck_round: the kernel is compiled for Fr only")
+    if not 1 <= degree <= MAX_DEGREE:
+        raise SumcheckError(f"degree {degree} outside 1..{MAX_DEGREE}")
+    device = tables[0].device
+    n = tables[0].shape[0]
+    if any(t.shape != (n, F.LIMBS) for t in tables) or n % 2:
+        raise ValueError("sumcheck_round: tables must share one even length")
+    lib = native.lib()
+    if program.max_stack > lib.h2l_round_max_stack():
+        raise SumcheckError("program deeper than the compiled kernel's stack")
+    prog, consts = program.device_tensors(spec, device)
+    chals = challenges if challenges is not None else spec.zeros(1, device)
+    native.require_cuda("sumcheck_round", chals, consts, *tables)
+    h = n // 2
+    nblocks = max(1, min(_MAX_BLOCKS, -(-h // _THREADS)))
+    partials = torch.empty((nblocks * degree, F.LIMBS), dtype=torch.int32, device=device)
+    out = torch.empty((degree, F.LIMBS), dtype=torch.int32, device=device)
+    leaves = native.pointer_table(tables, device)
+    rc = lib.h2l_sumcheck_round(
+        leaves.data_ptr(), h, prog.data_ptr(), len(program.ops), consts.data_ptr(),
+        chals.data_ptr(), degree, partials.data_ptr(), nblocks, out.data_ptr(),
+        native.stream(),
+    )
+    native.check(rc, "sumcheck_round")
+    native.counts["sumcheck_round"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# prover
+# ---------------------------------------------------------------------------
+
+
+class VirtualPolynomial:
+    """expression over polys ((2^k, 8) tensors) + challenges + ys (host ints)."""
+
+    def __init__(
+        self,
+        expression: Expression,
+        polys: Sequence[torch.Tensor],
+        challenges: Sequence[int],
+        ys: Sequence[Sequence[int]],
+    ):
+        self.expression = expression
+        self.polys = list(polys)
+        self.challenges = list(challenges)
+        self.ys = [list(y) for y in ys]
+
+
+def _leaf_keys(expression: Expression, num_polys: int):
+    keys = [("poly", i, 0) for i in range(num_polys)]
+    for q in sorted(expression.used_query, key=lambda q: (q.poly, q.rotation)):
+        if q.rotation != 0:
+            keys.append(("poly", q.poly, q.rotation))
+    for idx in sorted(expression.used_eq_xy):
+        keys.append(("eq", idx))
+    if expression.used_identity:
+        keys.append(("identity",))
+    for i in sorted(expression.used_lagrange):
+        keys.append(("lagrange", i))
+    return keys
+
+
+def _leaf_table(spec: FieldSpec, key, vp: VirtualPolynomial, num_vars: int, device):
+    kind = key[0]
+    n = 1 << num_vars
+    if kind == "poly":
+        if key[2] != 0:
+            raise SumcheckError("rotated queries are not ported yet")
+        return vp.polys[key[1]]
+    if kind == "eq":
+        return mle.eq_xy(spec, spec.encode(vp.ys[key[1]], device))
+    if kind == "identity":
+        return F.u32_to_mont(spec, torch.arange(n, device=device))
+    if kind == "lagrange":
+        b = int(BooleanHypercube(num_vars).iter_indices()[key[1] % n])
+        onehot = torch.zeros(n, dtype=torch.int64, device=device)
+        onehot[b] = 1
+        return F.u32_to_mont(spec, onehot)
+    raise ValueError(key)
+
+
+def prove(
+    spec: FieldSpec,
+    num_vars: int,
+    virtual_poly: VirtualPolynomial,
+    sum_: int,
+    transcript: Keccak256Transcript,
+) -> Tuple[List[int], List[int]]:
+    """Run the sumcheck prover; returns (challenges, final poly evals as ints).
+    Mirrors ClassicSumCheck::prove (classic.rs:208-240): message per round,
+    squeeze, fold."""
+    expression = virtual_poly.expression
+    degree = expression.degree
+    p = spec.modulus
+    assert num_vars > 0
+    device = virtual_poly.polys[0].device
+    keys = _leaf_keys(expression, len(virtual_poly.polys))
+    tables = [_leaf_table(spec, k, virtual_poly, num_vars, device) for k in keys]
+    program = lower_expression(expression, keys)
+    chal = spec.encode(virtual_poly.challenges, device) if virtual_poly.challenges else None
+
+    challenges: List[int] = []
+    current_sum = sum_ % p
+    points = list(range(degree + 1))
+    weights = barycentric_weights(p, points)
+    for _ in range(num_vars):
+        msg_tail = spec.decode_ints(round_message(spec, tables, program, chal, degree))
+        evals = [(current_sum - msg_tail[0]) % p] + msg_tail
+        transcript.write_field_elements(evals)
+        r = transcript.squeeze_challenge()
+        challenges.append(r)
+        current_sum = barycentric_interpolate(p, weights, points, evals, r)
+        tables = mle.fold_all(spec, tables, spec.encode([r], device)[0])
+    n_polys = len(virtual_poly.polys)
+    return challenges, spec.decode_ints(torch.cat([t[:1] for t in tables[:n_polys]]))
+
+
+# ---------------------------------------------------------------------------
+# coefficients prover (degree-2, for PCS additive batch-open)
+# ---------------------------------------------------------------------------
+
+
+def prove_coeff_products(
+    spec: FieldSpec,
+    num_vars: int,
+    terms: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
+    sum_: int,
+    transcript: Keccak256Transcript,
+) -> Tuple[List[int], List[torch.Tensor]]:
+    """Sumcheck with COEFFICIENT round messages for sum_j s_j * eq_j * poly_j
+    (pcs/multilinear.rs:186-201): per round [c0, c1, c2] with
+    c1 = sum - 2*c0 - c2 (coeff.rs:137-147). terms: (scalar, eq table,
+    poly). Returns (challenges, final folded polys, each (1, 8))."""
+    p = spec.modulus
+    T = len(terms)
+    tables = [t[1] for t in terms] + [t[2] for t in terms]
+    scalars = [t[0] % p for t in terms]
+    device = tables[0].device
+    challenges: List[int] = []
+    current_sum = sum_ % p
+    for _ in range(num_vars):
+        st = torch.stack(tables)  # (2T, n, 8)
+        e0, e1 = st[:T, 0::2], st[:T, 1::2]
+        p0, p1 = st[T:, 0::2], st[T:, 1::2]
+        prods = F.mont_mul(
+            spec,
+            torch.cat([e0, F.sub(spec, e1, e0)]),
+            torch.cat([p0, F.sub(spec, p1, p0)]),
+        )  # (2T, h, 8): c0 terms then c2 terms
+        sums = spec.decode_ints(F.sum_reduce(spec, prods.transpose(0, 1)))
+        c0 = sum(s * v for s, v in zip(scalars, sums[:T])) % p
+        c2 = sum(s * v for s, v in zip(scalars, sums[T:])) % p
+        c1 = (current_sum - 2 * c0 - c2) % p
+        transcript.write_field_elements([c0, c1, c2])
+        r = transcript.squeeze_challenge()
+        challenges.append(r)
+        current_sum = (c0 + c1 * r + c2 * r * r) % p
+        tables = mle.fold_all(spec, tables, spec.encode([r], device)[0])
+    return challenges, tables[T:]
+
+
+def verify_coeff(
+    p: int,
+    num_vars: int,
+    degree: int,
+    sum_: int,
+    transcript: Keccak256Transcript,
+) -> Tuple[int, List[int]]:
+    """Verifier for coefficient round messages: consistency via
+    2*c0 + c1 + ... + cd == sum, evaluation via Horner (coeff.rs:20-39)."""
+    msgs, challenges = [], []
+    for _ in range(num_vars):
+        msgs.append(transcript.read_field_elements(degree + 1))
+        challenges.append(transcript.squeeze_challenge())
+    current = sum_ % p
+    for rnd, (msg, r) in enumerate(zip(msgs, challenges)):
+        if current != (2 * msg[0] + sum(msg[1:])) % p:
+            raise SumcheckError(f"coeff consistency failure at round {rnd}")
+        acc = 0
+        for c in reversed(msg):
+            acc = (acc * r + c) % p
+        current = acc
+    return current, challenges
+
+
+# ---------------------------------------------------------------------------
+# verifier (host)
+# ---------------------------------------------------------------------------
+
+
+def verify(
+    p: int,
+    num_vars: int,
+    degree: int,
+    sum_: int,
+    transcript: Keccak256Transcript,
+) -> Tuple[int, List[int]]:
+    """Read round messages, check consistency, return (final_eval, challenges)
+    (classic.rs:242-263 + RoundMessage::verify_consistency semantics)."""
+    points = list(range(degree + 1))
+    weights = barycentric_weights(p, points)
+    msgs = []
+    challenges = []
+    for _ in range(num_vars):
+        msgs.append(transcript.read_field_elements(degree + 1))
+        challenges.append(transcript.squeeze_challenge())
+
+    current = sum_ % p
+    for rnd, (msg, r) in enumerate(zip(msgs, challenges)):
+        if current != (msg[0] + msg[1]) % p:
+            raise SumcheckError(f"consistency failure at round {rnd}")
+        current = barycentric_interpolate(p, weights, points, msg, r)
+    return current, challenges

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests import neither JAX nor the JAX package, so they run on a machine
+with a GPU and no JAX. Without a visible GPU they skip. On the card:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -p no:cacheprovider
+
+(`--noconftest`: tests/conftest.py configures JAX, which that machine lacks.)
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from halo2_lasso_tpu_torch import lasso
+from halo2_lasso_tpu_torch.expression import Expression
+from halo2_lasso_tpu_torch.lasso.tables import range_table
+from halo2_lasso_tpu_torch.ops import ec
+from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fq, Fr
+from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
+from halo2_lasso_tpu_torch.piop import gkr
+from halo2_lasso_tpu_torch.piop import sum_check as sc
+from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+RNG = np.random.RandomState(21)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card")
+    return torch.device("cuda")
+
+
+def rand_ints(p, n):
+    return [int.from_bytes(RNG.bytes(40), "little") % p for _ in range(n)]
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+def test_mont_mul_kernel_matches_plain(cuda, spec):
+    p = spec.modulus
+    a = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, 1000), cuda)
+    b = spec.encode([p - 1, p - 1, p - 1, 1] + rand_ints(p, 1000), cuda)
+    assert torch.equal(F.mont_mul(spec, a, b), F.mont_mul_plain(spec, a, b))
+    assert torch.equal(F.mont_mul(spec, a, b[5]), F.mont_mul_plain(spec, a, b[5]))
+
+
+def test_fold_all_kernel_matches_plain(cuda):
+    tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 10), cuda) for _ in range(5)]
+    x = Fr.encode(rand_ints(Fr.modulus, 1), cuda)[0]
+    for last in (False, True):
+        got = mle.fold_all(Fr, tables, x, last=last)
+        want = mle.fold_all_plain(Fr, tables, x, last=last)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize(
+    "expr,n_polys",
+    [
+        (Expression.eq_xy(0) * range_table(16, 16).g, 1),
+        (gkr.sum_check_expression_pure(2), 4),
+        (Expression.eq_xy(0) * (Expression.lagrange(1) * Expression.poly(0) + Expression.identity())
+         - Expression.poly(1) * 5 + Expression.constant(7), 2),
+    ],
+    ids=["lasso_primary", "gkr_pure", "lagrange_identity_neg_const"],
+)
+def test_round_kernel_matches_plain(cuda, expr, n_polys):
+    keys = sc._leaf_keys(expr, n_polys)
+    prog = sc.lower_expression(expr, keys)
+    tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 11), cuda) for _ in keys]
+    chals = Fr.encode(rand_ints(Fr.modulus, 1), cuda) if expr.used_challenge else None
+    got = sc.round_message(Fr, tables, prog, chals, expr.degree)
+    assert torch.equal(got, sc.round_message_plain(Fr, tables, prog, chals, expr.degree))
+
+
+def test_ec_add_kernel_matches_plain_and_host(cuda):
+    ps, qs = chip_smoke.ec_cases(np, RNG, MJ, FQ_MODULUS, 640)
+    p = {k: Fq.encode([pt[i] for pt in ps], cuda) for i, k in enumerate(ec.COORDS)}
+    q = {k: Fq.encode([pt[i] for pt in qs], cuda) for i, k in enumerate(ec.COORDS)}
+    got, want = ec.ec_add(p, q), ec.ec_add_plain(p, q)
+    assert all(torch.equal(got[k], want[k]) for k in ec.COORDS)
+    host = [MJ.host_jac_add(a, b, FQ_MODULUS) for a, b in zip(ps, qs)]
+    assert ec.jacobian_to_affine(got) == MJ.host_batch_affine(host, FQ_MODULUS)
+
+
+def test_msm_on_card_matches_cpu(cuda):
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, FQ_MODULUS, 1 << 9)
+    pts = {k: Fq.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    scal = Fr.encode(rand_ints(Fr.modulus, 1 << 9))
+    on_card = ec.msm_to_affine_int({k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda))
+    assert on_card == ec.msm_to_affine_int(pts, scal)
+
+
+def test_small_lasso_proof_on_card_matches_jax(cuda):
+    cfg = chip_smoke.SMALL
+    rng = np.random.RandomState(cfg["index_seed"])
+    indices = [int(rng.randint(1 << cfg["index_bits"])) for _ in range(cfg["lookups"])]
+    nv = max(cfg["lookups"].bit_length() - 1, cfg["chunk_bits"])
+    param = MultilinearKzg.setup(1 << nv, np.random.RandomState(cfg["srs_seed"]), device=cuda)
+    pp, _ = MultilinearKzg.trim(param, 1 << nv)
+    t = Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, curve_b=3)
+    lasso.prove(pp, range_table(cfg["index_bits"], cfg["chunk_bits"]), indices, t, device=cuda)
+    assert hashlib.sha256(t.into_proof()).hexdigest() == chip_smoke.SMALL_PROOF_SHA256
