@@ -6,16 +6,26 @@
 Phases, each printing one line with its wall time:
   1. environment: torch / CUDA versions, the card, its power limit;
   2. build: the one nvcc call that compiles every kernel (csrc/*.cu);
-  3. kernels: mont_mul, fold_all, sumcheck_round and ec_add against their
-     plain PyTorch versions on the card, bit for bit, then timed;
+  3. kernels: mont_mul, fold_all, sumcheck_round, ec_add and fix_var against
+     their plain PyTorch versions on the card, bit for bit, then timed;
   4. small proof: a Lasso range proof (range_table(8, 4), 16 lookups, SRS
      seed 3) on the card and through the plain path on the CPU; both must
      hash to SMALL_PROOF_SHA256, the hash of the JAX package's proof
      (tests/test_torch_lasso.py holds the two packages to it);
   5. the slice: 2^16 lookups into range_table(16, 16), SRS setup, prove and
      verify on the card with per-stage times; a proof with one flipped byte
-     must be rejected. Kernel launch counts are reset just before this phase
-     and read just after it.
+     must be rejected;
+  6. small HyperPlonk proof: rand_vanilla_plonk_circuit at nv = 3 (seeds 42,
+     43, setup seed 0) on the card and through the plain path on the CPU;
+     both must equal the JAX package's golden proof (GOLDEN_SHA256,
+     tests/test_golden_proof.py);
+  7. HyperPlonk at full size: rand_vanilla_plonk_with_lookup_circuit at
+     nv = 16, setup, preprocess, prove and verify on the card with per-stage
+     times and the kernel launches of the prove alone; a proof with one
+     flipped byte must be rejected; then one more prove under torch.profiler
+     for the card's busy share.
+Kernel launch counts are reset just before phases 5 and 7 (the two main
+paths) and read just after each; every kernel must launch on both.
 
 The last lines are a JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -38,6 +48,9 @@ WATCHDOG_S = 1000  # below the smoke's 1200 s limit, with a margin
 SMALL_PROOF_SHA256 = "efdcdbf4dea8fa963635aa51725015c5674d43549b67e0e11f91054ed81db806"
 SMALL = {"index_bits": 8, "chunk_bits": 4, "lookups": 16, "srs_seed": 3, "index_seed": 77}
 SLICE = {"index_bits": 16, "chunk_bits": 16, "lookups": 1 << 16, "srs_seed": 3, "index_seed": 1}
+GOLDEN_SHA256 = "c7716e87345611deed36d015513aecec8da288a8433e74610cf420cf687be3c0"
+PLONK_SMALL = {"circuit": "rand_vanilla_plonk_circuit", "num_vars": 3, "seeds": (42, 43), "setup_seed": 0}
+PLONK = {"circuit": "rand_vanilla_plonk_with_lookup_circuit", "num_vars": 16, "seeds": (42, 43), "setup_seed": 0}
 
 # Published H100 SXM peaks (NVIDIA H100 datasheet): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 on the CUDA cores, i.e. 33.5 T fma/s. Hopper issues int32
@@ -102,6 +115,7 @@ def main() -> int:
     kernels = check_kernels(torch, np, dev)
     stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
     print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
+    print(f"fix_var vs fold_all on one table: {kernels[-1]['k2_one_table_ms']:.4f}ms", flush=True)
 
     # 4. small proof against the JAX package's bytes
     t0 = time.perf_counter()
@@ -112,19 +126,41 @@ def main() -> int:
         raise SystemExit(f"small proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
     stage("small_proof", t0, f"{len(gpu_proof)} bytes sha256 {sha[:16]} == JAX, == CPU plain path")
 
-    # 5. the slice
+    # 5. the Lasso slice
     t0 = time.perf_counter()
     native.reset_counts()
     proof, records = lasso_proof(np, SLICE, "cuda", tamper=True)
-    launches = dict(native.counts)
+    launches = {"lasso": dict(native.counts)}
     stage("slice", t0, f"2^16 lookups range_table(16,16): {len(proof)} bytes, verified, tamper rejected")
-    for name, ms in records:
-        print(f"  stage {name}: {ms:.1f}ms", flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise SystemExit(f"main path did not launch: {missing}")
+    print_stages(records)
+
+    # 6. small HyperPlonk proof against the JAX package's golden bytes
+    t0 = time.perf_counter()
+    gpu_proof = hyperplonk_proof(np, PLONK_SMALL, "cuda")[0]
+    cpu_proof = hyperplonk_proof(np, PLONK_SMALL, "cpu")[0]
+    sha = hashlib.sha256(gpu_proof).hexdigest()
+    if sha != GOLDEN_SHA256 or cpu_proof != gpu_proof:
+        raise SystemExit(f"small HyperPlonk proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
+    stage("plonk_small", t0, f"nv=3 vanilla: {len(gpu_proof)} bytes sha256 {sha[:16]} == JAX golden, == CPU plain path")
+
+    # 7. HyperPlonk at full size
+    t0 = time.perf_counter()
+    native.reset_counts()
+    extra = {}
+    proof, records = hyperplonk_proof(np, PLONK, "cuda", tamper=True, extra=extra)
+    launches["hyperplonk"] = dict(native.counts)
+    stage("plonk", t0, f"nv=16 vanilla plonk with lookup: {len(proof)} bytes, verified, tamper rejected")
+    print_stages(records)
+    print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
+    print("  second prove under torch.profiler: " + profile_prove(torch, extra["pp"], extra["circuit"]), flush=True)
+
+    for path, counts in launches.items():
+        missing = [k for k, n in counts.items() if n == 0]
+        if missing:
+            raise SystemExit(f"the {path} path did not launch: {missing}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in launches.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -132,10 +168,82 @@ def main() -> int:
     return 0
 
 
+def profile_prove(torch, pp, circuit):
+    """Wall time of one more prove and the device's busy time in it, from
+    torch.profiler's kernel times; "not measured" if the profiler gives no
+    device time on this machine."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            HyperPlonk.prove(pp, circuit, new_transcript())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side rows only (kernels, copies, memsets): one stream, so
+        # their sum is the time the card was busy
+        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    except Exception as exc:  # the profiler is untried on that machine
+        return f"not measured ({type(exc).__name__}: {exc})"
+    if busy_ms <= 0:
+        return f"wall {wall_ms:.1f}ms, device time not measured (profiler gave none)"
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    tops = "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.1f}ms" for e in top)
+    return f"wall {wall_ms:.1f}ms, device busy {busy_ms:.1f}ms ({100 * busy_ms / wall_ms:.1f}%); top: {tops}"
+
+
+def print_stages(records):
+    for name, ms in records:
+        print(f"  stage {name}: {ms:.1f}ms", flush=True)
+
+
+def rejects_flipped_byte(verify_fn, proof):
+    """A proof with one flipped byte in its middle must fail to verify."""
+    from halo2_lasso_tpu_torch.errors import Halo2LassoError
+
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 0x01
+    try:
+        verify_fn(bytes(bad))
+    except Halo2LassoError:
+        return
+    raise SystemExit("a proof with a flipped byte was accepted")
+
+
+def hyperplonk_proof(np, cfg, device, tamper=False, extra=None):
+    """Setup, preprocess, prove and verify one HyperPlonk proof of a fixture
+    circuit; returns (proof bytes, stage records). `extra`, a dict, receives
+    the prover's kernel launches and what a second prove needs."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, fixtures, new_transcript
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.utils.timer import timed
+
+    timed.clear()
+    with timed.scope("fixture"):
+        ci, circuit = getattr(fixtures, cfg["circuit"])(
+            cfg["num_vars"], *(np.random.RandomState(s) for s in cfg["seeds"])
+        )
+    with timed.scope("setup"):
+        param = HyperPlonk.setup(ci, np.random.RandomState(cfg["setup_seed"]), device=device)
+    pp, vp = HyperPlonk.preprocess(param, ci)
+    tw = new_transcript()
+    before = dict(native.counts)
+    HyperPlonk.prove(pp, circuit, tw)
+    if extra is not None:
+        extra.update(pp=pp, circuit=circuit, prove_launches={k: native.counts[k] - before[k] for k in before})
+    proof = tw.into_proof()
+    HyperPlonk.verify(vp, circuit.instances(), new_transcript(proof))
+    if tamper:
+        rejects_flipped_byte(lambda bad: HyperPlonk.verify(vp, circuit.instances(), new_transcript(bad)), proof)
+    return proof, timed.records()
+
+
 def lasso_proof(np, cfg, device, tamper=False):
     """Setup, prove and verify one Lasso range proof; returns (proof bytes,
     stage records). With `tamper`, a proof with one flipped byte must fail."""
-    from halo2_lasso_tpu_torch.errors import Halo2LassoError
     from halo2_lasso_tpu_torch.lasso import prove, verify
     from halo2_lasso_tpu_torch.lasso.tables import range_table
     from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
@@ -161,14 +269,7 @@ def lasso_proof(np, cfg, device, tamper=False):
     proof = tw.into_proof()
     verify(vp, table, nv_m, transcript(proof))
     if tamper:
-        bad = bytearray(proof)
-        bad[len(bad) // 2] ^= 0x01
-        try:
-            verify(vp, table, nv_m, transcript(bytes(bad)))
-        except Halo2LassoError:
-            pass
-        else:
-            raise SystemExit("a proof with a flipped byte was accepted")
+        rejects_flipped_byte(lambda bad: verify(vp, table, nv_m, transcript(bad)), proof)
     return proof, timed.records()
 
 
@@ -277,7 +378,40 @@ def check_kernels(torch, np, dev):
     record("ec_add", "halo2_lasso_tpu_torch/csrc/ec_add.cu", "halo2_lasso_tpu/ops/pallas_ec.py:144",
            lambda: list(ec.ec_add(P, Q).values()), lambda: list(ec.ec_add_plain(P, Q).values()),
            lanes * 9 * 32, lanes * 23 * IMAD_PER_MONT_MUL, err)
-    return [results[k] for k in ("mont_mul", "fold_all", "sumcheck_round", "ec_add")]
+
+    # K5 fix_var: a table of 2^16 with 0, 1, p-1, R mod p among its entries
+    # and the challenge, both pair strides, and a ragged half-length; timed
+    # at the first fold of a KZG open at nv = 16 (fix_last_var on 2^16),
+    # beside fold_all (K2) called with that one table, which it replaces
+    p = Fr.modulus
+    err = 0
+    for size in (n, 2 * 1037):
+        tab = rand_field(Fr, size, [0, 1, p - 1, Fr.R, p - 1, 0, 1, p - 1])
+        for xv in ([0], [1], [p - 1], [Fr.R], []):
+            x = rand_field(Fr, 1, xv)[0]
+            for last in (False, True):
+                fold = mle.fix_last_var if last else mle.fix_var
+                err = max(err, same("fix_var", lambda: [fold(Fr, tab, x)],
+                                    lambda: [mle.fix_var_plain(Fr, tab, x, last)]))
+    tab = rand_field(Fr, n)
+    record("fix_var", "halo2_lasso_tpu_torch/csrc/fix_var.cu", "halo2_lasso_tpu/ops/pallas_field.py:250",
+           lambda: [mle.fix_last_var(Fr, tab, x)], lambda: [mle.fix_var_plain(Fr, tab, x, True)],
+           n * 32 + (n // 2) * 32, (n // 2) * IMAD_PER_MONT_MUL, err)
+    results["fix_var"]["k2_one_table_ms"] = cuda_ms(torch, lambda: mle.fold_all(Fr, [tab], x, last=True), 20)
+
+    # K1 on the HyperPlonk zero check: the composed expression of the
+    # nv = 16 with-lookup circuit (23 leaf tables, degree 5) at 2^14
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
+
+    ci = fixtures.vanilla_plonk_with_lookup_circuit_info(16, 16, [[0]] * 9, [[(10, 1), (11, 1), (12, 1)]])
+    nz, expr = preprocessor.compose(ci)
+    keys = SC._leaf_keys(expr, ci.num_poly() + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz)
+    prog = SC.lower_expression(expr, keys)
+    leaves = [rand_field(Fr, 1 << 14) for _ in keys]
+    chal = rand_field(Fr, 3)
+    same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
+         lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)])
+    return [results[k] for k in ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var")]
 
 
 def ec_cases(np, rng, MJ, mod, n):

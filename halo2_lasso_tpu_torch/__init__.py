@@ -9,12 +9,15 @@ package holds the same 256-bit numbers as 16 limbs of 16 bits, so
 versions of the kernels compute on 16-bit limbs in ``int64``.
 
 Kernels (``csrc/*.cu``, one ``nvcc`` build, loaded with ``ctypes`` by
-``ops/native.py``): ``mont_mul`` (ops/field.py), ``fold_all``
-(poly/multilinear.py), ``sumcheck_round`` (piop/sum_check.py) and
-``ec_add`` (ops/ec.py). Each wrapper launches its kernel for a CUDA tensor
-or raises; a CPU tensor takes the plain PyTorch version beside it.
+``ops/native.py``): ``mont_mul`` (ops/field.py), ``fold_all`` and
+``fix_var`` (poly/multilinear.py), ``sumcheck_round`` (piop/sum_check.py)
+and ``ec_add`` (ops/ec.py). Each wrapper launches its kernel for a CUDA
+tensor or raises; a CPU tensor takes the plain PyTorch version beside it.
 
-Entry points take an explicit ``device`` that defaults to ``"cuda"``.
+Entry points (``lasso.prove``, ``MultilinearKzg.setup``,
+``backend.hyperplonk.HyperPlonk.setup``, ``from_jax_kzg_params``,
+``from_jax_hyperplonk_params``) take an explicit ``device`` that defaults to
+``"cuda"``; ``preprocess`` and ``prove`` run where their parameters live.
 Random draws take an explicit ``np.random.RandomState`` as the reference's
 do, so both packages build the same SRS from the same seed.
 """

@@ -7,9 +7,10 @@ rotation}) / Challenge(idx) / Neg / Sum / Product / Scaled /
 DistributePowers (expr0 + sum_{i>=1} base^i * expr_i).
 
 `evaluate_host` evaluates over Python ints (the verifier); `evaluate_torch`
-over field tensors (the prover). The sumcheck round kernel does not walk
-this tree: piop/sum_check.py lowers it to a postfix program once per
-`structural_key`.
+over field tensors (the prover); `from_foreign` rebuilds a tree made by the
+JAX package (for parameters carried across). The sumcheck round kernel
+does not walk this tree: piop/sum_check.py lowers it to a postfix program
+once per `structural_key`.
 
 Constants/scalars are canonical python ints (mod p applied by the evaluators).
 """
@@ -190,6 +191,17 @@ class Expression:
         )
 
     @functools.cached_property
+    def used_poly(self) -> FrozenSet[int]:
+        return frozenset(q.poly for q in self.used_query)
+
+    @functools.cached_property
+    def used_rotation(self) -> FrozenSet[int]:
+        return frozenset(q.rotation for q in self.used_query)
+
+    def max_used_rotation_distance(self) -> int:
+        return max((abs(r) for r in self.used_rotation), default=0)
+
+    @functools.cached_property
     def used_lagrange(self) -> FrozenSet[int]:
         return self._collect(
             lambda t, v: frozenset([v.args[0]])
@@ -242,6 +254,22 @@ class Expression:
         if k == "scaled":
             return ("scaled", self.args[0].structural_key, self.args[1])
         return (k,) + tuple(a.structural_key for a in self.args)
+
+
+def from_foreign(e) -> Expression:
+    """An expression tree of the same shape built by another package (the
+    JAX package's Expression: `kind`, `args`, queries with `poly` and
+    `rotation`) -> the port's Expression."""
+    k, args = e.kind, e.args
+    if k == "poly":
+        return Expression.poly(args[0].poly, args[0].rotation)
+    if k in ("const", "identity", "lagrange", "eq_xy", "challenge"):
+        return Expression(k, tuple(args))
+    if k == "scaled":
+        return Expression(k, (from_foreign(args[0]), int(args[1])))
+    if k == "powers":
+        return Expression(k, (tuple(from_foreign(x) for x in args[0]), from_foreign(args[1])))
+    return Expression(k, tuple(from_foreign(a) for a in args))
 
 
 def _coerce(v) -> Expression:

@@ -256,22 +256,24 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     return result
 
 
+def prefix_products(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products of the rows of (n, 8): a log-depth
+    Hillis-Steele scan, one mont_mul launch per level."""
+    k = 1
+    while k < x.shape[0]:
+        x = torch.cat([x[:k], mont_mul(spec, x[k:], x[:-k])])
+        k *= 2
+    return x
+
+
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Invert every row of (n, 8) (zeros stay zero): log-depth prefix and
     suffix products and ONE Fermat inversion, as ops/field.py:416 does."""
     zero = is_zero(a)
     one = spec.one(a.device)
     aa = torch.where(zero[:, None], one, a)
-
-    def scan(x):  # inclusive prefix products, Hillis-Steele
-        k = 1
-        while k < x.shape[0]:
-            x = torch.cat([x[:k], mont_mul(spec, x[k:], x[:-k])])
-            k *= 2
-        return x
-
-    pre = scan(aa)
-    suf = scan(aa.flip(0)).flip(0)
+    pre = prefix_products(spec, aa)
+    suf = prefix_products(spec, aa.flip(0)).flip(0)
     total_inv = pow_fixed(spec, pre[-1:], spec.modulus - 2)
     pre_ex = torch.cat([one[None], pre[:-1]])
     suf_ex = torch.cat([suf[1:], one[None]])

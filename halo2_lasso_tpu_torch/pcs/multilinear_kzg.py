@@ -66,7 +66,7 @@ class KzgVerifierParams:
         return len(self.ss)
 
 
-def from_jax_kzg_params(params, device="cpu"):
+def from_jax_kzg_params(params, device="cuda"):
     """The JAX package's KzgParams / KzgProverParams / KzgVerifierParams
     (numpy-convertible limb arrays and Python ints) -> the port's."""
 

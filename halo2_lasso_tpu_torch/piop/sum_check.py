@@ -5,7 +5,8 @@ Each round writes the round polynomial's evaluations at t = 0..degree
 (evals[0] = sum - evals[1]), squeezes a challenge and folds every leaf
 table; the verifier checks evals[0] + evals[1] == claim and interpolates at
 the challenge. Leaf tables are uniform MLEs (polys, eq tables, identity and
-Lagrange columns), `_leaf_keys` as in the reference.
+Lagrange columns, each rotated query materialised as its own column by an
+index gather), `_leaf_keys` as in the reference.
 
 ``round_message`` is the port of the TPU kernel make_sumcheck_round
 (ops/pallas_field.py:376). Instead of generating a kernel per expression,
@@ -311,9 +312,8 @@ def _leaf_table(spec: FieldSpec, key, vp: VirtualPolynomial, num_vars: int, devi
     kind = key[0]
     n = 1 << num_vars
     if kind == "poly":
-        if key[2] != 0:
-            raise SumcheckError("rotated queries are not ported yet")
-        return vp.polys[key[1]]
+        poly = vp.polys[key[1]]
+        return mle.rotate_evals(spec, poly, key[2]) if key[2] else poly
     if kind == "eq":
         return mle.eq_xy(spec, spec.encode(vp.ys[key[1]], device))
     if kind == "identity":
@@ -339,7 +339,7 @@ def prove(
     expression = virtual_poly.expression
     degree = expression.degree
     p = spec.modulus
-    assert num_vars > 0
+    assert num_vars > 0 and expression.max_used_rotation_distance() <= num_vars
     device = virtual_poly.polys[0].device
     keys = _leaf_keys(expression, len(virtual_poly.polys))
     tables = [_leaf_table(spec, k, virtual_poly, num_vars, device) for k in keys]

@@ -1,11 +1,12 @@
 """Boolean hypercube with multiplicative-group (LFSR) ordering (the port's
-copy of halo2_lasso_tpu/poly/bh.py; the sumcheck uses its iteration order
-for Lagrange leaves).
+copy of halo2_lasso_tpu/poly/bh.py: the iteration order for Lagrange
+leaves and witness rows, and the rotation maps).
 
 Semantics match the reference (util/arithmetic/bh.rs): the 2^k hypercube is
 iterated as 0 followed by the orbit of 1 under the GF(2)-LFSR step
     next(b) = (b << 1) ^ ((b >> k) * PRIMITIVE_k,
-which gives the cyclic row ordering used for witness layout.
+which gives the cyclic row ordering used for witness layout, and halo2
+`Rotation(i)` becomes i applications of next/prev.
 
 The Rust reference computes the iteration order by a sequential 2^k-step
 loop (bh.rs:122-137). Here the orbit is produced in
@@ -50,12 +51,34 @@ class BooleanHypercube:
         b = b << 1
         return b ^ ((b >> self.num_vars) * self.primitive)
 
+    def prev_idx(self, b):
+        """Vectorized inverse step (multiply by 1/X)."""
+        b = np.asarray(b, dtype=np.int64)
+        return (b >> 1) ^ ((b & 1) * self.x_inv)
+
+    def rotate(self, b, rotation: int):
+        """Apply rotation (possibly negative) to index/indices b."""
+        step = self.next_idx if rotation >= 0 else self.prev_idx
+        for _ in range(abs(rotation)):
+            b = step(b)
+        return b
+
     def _orbit(self) -> np.ndarray:
         return _orbit_cached(self.num_vars)
 
     def iter_indices(self) -> np.ndarray:
         """Index sequence of the bh iteration order, length 2^k (starts at 0)."""
         return np.concatenate([np.zeros(1, dtype=np.int64), self._orbit()])
+
+    def nth_map(self) -> np.ndarray:
+        """nth_map[b] = position of b in iteration order (bh.rs:131-137)."""
+        out = np.zeros(1 << self.num_vars, dtype=np.int64)
+        out[self.iter_indices()] = np.arange(1 << self.num_vars, dtype=np.int64)
+        return out
+
+    def rotation_map(self, rotation: int) -> np.ndarray:
+        """rotation_map[b] = rotate(b, rotation) for all b (bh.rs:139-141)."""
+        return self.rotate(np.arange(1 << self.num_vars, dtype=np.int64), rotation)
 
 
 @functools.lru_cache(maxsize=None)

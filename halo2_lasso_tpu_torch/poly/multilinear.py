@@ -4,10 +4,19 @@ halo2_lasso_tpu/poly/multilinear.py).
 An MLE over k variables is an (2^k, 8) field tensor; hypercube index b has
 X_0 as its least-significant bit, as in the JAX package.
 
-``fold_all`` is the port of the TPU kernel make_fold_all
+Two kernels live here. ``fold_all`` is the port of make_fold_all
 (ops/pallas_field.py:293): one launch of csrc/fold.cu binds one variable of
-every table of a list. On a CUDA tensor it launches the kernel or raises;
-only CPU tensors take ``fold_all_plain``.
+every table of a list (the sumcheck state). ``fix_var`` / ``fix_last_var``
+are the port of make_fix_var (ops/pallas_field.py:250): one launch of
+csrc/fix_var.cu binds one variable of one table (MLE evaluation, the KZG
+quotient chain, rotated evaluations). On a CUDA tensor each launches its
+kernel or raises; only CPU tensors take ``fold_all_plain`` /
+``fix_var_plain``.
+
+Rotations (halo2 ``Rotation`` over the bh cyclic order) are materialised by
+an index gather (``rotate_evals``) or evaluated at the 2^distance rotated
+points (``evaluate_for_rotation``); the verifier's recombination
+(``rotation_eval``) runs on host ints.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import torch
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
+from halo2_lasso_tpu_torch.poly.bh import BooleanHypercube
 
 
 def _pairs(t: torch.Tensor, last: bool):
@@ -66,14 +76,42 @@ def fold_all(
     return outs
 
 
+def fix_var_plain(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor, last: bool = False) -> torch.Tensor:
+    lo, hi = _pairs(evals, last)
+    return F.add(spec, F.mont_mul(spec, F.sub(spec, hi, lo), x), lo)
+
+
+def _fix_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor, last: bool) -> torch.Tensor:
+    """One variable of one (2h, 8) table bound to x (8,). Kernel:
+    csrc/fix_var.cu, with two direct pointers into the table and a pair step."""
+    if evals.device.type == "cpu":
+        return fix_var_plain(spec, evals, x, last)
+    if spec.kernel_id != 0:
+        raise ValueError("fix_var: the kernel is compiled for Fr only")
+    n = evals.shape[0]
+    if evals.dim() != 2 or evals.shape[1] != F.LIMBS or n % 2:
+        raise ValueError("fix_var: the table must be (2h, 8) with an even length")
+    native.require_cuda("fix_var", evals, x)
+    h = n // 2
+    out = torch.empty((h, F.LIMBS), dtype=torch.int32, device=evals.device)
+    lo, hi = evals[0], evals[h if last else 1]
+    rc = native.lib().h2l_fix_var(
+        lo.data_ptr(), hi.data_ptr(), 1 if last else 2, out.data_ptr(), h, x.data_ptr(),
+        native.stream(),
+    )
+    native.check(rc, "fix_var")
+    native.counts["fix_var"] += 1
+    return out
+
+
 def fix_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Fix X_0 := x: (n, 8) -> (n/2, 8)."""
-    return fold_all(spec, [evals], x)[0]
+    return _fix_var(spec, evals, x, last=False)
 
 
 def fix_last_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Fix the highest variable := x: (n, 8) -> (n/2, 8)."""
-    return fold_all(spec, [evals], x, last=True)[0]
+    return _fix_var(spec, evals, x, last=True)
 
 
 def eq_xy(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
@@ -107,6 +145,11 @@ def evaluate_stacked_ints(spec: FieldSpec, polys: Sequence[torch.Tensor], x: Seq
     return spec.decode_ints(torch.cat(cur))
 
 
+def evaluate_many(spec: FieldSpec, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Evaluate one MLE at many points xs (m, k, 8) -> (m, 8)."""
+    return torch.stack([evaluate(spec, evals, x) for x in xs])
+
+
 # ---------------------------------------------------------------------------
 # host-side scalar helpers (python ints mod p) — verifier-domain math
 # ---------------------------------------------------------------------------
@@ -134,3 +177,126 @@ def identity_eval_host(p: int, x: Sequence[int]) -> int:
     for i, xi in enumerate(x):
         acc = (acc + (xi << i)) % p
     return acc
+
+
+# ---------------------------------------------------------------------------
+# rotations
+# ---------------------------------------------------------------------------
+
+
+def _nth_bit(v: int, n: int) -> int:
+    return (v >> n) & 1
+
+
+def rotation_eval_point_pattern(next_: bool, num_vars: int, distance: int) -> List[int]:
+    """Index patterns for the 2^distance rotated-evaluation points
+    (multilinear.rs:472-494 semantics)."""
+    bh = BooleanHypercube(num_vars)
+    remainder = bh.primitive if next_ else bh.x_inv
+    pattern = [0] * (1 << distance)
+    for depth in range(distance):
+        step = 1 << (distance - depth)
+        half = step >> 1
+        for e in range(0, len(pattern), step):
+            o = e + half
+            rotated = (pattern[e] << 1) if next_ else (pattern[e] >> 1)
+            pattern[o] = rotated ^ remainder
+            pattern[e] = rotated
+    return pattern
+
+
+def rotation_eval_coeff_pattern(next_: bool, num_vars: int, distance: int) -> List[int]:
+    """Bit patterns steering the verifier recombination
+    (multilinear.rs:496-518 semantics)."""
+    bh = BooleanHypercube(num_vars)
+    remainder = (bh.primitive - (1 << num_vars)) if next_ else (bh.x_inv << distance)
+    pattern = [0] * (1 << (distance - 1))
+    for depth in range(distance - 1):
+        step = 1 << (distance - depth - 1)
+        half = step >> 1
+        for e in range(0, len(pattern), step):
+            o = e + half
+            rotated = (pattern[e] << 1) if next_ else (pattern[e] >> 1)
+            pattern[o] = rotated ^ remainder
+            pattern[e] = rotated
+    return pattern
+
+
+def rotation_eval_points(p: int, x: Sequence[int], rotation: int) -> List[List[int]]:
+    """The 2^distance points whose evaluations determine f(rot(x))
+    (multilinear.rs:472-530 semantics); host ints mod p."""
+    if rotation == 0:
+        return [list(x)]
+    distance = abs(rotation)
+    num_x = len(x) - distance
+    if rotation < 0:
+        pattern = rotation_eval_point_pattern(False, len(x), distance)
+        xs = list(x[distance:])
+        flipped = [(1 - xi) % p for xi in xs]
+        points = []
+        for pat in pattern:
+            pt = [flipped[i] if _nth_bit(pat, i) else xs[i] for i in range(num_x)]
+            pt += [_nth_bit(pat, i + num_x) for i in range(distance)]
+            points.append(pt)
+        return points
+    pattern = rotation_eval_point_pattern(True, len(x), distance)
+    xs = list(x[:num_x])
+    flipped = [(1 - xi) % p for xi in xs]
+    points = []
+    for pat in pattern:
+        pt = [_nth_bit(pat, i) for i in range(distance)]
+        pt += [flipped[i] if _nth_bit(pat, i + distance) else xs[i] for i in range(num_x)]
+        points.append(pt)
+    return points
+
+
+def rotation_eval(p: int, x: Sequence[int], rotation: int, evals_for_rotation: Sequence[int]) -> int:
+    """Recombine the 2^distance point-evaluations into f(rot(x))
+    (multilinear.rs:433-470 semantics); host ints mod p."""
+    if rotation == 0:
+        assert len(evals_for_rotation) == 1
+        return evals_for_rotation[0] % p
+    num_vars = len(x)
+    distance = abs(rotation)
+    assert len(evals_for_rotation) == 1 << distance
+    assert distance <= num_vars
+
+    if rotation < 0:
+        pattern = rotation_eval_coeff_pattern(False, num_vars, distance)
+        nths = list(range(distance, 0, -1))
+        xs = [x[i] for i in range(distance - 1, -1, -1)]
+    else:
+        pattern = rotation_eval_coeff_pattern(True, num_vars, distance)
+        nths = [num_vars - 1 + i for i in range(distance)]
+        xs = [x[num_vars - distance + i] for i in range(distance)]
+
+    evals = [v % p for v in evals_for_rotation]
+    for idx, (x_i, nth) in enumerate(zip(xs, nths)):
+        pats = pattern[:: 1 << idx]
+        new_evals = []
+        for j in range(0, len(evals), 2):
+            e0, e1 = evals[j], evals[j + 1]
+            if _nth_bit(pats[j // 2], nth):
+                new_evals.append(((e0 - e1) * x_i + e1) % p)
+            else:
+                new_evals.append(((e1 - e0) * x_i + e0) % p)
+        evals = new_evals
+    return evals[0]
+
+
+def evaluate_for_rotation(
+    spec: FieldSpec, evals: torch.Tensor, x: Sequence[int], rotation: int
+) -> List[int]:
+    """Evaluations of the MLE at the 2^distance rotated points, as host ints
+    (multilinear.rs:191-263 semantics), each a chain of fix_var launches."""
+    pts = rotation_eval_points(spec.modulus, list(x), rotation)
+    return spec.decode_ints(evaluate_many(spec, evals, spec.encode(pts, evals.device)))
+
+
+def rotate_evals(spec: FieldSpec, evals: torch.Tensor, rotation: int) -> torch.Tensor:
+    """Materialise the rotated poly: out[b] = evals[rotate(b, rotation)]
+    (the round-0 gather of classic.rs:104-129), one index gather on the
+    tensor's device."""
+    k = evals.shape[0].bit_length() - 1
+    rmap = torch.from_numpy(BooleanHypercube(k).rotation_map(rotation)).to(evals.device)
+    return evals.index_select(0, rmap)

@@ -3,7 +3,7 @@
 csrc/field.cuh and csrc/ec.cuh build with g++ under FIELD_HOST_TEST, so the
 Montgomery product, add, sub, neg and the complete EC add that the kernels
 run can be held against the plain PyTorch versions on the CPU, bit for bit,
-without a GPU. (The kernels' launch and reduction code runs only on the
+without a GPU, and so is the fold of csrc/fix_var.cu. (The kernels' launch and reduction code runs only on the
 card: tests/test_torch_kernels.py.)
 """
 
@@ -29,6 +29,8 @@ HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include "ec.cuh"
+#include "fix_var.cu"
+#include <vector>
 static Fe rd() {
   Fe r;
   for (int i = 0; i < 8; ++i) if (scanf("%u", &r.v[i]) != 1) exit(1);
@@ -38,7 +40,19 @@ static void wr(const Fe& a) { for (int i = 0; i < 8; ++i) printf("%u ", a.v[i]);
 int main() {
   char op[8];
   while (scanf("%7s", op) == 1) {
-    if (op[0] == 'e') {
+    if (op[0] == 'v') {  // v <n> <step>: a table of n, then x; one fold per line
+      long long n, step;
+      if (scanf("%lld %lld", &n, &step) != 2) exit(1);
+      std::vector<Fe> t(n);
+      for (auto& e : t) e = rd();
+      Fe x = rd();
+      const uint32_t* lo = t[0].v;
+      const uint32_t* hi = step == 2 ? t[1].v : t[n / 2].v;
+      for (long long i = 0; i < n / 2; ++i) {
+        wr(fix_var_elem(lo, hi, step, i, x));
+        if (i + 1 < n / 2) printf("\n");
+      }
+    } else if (op[0] == 'e') {
       Fe x1 = rd(), y1 = rd(), z1 = rd(), x2 = rd(), y2 = rd(), z2 = rd(), ox, oy, oz;
       ec_add_lane(x1, y1, z1, x2, y2, z2, ox, oy, oz);
       wr(ox); wr(oy); wr(oz);
@@ -102,3 +116,16 @@ def test_ec_add_lane_matches_plain(harness):
     got = run(harness, ["e " + " ".join(c[i] for c in cols) for i in range(len(ps))])
     want = ec.ec_add_plain(P, Q)
     assert np.array_equal(got, np.concatenate([F.to_numpy_u32(want[k]) for k in ec.COORDS], axis=1))
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["fix_var", "fix_last_var"])
+def test_fix_var_elem_matches_plain(harness, last):
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    rng = random.Random(5)
+    p = Fr.modulus
+    vals = [0, 1, p - 1, Fr.R, p - 1, 0] + [rng.randrange(p) for _ in range(58)]
+    t, x = Fr.encode(vals), Fr.encode([rng.randrange(p)])
+    line = f"v {t.shape[0]} {1 if last else 2} " + " ".join(rows(t) + rows(x))
+    want = mle.fix_var_plain(Fr, t, x[0], last)
+    assert np.array_equal(run(harness, [line]), F.to_numpy_u32(want))

@@ -93,6 +93,22 @@ def test_fold_all_matches_jax(last):
     assert torch.equal(fold_one(Fr, tt[0], tx), mle.fold_all(Fr, tt, tx, last=last)[0])
 
 
+@pytest.mark.parametrize("last", [False, True], ids=["fix_var", "fix_last_var"])
+def test_fix_var_matches_jax(last):
+    """The single-table fold (K5's plain path) against the JAX package, with
+    0, 1, p-1 and R mod p among the table and the challenge values, at a
+    ragged half-length (37 pairs)."""
+    p = Fr.modulus
+    vals = [0, 1, p - 1, Fr.R, p - 1, 0, 1, p - 1] + rand_ints(p, 66)
+    jt = jnp.asarray(JFr.encode(vals))
+    tt = F.from_jax_limbs(np.asarray(jt))
+    jfold, fold = (jmle.fix_last_var, mle.fix_last_var) if last else (jmle.fix_var, mle.fix_var)
+    for x in [0, 1, p - 1, Fr.R] + rand_ints(p, 1):
+        jx = jnp.asarray(JFr.encode([x]))[0]
+        got = fold(Fr, tt, F.from_jax_limbs(np.asarray(jx)))
+        assert np.array_equal(F.to_jax_limbs(got), np.asarray(jfold(JFr, jt, jx)))
+
+
 def test_eq_xy_matches_jax():
     jy = jnp.asarray(JFr.encode(rand_ints(Fr.modulus, 6)))
     eq = mle.eq_xy(Fr, F.from_jax_limbs(np.asarray(jy)))

@@ -21,6 +21,7 @@ from halo2_lasso_tpu_torch.lasso.tables import range_table
 from halo2_lasso_tpu_torch.ops import ec
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fq, Fr
 from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
 from halo2_lasso_tpu_torch.piop import gkr
@@ -59,6 +60,19 @@ def test_fold_all_kernel_matches_plain(cuda):
         got = mle.fold_all(Fr, tables, x, last=last)
         want = mle.fold_all_plain(Fr, tables, x, last=last)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("size", [1 << 12, 2 * 1037], ids=["pow2", "ragged"])
+@pytest.mark.parametrize("last", [False, True], ids=["fix_var", "fix_last_var"])
+def test_fix_var_kernel_matches_plain(cuda, last, size):
+    p = Fr.modulus
+    t = Fr.encode([0, 1, p - 1, Fr.R, p - 1, 0, 1, p - 1] + rand_ints(p, size - 8), cuda)
+    fold = mle.fix_last_var if last else mle.fix_var
+    for xv in (0, 1, p - 1, Fr.R, rand_ints(p, 1)[0]):
+        x = Fr.encode([xv], cuda)[0]
+        before = native.counts["fix_var"]
+        assert torch.equal(fold(Fr, t, x), mle.fix_var_plain(Fr, t, x, last))
+        assert native.counts["fix_var"] == before + 1
 
 
 @pytest.mark.parametrize(
@@ -108,3 +122,8 @@ def test_small_lasso_proof_on_card_matches_jax(cuda):
     t = Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, curve_b=3)
     lasso.prove(pp, range_table(cfg["index_bits"], cfg["chunk_bits"]), indices, t, device=cuda)
     assert hashlib.sha256(t.into_proof()).hexdigest() == chip_smoke.SMALL_PROOF_SHA256
+
+
+def test_small_hyperplonk_proof_on_card_is_golden(cuda):
+    proof, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.PLONK_SMALL, cuda)
+    assert hashlib.sha256(proof).hexdigest() == chip_smoke.GOLDEN_SHA256

@@ -137,7 +137,7 @@ def port_small_proof(jax_small_proof):
     """The port's proof of the small case on the CPU, with the JAX SRS."""
     _, jpp, jvp = jax_small_proof
     table, indices, _ = small_case()
-    pp, vp = from_jax_kzg_params(jpp), from_jax_kzg_params(jvp)
+    pp, vp = from_jax_kzg_params(jpp, device="cpu"), from_jax_kzg_params(jvp, device="cpu")
     t = new_t(Keccak256Transcript)
     lasso.prove(pp, range_table(*table), indices, t, device="cpu")
     return t.into_proof(), vp
@@ -184,7 +184,7 @@ def test_setup_matches_jax_srs(jax_srs):
 def kzg_open(jax_srs):
     """One commit and open at nv = 4 in both packages."""
     _, (jpp, jvp) = jax_srs
-    pp, vp = from_jax_kzg_params(jpp), from_jax_kzg_params(jvp)
+    pp, vp = from_jax_kzg_params(jpp, device="cpu"), from_jax_kzg_params(jvp, device="cpu")
     poly, point = rand_fes(1 << 4), rand_fes(4)
     value = sum(c * mle_eval_basis(point, b) for b, c in enumerate(poly)) % P
     jpoly = jnp.asarray(JFr.encode(poly))
