@@ -23,9 +23,23 @@ Phases, each printing one line with its wall time:
      nv = 16, setup, preprocess, prove and verify on the card with per-stage
      times and the kernel launches of the prove alone; a proof with one
      flipped byte must be rejected; then one more prove under torch.profiler
-     for the card's busy share.
-Kernel launch counts are reset just before phases 5 and 7 (the two main
-paths) and read just after each; every kernel must launch on both.
+     for the card's busy share;
+  8. two-operand Lasso: 2^16 lookups into and_table(32, 8) (operands from
+     RandomState(1), SRS seed 3), setup, prove and verify with per-stage
+     times; a proof with one flipped byte must be rejected;
+  9. Lasso inside HyperPlonk: rand_lasso_circuit at nv = 3 (seeds 3, 503,
+     setup seed 0) on the card and through the plain path on the CPU, both
+     hashing to LASSO_PLONK_SHA256, the JAX package's proof
+     (tests/test_torch_lasso_hyperplonk.py holds the two packages to it);
+     then at nv = 16 with 32-bit AND in 8-bit chunks and a 16-bit range
+     (seeds 16, 516, setup seed 0): setup, preprocess, prove and verify with
+     per-stage times, the prove's launches, tamper, one profiled prove;
+ 10. the layout microbench (halo2_lasso_tpu_torch/scripts/layout_bench.py):
+     K4, K6 and K7 bit-exact against each other and the plain version at
+     2^16, 2^20 and 2^22, and timed.
+Kernel launch counts are reset just before each main path (phases 5, 7, 8,
+the nv = 16 part of 9, and 10) and read just after it; each path must
+launch every kernel it names in PATH_KERNELS.
 
 The last lines are a JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -51,36 +65,25 @@ SLICE = {"index_bits": 16, "chunk_bits": 16, "lookups": 1 << 16, "srs_seed": 3, 
 GOLDEN_SHA256 = "c7716e87345611deed36d015513aecec8da288a8433e74610cf420cf687be3c0"
 PLONK_SMALL = {"circuit": "rand_vanilla_plonk_circuit", "num_vars": 3, "seeds": (42, 43), "setup_seed": 0}
 PLONK = {"circuit": "rand_vanilla_plonk_with_lookup_circuit", "num_vars": 16, "seeds": (42, 43), "setup_seed": 0}
-
-# Published H100 SXM peaks (NVIDIA H100 datasheet): 3.35 TB/s of HBM;
-# 67 TFLOP/s fp32 on the CUDA cores, i.e. 33.5 T fma/s. Hopper issues int32
-# multiply-adds at half the fp32 rate (64 vs 128 lanes per SM per clock),
-# so 16.75 T IMAD/s; a 32x32->64-bit product costs two (low and high word).
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 16.75e12
-IMAD_PER_MONT_MUL = 2 * 2 * 8 * 8  # CIOS: 64 products a*b + 64 products m*p
+AND_SLICE = {"table": ("and_table", 32, 8), "lookups": 1 << 16, "srs_seed": 3, "index_seed": 1}
+LASSO_PLONK_SHA256 = "ef5584e41f26c9e55e0c31a125efbcd7757c2f8a6ff56c47aa115283bfda0292"
+LASSO_PLONK_SMALL = {"circuit": "rand_lasso_circuit", "num_vars": 3, "seeds": (3, 503), "setup_seed": 0}
+LASSO_PLONK = {
+    "circuit": "rand_lasso_circuit", "num_vars": 16, "seeds": (16, 516), "setup_seed": 0,
+    "kwargs": {"operand_bits": 32, "chunk_bits": 8, "range_bits": 16},
+}
+PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var")
+PATH_KERNELS = {
+    "lasso": PROOF_KERNELS,
+    "hyperplonk": PROOF_KERNELS,
+    "lasso_and": PROOF_KERNELS,
+    "lasso_hyperplonk": PROOF_KERNELS,
+    "layout": ("mont_mul", "mont_mul_limbs_first", "mont_mul_tiled"),
+}
 
 
 def stage(name, t0, msg=""):
     print(f"[{name}] {time.perf_counter() - t0:.3f}s {msg}".rstrip(), flush=True)
-
-
-def bound(bytes_moved, imads):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / IMAD_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -115,47 +118,46 @@ def main() -> int:
     kernels = check_kernels(torch, np, dev)
     stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
     print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
-    print(f"fix_var vs fold_all on one table: {kernels[-1]['k2_one_table_ms']:.4f}ms", flush=True)
+    fix_var = next(k for k in kernels if k["name"] == "fix_var")
+    print(f"fix_var vs fold_all on one table: {fix_var['k2_one_table_ms']:.4f}ms", flush=True)
 
     # 4. small proof against the JAX package's bytes
-    t0 = time.perf_counter()
-    gpu_proof = lasso_proof(np, SMALL, "cuda")[0]
-    cpu_proof = lasso_proof(np, SMALL, "cpu")[0]
-    sha = hashlib.sha256(gpu_proof).hexdigest()
-    if sha != SMALL_PROOF_SHA256 or cpu_proof != gpu_proof:
-        raise SystemExit(f"small proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
-    stage("small_proof", t0, f"{len(gpu_proof)} bytes sha256 {sha[:16]} == JAX, == CPU plain path")
+    proof_gate(np, lasso_proof, SMALL, SMALL_PROOF_SHA256, "small_proof", "range_table(8,4), 16 lookups")
 
     # 5. the Lasso slice
-    t0 = time.perf_counter()
-    native.reset_counts()
-    proof, records = lasso_proof(np, SLICE, "cuda", tamper=True)
-    launches = {"lasso": dict(native.counts)}
-    stage("slice", t0, f"2^16 lookups range_table(16,16): {len(proof)} bytes, verified, tamper rejected")
-    print_stages(records)
+    launches = {}
+    run_path(launches, "lasso", "slice", "2^16 lookups range_table(16,16)",
+             lambda: lasso_proof(np, SLICE, "cuda", tamper=True))
 
     # 6. small HyperPlonk proof against the JAX package's golden bytes
-    t0 = time.perf_counter()
-    gpu_proof = hyperplonk_proof(np, PLONK_SMALL, "cuda")[0]
-    cpu_proof = hyperplonk_proof(np, PLONK_SMALL, "cpu")[0]
-    sha = hashlib.sha256(gpu_proof).hexdigest()
-    if sha != GOLDEN_SHA256 or cpu_proof != gpu_proof:
-        raise SystemExit(f"small HyperPlonk proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
-    stage("plonk_small", t0, f"nv=3 vanilla: {len(gpu_proof)} bytes sha256 {sha[:16]} == JAX golden, == CPU plain path")
+    proof_gate(np, hyperplonk_proof, PLONK_SMALL, GOLDEN_SHA256, "plonk_small", "nv=3 vanilla")
 
     # 7. HyperPlonk at full size
+    run_hyperplonk_path(torch, np, launches, "hyperplonk", "plonk", "nv=16 vanilla plonk with lookup", PLONK)
+
+    # 8. two-operand Lasso at 2^16
+    run_path(launches, "lasso_and", "lasso_and", "2^16 lookups and_table(32,8)",
+             lambda: lasso_proof(np, AND_SLICE, "cuda", tamper=True))
+
+    # 9. Lasso inside HyperPlonk: the small proof against the JAX package's
+    # bytes, then the full-size circuit
+    proof_gate(np, hyperplonk_proof, LASSO_PLONK_SMALL, LASSO_PLONK_SHA256, "lasso_plonk_small", "nv=3 Lasso lookups")
+    run_hyperplonk_path(torch, np, launches, "lasso_hyperplonk", "lasso_plonk",
+                        "nv=16 32-bit AND + 16-bit range Lasso lookups", LASSO_PLONK)
+
+    # 10. the layout microbench
+    from halo2_lasso_tpu_torch.scripts import layout_bench
+
     t0 = time.perf_counter()
     native.reset_counts()
-    extra = {}
-    proof, records = hyperplonk_proof(np, PLONK, "cuda", tamper=True, extra=extra)
-    launches["hyperplonk"] = dict(native.counts)
-    stage("plonk", t0, f"nv=16 vanilla plonk with lookup: {len(proof)} bytes, verified, tamper rejected")
-    print_stages(records)
-    print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
-    print("  second prove under torch.profiler: " + profile_prove(torch, extra["pp"], extra["circuit"]), flush=True)
+    layouts = layout_bench.run()
+    launches["layout"] = dict(native.counts)
+    stage("layout", t0, "K4, K6, K7 and plain bit-exact at " + ", ".join(f"2^{r['n'].bit_length() - 1}" for r in layouts))
+    for r in layouts:
+        print("  " + json.dumps(r), flush=True)
 
     for path, counts in launches.items():
-        missing = [k for k, n in counts.items() if n == 0]
+        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         if missing:
             raise SystemExit(f"the {path} path did not launch: {missing}")
     for k in kernels:
@@ -166,6 +168,40 @@ def main() -> int:
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def proof_gate(np, prove_fn, cfg, want_sha, name, label):
+    """A small proof on the card and through the plain path on the CPU must
+    both hash to `want_sha`, the SHA-256 of the JAX package's proof."""
+    t0 = time.perf_counter()
+    gpu_proof = prove_fn(np, cfg, "cuda")[0]
+    cpu_proof = prove_fn(np, cfg, "cpu")[0]
+    sha = hashlib.sha256(gpu_proof).hexdigest()
+    if sha != want_sha or cpu_proof != gpu_proof:
+        raise SystemExit(f"{name} proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
+    stage(name, t0, f"{label}: {len(gpu_proof)} bytes sha256 {sha[:16]} == JAX, == CPU plain path")
+
+
+def run_path(launches, path, name, label, run):
+    """One main path: launch counts reset just before `run` (which returns
+    the proof and its stage records) and kept in `launches[path]` just after."""
+    from halo2_lasso_tpu_torch.ops import native
+
+    t0 = time.perf_counter()
+    native.reset_counts()
+    proof, records = run()
+    launches[path] = dict(native.counts)
+    stage(name, t0, f"{label}: {len(proof)} bytes, verified, tamper rejected")
+    print_stages(records)
+
+
+def run_hyperplonk_path(torch, np, launches, path, name, label, cfg):
+    """A full-size HyperPlonk main path, then the prove's own launches and a
+    second, profiled prove."""
+    extra = {}
+    run_path(launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
+    print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
+    print("  second prove under torch.profiler: " + profile_prove(torch, extra["pp"], extra["circuit"]), flush=True)
 
 
 def profile_prove(torch, pp, circuit):
@@ -224,7 +260,7 @@ def hyperplonk_proof(np, cfg, device, tamper=False, extra=None):
     timed.clear()
     with timed.scope("fixture"):
         ci, circuit = getattr(fixtures, cfg["circuit"])(
-            cfg["num_vars"], *(np.random.RandomState(s) for s in cfg["seeds"])
+            cfg["num_vars"], *(np.random.RandomState(s) for s in cfg["seeds"]), **cfg.get("kwargs", {})
         )
     with timed.scope("setup"):
         param = HyperPlonk.setup(ci, np.random.RandomState(cfg["setup_seed"]), device=device)
@@ -241,11 +277,33 @@ def hyperplonk_proof(np, cfg, device, tamper=False, extra=None):
     return proof, timed.records()
 
 
+def lasso_indices(np, cfg):
+    """The lookup indices of a standalone Lasso config: uniform below
+    2^index_bits, or for a two-operand table (x << bits) | y with the x
+    operands drawn first, then the y operands."""
+    rng = np.random.RandomState(cfg["index_seed"])
+    m = cfg["lookups"]
+    if "table" not in cfg:
+        return [int(rng.randint(1 << cfg["index_bits"])) for _ in range(m)]
+    bits = cfg["table"][1]
+    x, y = (rng.randint(0, 1 << bits, size=m, dtype=np.int64) for _ in range(2))
+    return [(int(a) << bits) | int(b) for a, b in zip(x, y)]
+
+
+def lasso_table(cfg):
+    from halo2_lasso_tpu_torch.lasso import tables
+
+    if "table" in cfg:
+        name, *args = cfg["table"]
+        return getattr(tables, name)(*args)
+    return tables.range_table(cfg["index_bits"], cfg["chunk_bits"])
+
+
 def lasso_proof(np, cfg, device, tamper=False):
-    """Setup, prove and verify one Lasso range proof; returns (proof bytes,
-    stage records). With `tamper`, a proof with one flipped byte must fail."""
+    """Setup, prove and verify one standalone Lasso proof; returns (proof
+    bytes, stage records). With `tamper`, a proof with one flipped byte
+    must fail."""
     from halo2_lasso_tpu_torch.lasso import prove, verify
-    from halo2_lasso_tpu_torch.lasso.tables import range_table
     from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
     from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
     from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
@@ -254,12 +312,10 @@ def lasso_proof(np, cfg, device, tamper=False):
     def transcript(proof=None):
         return Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, proof=proof, curve_b=3)
 
-    table = range_table(cfg["index_bits"], cfg["chunk_bits"])
-    m = cfg["lookups"]
-    nv_m = m.bit_length() - 1
+    table = lasso_table(cfg)
+    nv_m = cfg["lookups"].bit_length() - 1
     nv = max(nv_m, table.memories[0].subtable.index_bits)
-    rng = np.random.RandomState(cfg["index_seed"])
-    indices = [int(rng.randint(1 << cfg["index_bits"])) for _ in range(m)]
+    indices = lasso_indices(np, cfg)
     timed.clear()
     with timed.scope("lasso_setup"):
         param = MultilinearKzg.setup(1 << nv, np.random.RandomState(cfg["srs_seed"]), device=device)
@@ -280,10 +336,13 @@ def check_kernels(torch, np, dev):
     from halo2_lasso_tpu_torch.ops import ec
     from halo2_lasso_tpu_torch.ops import field as F
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops import native
     from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
     from halo2_lasso_tpu_torch.piop import gkr
     from halo2_lasso_tpu_torch.piop import sum_check as SC
     from halo2_lasso_tpu_torch.poly import multilinear as mle
+    from halo2_lasso_tpu_torch.scripts import layout_bench as LB
+    from halo2_lasso_tpu_torch.scripts.layout_bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
 
     rng = np.random.RandomState(2024)
 
@@ -308,11 +367,11 @@ def check_kernels(torch, np, dev):
     def record(name, src, replaces, kernel_fn, plain_fn, bytes_moved, imads, err):
         """Check and time one kernel at a shape of the main path."""
         err = max(err, same(name, kernel_fn, plain_fn))
-        b_ms, b_by = bound(bytes_moved, imads)
+        b_ms, b_by = bound_ms(bytes_moved, imads)
         results[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": 0, "max_abs_err": err,
-            "ms": cuda_ms(torch, kernel_fn, 20), "plain_ms": cuda_ms(torch, plain_fn, 2),
+            "ms": cuda_ms(kernel_fn, 20), "plain_ms": cuda_ms(plain_fn, 2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
 
@@ -397,7 +456,7 @@ def check_kernels(torch, np, dev):
     record("fix_var", "halo2_lasso_tpu_torch/csrc/fix_var.cu", "halo2_lasso_tpu/ops/pallas_field.py:250",
            lambda: [mle.fix_last_var(Fr, tab, x)], lambda: [mle.fix_var_plain(Fr, tab, x, True)],
            n * 32 + (n // 2) * 32, (n // 2) * IMAD_PER_MONT_MUL, err)
-    results["fix_var"]["k2_one_table_ms"] = cuda_ms(torch, lambda: mle.fold_all(Fr, [tab], x, last=True), 20)
+    results["fix_var"]["k2_one_table_ms"] = cuda_ms(lambda: mle.fold_all(Fr, [tab], x, last=True), 20)
 
     # K1 on the HyperPlonk zero check: the composed expression of the
     # nv = 16 with-lookup circuit (23 leaf tables, degree 5) at 2^14
@@ -411,7 +470,54 @@ def check_kernels(torch, np, dev):
     chal = rand_field(Fr, 3)
     same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
          lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)])
-    return [results[k] for k in ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var")]
+
+    # K1 on the Lasso-in-HyperPlonk zero check: the composed expression of
+    # the nv = 16 circuit of phase 9 (5 witness + 26 Lasso polys) at 2^14
+    ci, _ = fixtures.rand_lasso_circuit(16, np.random.RandomState(16), np.random.RandomState(516),
+                                        **LASSO_PLONK["kwargs"])
+    nz, expr = preprocessor.compose(ci)
+    n_polys = ci.num_poly() + preprocessor.num_lasso_polys(ci) + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz
+    keys = SC._leaf_keys(expr, n_polys)
+    prog = SC.lower_expression(expr, keys)
+    leaves = [rand_field(Fr, 1 << 14) for _ in keys]
+    chal = rand_field(Fr, 3)
+    same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
+         lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)])
+    print(f"K1 on the Lasso-in-HyperPlonk zero check: {len(keys)} leaves, degree {expr.degree}, "
+          f"stack {prog.max_stack}, bit-exact at 2^14", flush=True)
+
+    # K6 / K7 (the layout microbench's limbs-first and tiled products): at
+    # 2^16 with 0, 1, p-1, R mod p among the inputs, at ragged lengths (a
+    # partial tile for K7), against the plain version and K4; timed at 2^22
+    ea, eb = LB.edge_values()
+    errs = {"mont_mul_limbs_first": 0, "mont_mul_tiled": 0}
+    for size in (n, 1037, 9 * 128):
+        a, b = rand_field(Fr, size, ea), rand_field(Fr, size, eb)
+        a_lf, b_lf = a.T.contiguous(), b.T.contiguous()
+        want = F.mont_mul(Fr, a, b).T
+        k6 = same("mont_mul_limbs_first", lambda: [LB.mont_mul_limbs_first(a_lf, b_lf)],
+                  lambda: [LB.mont_mul_limbs_first_plain(a_lf, b_lf)])
+        if not torch.equal(LB.mont_mul_limbs_first(a_lf, b_lf), want):
+            raise SystemExit("kernel mont_mul_limbs_first disagrees with mont_mul")
+        errs["mont_mul_limbs_first"] = max(errs["mont_mul_limbs_first"], k6)
+        if size % LB.LANES == 0:
+            a_t, b_t = a_lf.view(8, -1, LB.LANES), b_lf.view(8, -1, LB.LANES)
+            k7 = same("mont_mul_tiled", lambda: [LB.mont_mul_tiled(a_t, b_t)], lambda: [LB.mont_mul_tiled_plain(a_t, b_t)])
+            if not torch.equal(LB.mont_mul_tiled(a_t, b_t).reshape(8, -1), want):
+                raise SystemExit("kernel mont_mul_tiled disagrees with mont_mul")
+            errs["mont_mul_tiled"] = max(errs["mont_mul_tiled"], k7)
+    big = 1 << 22
+    a_lf, b_lf = rand_field(Fr, big).T.contiguous(), rand_field(Fr, big).T.contiguous()
+    a_t, b_t = a_lf.view(8, -1, LB.LANES), b_lf.view(8, -1, LB.LANES)
+    record("mont_mul_limbs_first", "halo2_lasso_tpu_torch/csrc/mont_mul_layouts.cu",
+           "scripts/tpu_layout_bench.py:88", lambda: [LB.mont_mul_limbs_first(a_lf, b_lf)],
+           lambda: [LB.mont_mul_limbs_first_plain(a_lf, b_lf)], 96 * big, big * IMAD_PER_MONT_MUL,
+           errs["mont_mul_limbs_first"])
+    record("mont_mul_tiled", "halo2_lasso_tpu_torch/csrc/mont_mul_layouts.cu",
+           "scripts/tpu_layout_bench.py:108", lambda: [LB.mont_mul_tiled(a_t, b_t)],
+           lambda: [LB.mont_mul_tiled_plain(a_t, b_t)], 96 * big, big * IMAD_PER_MONT_MUL,
+           errs["mont_mul_tiled"])
+    return [results[k] for k in native.KERNELS]
 
 
 def ec_cases(np, rng, MJ, mod, n):

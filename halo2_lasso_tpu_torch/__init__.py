@@ -10,9 +10,11 @@ versions of the kernels compute on 16-bit limbs in ``int64``.
 
 Kernels (``csrc/*.cu``, one ``nvcc`` build, loaded with ``ctypes`` by
 ``ops/native.py``): ``mont_mul`` (ops/field.py), ``fold_all`` and
-``fix_var`` (poly/multilinear.py), ``sumcheck_round`` (piop/sum_check.py)
-and ``ec_add`` (ops/ec.py). Each wrapper launches its kernel for a CUDA
-tensor or raises; a CPU tensor takes the plain PyTorch version beside it.
+``fix_var`` (poly/multilinear.py), ``sumcheck_round`` (piop/sum_check.py),
+``ec_add`` (ops/ec.py), and the layout microbench's
+``mont_mul_limbs_first`` and ``mont_mul_tiled`` (scripts/layout_bench.py).
+Each wrapper launches its kernel for a CUDA tensor or raises; a CPU tensor
+takes the plain PyTorch version beside it.
 
 Entry points (``lasso.prove``, ``MultilinearKzg.setup``,
 ``backend.hyperplonk.HyperPlonk.setup``, ``from_jax_kzg_params``,

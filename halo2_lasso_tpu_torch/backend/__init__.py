@@ -29,8 +29,8 @@ class PlonkishCircuitInfo:
     lookups: List[List[Tuple[Expression, Expression]]]
     permutations: List[List[Tuple[int, int]]]
     max_degree: Optional[int] = None
-    # Lasso lookups (Surge + GKR memory checking instead of logup): not
-    # ported yet; the HyperPlonk entry points refuse a circuit that has any
+    # Lasso lookups (lasso/integration.py LassoLookup): proven with Surge
+    # and GKR memory checking instead of logup
     lasso_lookups: list = dataclasses.field(default_factory=list)
 
     def num_poly(self) -> int:
@@ -50,6 +50,9 @@ class PlonkishCircuitInfo:
             for inp, tbl in lookup:
                 yield inp
                 yield tbl
+        for ll in self.lasso_lookups:
+            yield from ll.inputs
+            yield ll.output
 
     def is_well_formed(self) -> bool:
         num_poly = self.num_poly()

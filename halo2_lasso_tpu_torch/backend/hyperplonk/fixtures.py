@@ -1,5 +1,5 @@
-"""Test and bench circuits: vanilla plonk with and without a logup lookup
-(the port of halo2_lasso_tpu/backend/hyperplonk/fixtures.py; util.rs of the
+"""Test and bench circuits: vanilla plonk with and without a logup lookup,
+and circuits with Lasso lookups (the port of halo2_lasso_tpu/backend/hyperplonk/fixtures.py; util.rs of the
 Rust reference).
 
 The same column layouts and constraint shapes, and the same draws from the
@@ -14,6 +14,8 @@ from typing import List, Tuple
 from halo2_lasso_tpu_torch.backend import MockCircuit, PlonkishCircuitInfo
 from halo2_lasso_tpu_torch.backend.hyperplonk.prover import instance_poly_values
 from halo2_lasso_tpu_torch.expression import Expression
+from halo2_lasso_tpu_torch.lasso.integration import LassoLookup
+from halo2_lasso_tpu_torch.lasso.tables import and_table, range_table
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
 from halo2_lasso_tpu_torch.poly.bh import BooleanHypercube
 
@@ -206,3 +208,77 @@ def rand_vanilla_plonk_with_lookup_circuit(num_vars: int, preprocess_rng, witnes
         num_vars, len(instances), polys[1:10], permutation.into_cycles()
     )
     return circuit_info, MockCircuit([instances], polys[10:13])
+
+
+def rand_lasso_circuit(num_vars: int, preprocess_rng, witness_rng, operand_bits: int = 8, chunk_bits: int = 4, range_bits: int = 8):
+    """Random satisfied circuit with plonkish gates, a copy constraint and
+    two Lasso lookups (a two-operand AND table and a range table).
+
+    Columns (one witness phase): [w_x, w_y, w_and, w_s, w_r];
+    gate: w_x + w_y - w_s = 0;  Lasso: w_and == AND[w_x, w_y],
+    w_r == range[w_r];  copy: w_r[2] == w_r[5]."""
+    P = Fr.modulus
+    assert num_vars >= 3
+    size = 1 << num_vars
+    w_x = [int(v) for v in witness_rng.randint(0, 1 << operand_bits, size)]
+    w_y = [int(v) for v in witness_rng.randint(0, 1 << operand_bits, size)]
+    w_and = [x & y for x, y in zip(w_x, w_y)]
+    w_s = [(x + y) % P for x, y in zip(w_x, w_y)]
+    w_r = [int(v) for v in witness_rng.randint(0, 1 << range_bits, size)]
+    w_r[5] = w_r[2]
+
+    x, y, a, s, r = [Expression.poly(i) for i in range(5)]
+    circuit_info = PlonkishCircuitInfo(
+        k=num_vars,
+        num_instances=[],
+        preprocess_polys=[],
+        num_witness_polys=[5],
+        num_challenges=[0],
+        constraints=[x + y - s],
+        lookups=[],
+        permutations=[[(4, 2), (4, 5)]],
+        max_degree=4,
+        lasso_lookups=[
+            LassoLookup(and_table(operand_bits, chunk_bits), (x, y), a),
+            LassoLookup(range_table(range_bits, range_bits), (r,), r),
+        ],
+    )
+    return circuit_info, MockCircuit([], [w_x, w_y, w_and, w_s, w_r])
+
+
+def rand_full_feature_circuit(num_vars: int, preprocess_rng, witness_rng, operand_bits: int = 8, chunk_bits: int = 4, range_bits: int = 8):
+    """Every prover feature in one circuit: plonkish gate, copy constraint,
+    a logup lookup into a preprocessed table column and two Lasso lookups.
+
+    Columns: [tbl (preprocess), w_x, w_y, w_and, w_s, w_r, w_t];
+    gate: w_x + w_y - w_s = 0;  logup: w_t in tbl;  Lasso:
+    w_and == AND[w_x, w_y], w_r == range[w_r];  copy: w_r[2] == w_r[5]."""
+    P = Fr.modulus
+    assert num_vars >= 3
+    size = 1 << num_vars
+    t_vals = [0, 0] + [int(v) for v in preprocess_rng.randint(0, 1 << range_bits, size - 2)]
+    w_x = [int(v) for v in witness_rng.randint(0, 1 << operand_bits, size)]
+    w_y = [int(v) for v in witness_rng.randint(0, 1 << operand_bits, size)]
+    w_and = [x & y for x, y in zip(w_x, w_y)]
+    w_s = [(x + y) % P for x, y in zip(w_x, w_y)]
+    w_r = [int(v) for v in witness_rng.randint(0, 1 << range_bits, size)]
+    w_r[5] = w_r[2]
+    w_t = [t_vals[int(witness_rng.randint(size))] for _ in range(size)]
+
+    tbl, x, y, a, s, r, t = [Expression.poly(i) for i in range(7)]
+    circuit_info = PlonkishCircuitInfo(
+        k=num_vars,
+        num_instances=[],
+        preprocess_polys=[t_vals],
+        num_witness_polys=[6],
+        num_challenges=[0],
+        constraints=[x + y - s],
+        lookups=[[(t, tbl)]],
+        permutations=[[(5, 2), (5, 5)]],
+        max_degree=4,
+        lasso_lookups=[
+            LassoLookup(and_table(operand_bits, chunk_bits), (x, y), a),
+            LassoLookup(range_table(range_bits, range_bits), (r,), r),
+        ],
+    )
+    return circuit_info, MockCircuit([], [w_x, w_y, w_and, w_s, w_r, w_t])

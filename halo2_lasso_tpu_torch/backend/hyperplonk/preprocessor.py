@@ -7,7 +7,8 @@ Semantics mirror plonkish_backend/src/backend/hyperplonk/preprocessor.rs:
 constraints, logup lookup constraints (:79-109), chunked permutation
 grand-product constraints (:111-170)] x eq, plus the per-lookup h-sum zero
 checks; `permutation_polys` (:172-203) materialises sigma from copy cycles.
-Circuits with Lasso lookups are refused before they get here.
+The Lasso polys sit right after the witness polys in the global index space,
+and their pointwise bindings (`lasso/integration.py`) join the zero check.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ import numpy as np
 
 from halo2_lasso_tpu_torch.backend import PlonkishCircuitInfo
 from halo2_lasso_tpu_torch.expression import Expression
+from halo2_lasso_tpu_torch.lasso import integration
+
+
+def num_lasso_polys(circuit_info: PlonkishCircuitInfo) -> int:
+    return integration.num_lasso_polys(circuit_info)
 
 
 def batch_size(circuit_info: PlonkishCircuitInfo) -> int:
@@ -40,10 +46,17 @@ def max_degree(circuit_info: PlonkishCircuitInfo, lookup_constraints_=None) -> i
         lookup_constraints_, _ = lookup_constraints(circuit_info, zero, zero)
     degrees = [c.degree for c in circuit_info.constraints]
     degrees += [c.degree for c in lookup_constraints_]
+    degrees += [c.degree for c in lasso_zero_constraints(circuit_info)]
     if circuit_info.max_degree is not None:
         degrees.append(circuit_info.max_degree)
     degrees.append(2)
     return max(degrees)
+
+
+def lasso_zero_constraints(circuit_info: PlonkishCircuitInfo):
+    """Surge pointwise bindings (output = g(E...), index = chunk
+    recombination) that join the zero check."""
+    return integration.lasso_constraints(circuit_info, circuit_info.num_poly())
 
 
 def lookup_constraints(
@@ -52,7 +65,7 @@ def lookup_constraints(
     """preprocessor.rs:79-109: per lookup, the logup identity
     h*(input+gamma)*(table+gamma) - (table+gamma) + m*(input+gamma) == 0 and
     the h-sum zero-check."""
-    m_offset = circuit_info.num_poly() + len(circuit_info.permutation_polys())
+    m_offset = circuit_info.num_poly() + num_lasso_polys(circuit_info) + len(circuit_info.permutation_polys())
     h_offset = m_offset + len(circuit_info.lookups)
     constraints = []
     for idx, lookup in enumerate(circuit_info.lookups):
@@ -82,7 +95,7 @@ def permutation_constraints(
     permutation_polys = circuit_info.permutation_polys()
     chunk_size = md - 1
     num_chunks = -(-len(permutation_polys) // chunk_size) if permutation_polys else 0
-    permutation_offset = circuit_info.num_poly()
+    permutation_offset = circuit_info.num_poly() + num_lasso_polys(circuit_info)
     z_offset = permutation_offset + len(permutation_polys) + num_builtin_witness_polys
 
     polys = [Expression.poly(i) for i in permutation_polys]
@@ -121,12 +134,13 @@ def compose(circuit_info: PlonkishCircuitInfo) -> Tuple[int, Expression]:
     alpha = Expression.challenge(challenge_offset + 2)
 
     lookup_cons, lookup_zero_checks = lookup_constraints(circuit_info, beta, gamma)
+    lasso_cons = lasso_zero_constraints(circuit_info)
     md = max_degree(circuit_info, lookup_cons)
     num_permutation_z_polys, permutation_cons = permutation_constraints(
         circuit_info, md, beta, gamma, 2 * len(circuit_info.lookups)
     )
 
-    constraints = list(circuit_info.constraints) + lookup_cons + permutation_cons
+    constraints = list(circuit_info.constraints) + lasso_cons + lookup_cons + permutation_cons
     eq = Expression.eq_xy(0)
     zero_check_on_every_row = Expression.distribute_powers(constraints, alpha) * eq
     expression = Expression.distribute_powers(

@@ -66,8 +66,7 @@ def build_witness(table: LassoTable, indices: Sequence[int]) -> LassoWitness:
     """
     m = len(indices)
     assert m & (m - 1) == 0, "pad lookups to a power of two"
-    idx_arr = np.asarray(indices, dtype=np.int64)
-    dims = table.chunk_indices_np(idx_arr)
+    dims = table.chunk_indices_np(indices)
     n_sub = 1 << table.memories[0].subtable.index_bits
 
     e_vals, read_ts, final_cts = [], [], []
@@ -155,7 +154,7 @@ def prove(pp, table: LassoTable, indices: Sequence[int], transcript, pcs=Multili
     nv_n = table.memories[0].subtable.index_bits
 
     with timed.scope("lasso_encode"):
-        dims_host = table.chunk_indices_np(np.asarray(indices, dtype=np.int64))
+        dims_host = table.chunk_indices_np(indices)
         dims = [torch.from_numpy(d).to(device) for d in dims_host]
         dim_polys = [F.u32_to_mont(spec, d) for d in dims]
         e_polys, ts_polys, fc_polys = [], [], []

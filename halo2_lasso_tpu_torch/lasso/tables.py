@@ -89,19 +89,22 @@ class LassoTable:
         return [(r >> (b * j)) & ((1 << b) - 1) for j in range(self.num_chunks)]
 
     def chunk_indices_np(self, rs: np.ndarray) -> List[np.ndarray]:
-        """Vectorized chunking for int64-safe index ranges."""
+        """Vectorized chunking of indices below 2^64 (two 32-bit operands
+        fill all 64 bits) into int64 dim arrays."""
         b = self.chunk_bits
-        rs = np.asarray(rs, dtype=np.int64)
+        rs = np.asarray(rs, dtype=np.uint64)
         if self.interleaved_operands:
             half = self.index_bits // 2
             x = rs >> half
             y = rs & ((1 << half) - 1)
-            return [
+            dims = [
                 (((x >> (b * j)) & ((1 << b) - 1)) << b)
                 | ((y >> (b * j)) & ((1 << b) - 1))
                 for j in range(self.num_chunks)
             ]
-        return [(rs >> (b * j)) & ((1 << b) - 1) for j in range(self.num_chunks)]
+        else:
+            dims = [(rs >> (b * j)) & ((1 << b) - 1) for j in range(self.num_chunks)]
+        return [d.astype(np.int64) for d in dims]
 
     def lookup(self, r: int) -> int:
         """Direct table evaluation (for witness generation / testing)."""

@@ -36,7 +36,7 @@ NVCC_FLAGS = [
 ]
 BUILD_TIMEOUT_S = 600
 
-KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var")
+KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "mont_mul_limbs_first", "mont_mul_tiled")
 counts = {k: 0 for k in KERNELS}
 build_seconds = None  # wall time of the nvcc call, when this process built
 
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "h2l_sumcheck_round": [_P, _LL, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "h2l_round_max_stack": [],
     "h2l_ec_add": [_P] * 9 + [_LL, _P],
+    "h2l_mont_mul_limbs_first": [_P, _P, _P, _LL, _P],
+    "h2l_mont_mul_tiled": [_P, _P, _P, _LL, _P],
 }
 
 

@@ -22,6 +22,7 @@ from halo2_lasso_tpu_torch.ops.keccak import keccak256
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript, TranscriptError
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
 from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.scripts import layout_bench
 
 torch.set_num_threads(1)  # tiny tensors; the suite's workers share the cores
 RNG = np.random.RandomState(11)
@@ -107,6 +108,29 @@ def test_fix_var_matches_jax(last):
         jx = jnp.asarray(JFr.encode([x]))[0]
         got = fold(Fr, tt, F.from_jax_limbs(np.asarray(jx)))
         assert np.array_equal(F.to_jax_limbs(got), np.asarray(jfold(JFr, jt, jx)))
+
+
+def test_layout_products_match_jax():
+    """The plain versions of K6 (limbs-first (8, n)) and K7 ((8, n/128,
+    128)) at n = 2^10 against the JAX package's mont_mul over Fr
+    (ops/field.py:329) on the transposed (n, 16) inputs, with 0, 1, p-1 and
+    R mod p among the entries. The TPU layout bench's own kernels
+    (scripts/tpu_layout_bench.py) are not imported: they have no interpret
+    mode, use pltpu.VMEM, and importing that script repoints JAX's
+    compilation cache to .jax_cache_tpu."""
+    n, p = 1 << 10, Fr.modulus
+    a = [0, 1, p - 1, Fr.R] + rand_ints(p, n - 4)
+    b = [p - 1, Fr.R, p - 1, 1] + rand_ints(p, n - 4)
+    ja, jb = jnp.asarray(JFr.encode(a)), jnp.asarray(JFr.encode(b))
+    want = np.asarray(JF.mont_mul(JFr, ja, jb))
+    a_lf = F.from_jax_limbs(np.asarray(ja)).T.contiguous()
+    b_lf = F.from_jax_limbs(np.asarray(jb)).T.contiguous()
+    k6 = layout_bench.mont_mul_limbs_first(a_lf, b_lf)
+    k7 = layout_bench.mont_mul_tiled(a_lf.view(8, -1, 128), b_lf.view(8, -1, 128))
+    assert np.array_equal(F.to_jax_limbs(k6.T), want)
+    assert np.array_equal(F.to_jax_limbs(k7.reshape(8, n).T), want)
+    with pytest.raises(ValueError):
+        layout_bench.mont_mul_tiled(a_lf.view(8, -1, 64), b_lf.view(8, -1, 64))
 
 
 def test_eq_xy_matches_jax():

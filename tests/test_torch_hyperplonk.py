@@ -136,10 +136,14 @@ def test_tampered_proof_rejected(port_lookup, where):
 
 
 def test_lasso_lookups_refused():
-    ci, _ = fixtures.rand_vanilla_plonk_circuit(2, np.random.RandomState(1), np.random.RandomState(2))
-    ci.lasso_lookups = [object()]
-    with pytest.raises(Halo2LassoError, match="Lasso"):
-        HyperPlonk.setup(ci, np.random.RandomState(0), device="cpu")
+    """Lasso lookups are accepted (tests/test_torch_lasso_hyperplonk.py);
+    one whose two-operand table gets a single input is refused when the
+    circuit is composed."""
+    ci, _ = fixtures.rand_lasso_circuit(3, np.random.RandomState(1), np.random.RandomState(2))
+    lk = ci.lasso_lookups[0]
+    ci.lasso_lookups = [type(lk)(lk.table, lk.inputs[:1], lk.output)]
+    with pytest.raises(Halo2LassoError, match="two operand"):
+        preprocessor.compose(ci)
 
 
 @pytest.mark.parametrize("name", CIRCUITS)

@@ -27,6 +27,7 @@ from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
 from halo2_lasso_tpu_torch.piop import gkr
 from halo2_lasso_tpu_torch.piop import sum_check as sc
 from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.scripts import layout_bench
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 
 RNG = np.random.RandomState(21)
@@ -51,6 +52,30 @@ def test_mont_mul_kernel_matches_plain(cuda, spec):
     b = spec.encode([p - 1, p - 1, p - 1, 1] + rand_ints(p, 1000), cuda)
     assert torch.equal(F.mont_mul(spec, a, b), F.mont_mul_plain(spec, a, b))
     assert torch.equal(F.mont_mul(spec, a, b[5]), F.mont_mul_plain(spec, a, b[5]))
+
+
+@pytest.mark.parametrize("size", [1 << 12, 9 * 128, 1037], ids=["pow2", "partial_tile", "ragged"])
+def test_layout_kernels_match_plain_and_mont_mul(cuda, size):
+    """K6 and K7 against their plain versions and K4 (transposed); each
+    launch moves its counter by one. K7 takes only multiples of 128."""
+    p = Fr.modulus
+    a = Fr.encode([0, 1, p - 1, Fr.R] + rand_ints(p, size - 4), cuda)
+    b = Fr.encode([p - 1, Fr.R, p - 1, 1] + rand_ints(p, size - 4), cuda)
+    want = F.mont_mul(Fr, a, b).T
+    a_lf, b_lf = a.T.contiguous(), b.T.contiguous()
+    before = native.counts["mont_mul_limbs_first"]
+    got = layout_bench.mont_mul_limbs_first(a_lf, b_lf)
+    assert native.counts["mont_mul_limbs_first"] == before + 1
+    assert torch.equal(got, want) and torch.equal(got, layout_bench.mont_mul_limbs_first_plain(a_lf, b_lf))
+    if size % 128:
+        with pytest.raises(ValueError):
+            layout_bench.mont_mul_tiled(a_lf[:, None], b_lf[:, None])
+        return
+    a_t, b_t = a_lf.view(8, -1, 128), b_lf.view(8, -1, 128)
+    before = native.counts["mont_mul_tiled"]
+    got = layout_bench.mont_mul_tiled(a_t, b_t)
+    assert native.counts["mont_mul_tiled"] == before + 1
+    assert torch.equal(got.reshape(8, size), want) and torch.equal(got, layout_bench.mont_mul_tiled_plain(a_t, b_t))
 
 
 def test_fold_all_kernel_matches_plain(cuda):
@@ -127,3 +152,8 @@ def test_small_lasso_proof_on_card_matches_jax(cuda):
 def test_small_hyperplonk_proof_on_card_is_golden(cuda):
     proof, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.PLONK_SMALL, cuda)
     assert hashlib.sha256(proof).hexdigest() == chip_smoke.GOLDEN_SHA256
+
+
+def test_small_lasso_hyperplonk_proof_on_card_matches_jax(cuda):
+    proof, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.LASSO_PLONK_SMALL, cuda)
+    assert hashlib.sha256(proof).hexdigest() == chip_smoke.LASSO_PLONK_SHA256

@@ -1,9 +1,10 @@
 """Port GKR, KZG and Lasso (halo2_lasso_tpu_torch.piop.gkr, .pcs, .lasso)
 against the JAX package on the CPU: GKR proof bytes at nv = 4, the SRS from
 one seed, KZG commit / open / verify at nv = 4, the tables and witness
-counters, and a whole Lasso range proof byte-equal to
-halo2_lasso_tpu.lasso.prove for the same SRS and indices, with proofs
-verified across packages both ways (one JAX SRS serves them all).
+counters, and whole Lasso proofs byte-equal to halo2_lasso_tpu.lasso.prove
+for the same SRS and indices (range_table(8, 4), and the two-operand
+and_table(4, 2) and lt_table(4, 2)), with proofs verified across packages
+both ways (one JAX SRS serves them all).
 The JAX proof's SHA-256 is the constant chip_smoke.py holds the card to."""
 
 import hashlib
@@ -169,6 +170,35 @@ def test_tampered_lasso_proof_rejected(port_small_proof):
     bad[-40] ^= 1  # inside the last quotient commitment
     with pytest.raises(Halo2LassoError):
         lasso.verify(vp, range_table(*TABLE), NV_M, new_t(Keccak256Transcript, bytes(bad)))
+
+
+TWO_OPERAND = {"and_table": (4, 2), "lt_table": (4, 2)}  # tests/test_lasso.py:72-82 sizes
+
+
+@pytest.fixture(scope="module", params=list(TWO_OPERAND), ids=list(TWO_OPERAND))
+def two_operand_proofs(request, jax_srs):
+    """A two-operand (interleaved) table: 8 lookups of two 4-bit operands
+    proved by both packages with the JAX SRS (nv = 4, the 2^4 subtables)."""
+    name, args = request.param, TWO_OPERAND[request.param]
+    rng = np.random.RandomState(78)
+    indices = [int(v) for v in rng.randint(0, 1 << 8, 8)]
+    _, (jpp, jvp) = jax_srs
+    jt = new_t(JTranscript)
+    jlasso.prove(jpp, getattr(jtables, name)(*args), indices, jt)
+    pp, vp = from_jax_kzg_params(jpp, device="cpu"), from_jax_kzg_params(jvp, device="cpu")
+    t = new_t(Keccak256Transcript)
+    lasso.prove(pp, getattr(tables, name)(*args), indices, t, device="cpu")
+    return {"name": name, "args": args, "proof": t.into_proof(), "jproof": jt.into_proof(), "vp": vp, "jvp": jvp}
+
+
+def test_two_operand_proof_bytes_match_jax(two_operand_proofs):
+    assert two_operand_proofs["proof"] == two_operand_proofs["jproof"]
+
+
+def test_two_operand_proofs_verify_across_packages(two_operand_proofs):
+    d = two_operand_proofs
+    lasso.verify(d["vp"], getattr(tables, d["name"])(*d["args"]), 3, new_t(Keccak256Transcript, d["jproof"]))
+    jlasso.verify(d["jvp"], getattr(jtables, d["name"])(*d["args"]), 3, new_t(JTranscript, d["proof"]))
 
 
 def test_setup_matches_jax_srs(jax_srs):
