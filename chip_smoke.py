@@ -342,7 +342,7 @@ def check_kernels(torch, np, dev):
     from halo2_lasso_tpu_torch.piop import sum_check as SC
     from halo2_lasso_tpu_torch.poly import multilinear as mle
     from halo2_lasso_tpu_torch.scripts import layout_bench as LB
-    from halo2_lasso_tpu_torch.scripts.layout_bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
+    from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
 
     rng = np.random.RandomState(2024)
 

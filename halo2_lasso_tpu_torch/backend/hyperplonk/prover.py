@@ -22,7 +22,7 @@ import torch
 
 from halo2_lasso_tpu_torch.config import sanity_enabled
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
-from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_torch
+from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_torch, hypercube_leaves
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
@@ -59,35 +59,6 @@ def encode_small(spec: FieldSpec, values: np.ndarray, device) -> torch.Tensor:
     return F.u32_to_mont(spec, torch.from_numpy(values).to(device))
 
 
-def _leaf_fn(spec: FieldSpec, num_vars: int, polys: Sequence[torch.Tensor]):
-    """Leaf tables over all 2^k points: rotations by gathers, the identity
-    column, one-hot Lagrange columns."""
-    n = 1 << num_vars
-    device = polys[0].device
-    cache: Dict = {}
-
-    def leaf(kind, arg):
-        if kind == "poly":
-            key = ("poly", arg.poly, arg.rotation)
-            if key not in cache:
-                cache[key] = mle.rotate_evals(spec, polys[arg.poly], arg.rotation) if arg.rotation else polys[arg.poly]
-        elif kind == "identity":
-            key = ("identity",)
-            if key not in cache:
-                cache[key] = F.u32_to_mont(spec, torch.arange(n, device=device))
-        elif kind == "lagrange":
-            key = ("lagrange", arg)
-            if key not in cache:
-                onehot = torch.zeros(n, dtype=torch.int64, device=device)
-                onehot[int(BooleanHypercube(num_vars).iter_indices()[arg % n])] = 1
-                cache[key] = F.u32_to_mont(spec, onehot)
-        else:
-            raise ValueError(kind)
-        return cache[key]
-
-    return leaf
-
-
 def lookup_compressed_polys(
     lookups: Sequence[Sequence[Tuple[Expression, Expression]]],
     polys: Sequence[torch.Tensor],
@@ -101,7 +72,7 @@ def lookup_compressed_polys(
         return []
     device = polys[0].device
     n = polys[0].shape[0]
-    leaf = _leaf_fn(spec, n.bit_length() - 1, polys)
+    leaf = hypercube_leaves(spec, n.bit_length() - 1, polys)
     chal = list(spec.encode(list(challenges), device)) if challenges else []
     betas_dev = spec.encode(list(betas), device)
     out = []

@@ -83,9 +83,13 @@ extern "C" int h2l_mont_mul_limbs_first(const void* a, const void* b, void* out,
 extern "C" int h2l_mont_mul_tiled(const void* a, const void* b, void* out, long long n,
                                   void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(mont_mul_tiled_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
-  if (err != cudaSuccess) return (int)err;
+  static bool smem_set = false;  // the 64 KiB opt-in, once per process (one card)
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(mont_mul_tiled_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
   long long blocks = (n + kTile - 1) / kTile;
   mont_mul_tiled_kernel<<<blocks, kTileThreads, kTileSmem, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);

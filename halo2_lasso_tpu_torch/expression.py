@@ -7,7 +7,8 @@ rotation}) / Challenge(idx) / Neg / Sum / Product / Scaled /
 DistributePowers (expr0 + sum_{i>=1} base^i * expr_i).
 
 `evaluate_host` evaluates over Python ints (the verifier); `evaluate_torch`
-over field tensors (the prover); `from_foreign` rebuilds a tree made by the
+over field tensors (the prover), with `hypercube_leaves` supplying the leaf
+tables over all rows; `from_foreign` rebuilds a tree made by the
 JAX package (for parameters carried across). The sumcheck round kernel
 does not walk this tree: piop/sum_check.py lowers it to a postfix program
 once per `structural_key`.
@@ -25,6 +26,8 @@ import torch
 
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
+from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.poly.bh import BooleanHypercube
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,3 +329,33 @@ def evaluate_torch(
         lambda a, b: F.mont_mul(spec, a, b),
         lambda a, s: F.mont_mul(spec, a, const(s)),
     )
+
+
+def hypercube_leaves(spec: FieldSpec, num_vars: int, polys: Sequence[torch.Tensor]):
+    """The `leaf_fn` of `evaluate_torch` over all 2^k points of the
+    hypercube: polys rotated by gathers, the identity column, one-hot
+    Lagrange columns, each built once."""
+    n = 1 << num_vars
+    device = polys[0].device
+    cache: Dict = {}
+
+    def leaf(kind, arg):
+        if kind == "poly":
+            key = ("poly", arg.poly, arg.rotation)
+            if key not in cache:
+                cache[key] = mle.rotate_evals(spec, polys[arg.poly], arg.rotation) if arg.rotation else polys[arg.poly]
+        elif kind == "identity":
+            key = ("identity",)
+            if key not in cache:
+                cache[key] = F.u32_to_mont(spec, torch.arange(n, device=device))
+        elif kind == "lagrange":
+            key = ("lagrange", arg)
+            if key not in cache:
+                onehot = torch.zeros(n, dtype=torch.int64, device=device)
+                onehot[int(BooleanHypercube(num_vars).iter_indices()[arg % n])] = 1
+                cache[key] = F.u32_to_mont(spec, onehot)
+        else:
+            raise ValueError(kind)
+        return cache[key]
+
+    return leaf

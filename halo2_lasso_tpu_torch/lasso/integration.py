@@ -35,7 +35,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
-from halo2_lasso_tpu_torch.expression import Expression, evaluate_torch
+from halo2_lasso_tpu_torch.expression import Expression, evaluate_torch, hypercube_leaves
 from halo2_lasso_tpu_torch.lasso import _fingerprint, _read_ts_and_final_dev, _subtable_dev, _subtable_mle_eval
 from halo2_lasso_tpu_torch.lasso.tables import LassoTable, Subtable, identity_subtable
 from halo2_lasso_tpu_torch.ops import field as F
@@ -204,14 +204,12 @@ def build_lookup_witness(
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Evaluate the lookup's input expressions over all rows and build the
     committed local polys and the final_cts polys, on the polys' device."""
-    from halo2_lasso_tpu_torch.backend.hyperplonk.prover import _leaf_fn
-
     t = lookup.table
     b, c = t.chunk_bits, t.num_chunks
     n = 1 << num_vars
     device = polys[0].device
     chal = list(spec.encode(list(challenges), device)) if challenges else []
-    leaf = _leaf_fn(spec, num_vars, polys)
+    leaf = hypercube_leaves(spec, num_vars, polys)
 
     def eval_digits(e: Expression, bits: int) -> List[torch.Tensor]:
         v = evaluate_torch(spec, e, leaf, chal, device)

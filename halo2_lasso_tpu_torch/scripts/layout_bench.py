@@ -32,18 +32,13 @@ import torch
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
+from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
 
 LANES = 128
 DEFAULT_LOG2_NS = (16, 20, 22)
-
-# Published H100 SXM peaks (NVIDIA H100 datasheet): 3.35 TB/s of HBM;
-# 67 TFLOP/s fp32 on the CUDA cores, i.e. 33.5 T fma/s. Hopper runs int32
-# multiply-adds at half the fp32 rate (64 vs 128 lanes per SM per clock),
-# so 16.75 T IMAD/s; a 32x32->64-bit product costs two (low and high word).
-# chip_smoke.py bounds every kernel with these.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 16.75e12
-IMAD_PER_MONT_MUL = 2 * 2 * 8 * 8  # CIOS: 64 products a*b + 64 products m*p
+DEVICE = "cuda"  # on the CPU the wrappers run their plain versions
+REPS = 20  # timed launches per kernel and n
+SEED = 3
 BYTES_PER_MUL = 3 * 32  # read a and b, write the product
 
 
@@ -102,36 +97,15 @@ def edge_values():
     return [0, 1, p - 1, Fr.R], [p - 1, Fr.R, p - 1, 1]
 
 
-def bound_ms(bytes_moved: int, imads: int):
-    """(least time in ms, "bytes" or "operations") for work that moves
-    `bytes_moved` bytes and does `imads` 32-bit multiply-adds."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / IMAD_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls after one warm-up, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def run(log2_ns=DEFAULT_LOG2_NS, device="cuda", reps: int = 20, seed: int = 3):
+def run(log2_ns=DEFAULT_LOG2_NS):
     """Check and time K4, K6 and K7 at each n = 2^k; returns one record per
     n. Raises if any two versions disagree."""
-    rng = np.random.RandomState(seed)
+    rng = np.random.RandomState(SEED)
     ea, eb = edge_values()
     records = []
     for k in log2_ns:
         n = 1 << k
-        a, b = rand_rows(rng, n, device, ea), rand_rows(rng, n, device, eb)
+        a, b = rand_rows(rng, n, DEVICE, ea), rand_rows(rng, n, DEVICE, eb)
         a_lf, b_lf = a.T.contiguous(), b.T.contiguous()
         a_t, b_t = a_lf.view(F.LIMBS, n // LANES, LANES), b_lf.view(F.LIMBS, n // LANES, LANES)
         k4 = F.mont_mul(Fr, a, b)
@@ -143,9 +117,9 @@ def run(log2_ns=DEFAULT_LOG2_NS, device="cuda", reps: int = 20, seed: int = 3):
         b_ms, b_by = bound_ms(BYTES_PER_MUL * n, IMAD_PER_MONT_MUL * n)
         records.append({
             "n": n,
-            "k4_ms": cuda_ms(lambda: F.mont_mul(Fr, a, b), reps),
-            "k6_ms": cuda_ms(lambda: mont_mul_limbs_first(a_lf, b_lf), reps),
-            "k7_ms": cuda_ms(lambda: mont_mul_tiled(a_t, b_t), reps),
+            "k4_ms": cuda_ms(lambda: F.mont_mul(Fr, a, b), REPS),
+            "k6_ms": cuda_ms(lambda: mont_mul_limbs_first(a_lf, b_lf), REPS),
+            "k7_ms": cuda_ms(lambda: mont_mul_tiled(a_t, b_t), REPS),
             "plain_ms": cuda_ms(lambda: F.mont_mul_plain(Fr, a, b), 2),
             "bound_ms": b_ms,
             "bound_by": b_by,

@@ -135,10 +135,9 @@ def test_tampered_proof_rejected(port_lookup, where):
         HyperPlonk.verify(port_lookup["vp"], port_lookup["circuit"].instances(), new_transcript(bytes(bad)))
 
 
-def test_lasso_lookups_refused():
-    """Lasso lookups are accepted (tests/test_torch_lasso_hyperplonk.py);
-    one whose two-operand table gets a single input is refused when the
-    circuit is composed."""
+def test_two_operand_lasso_lookup_with_one_input_refused():
+    """A Lasso lookup whose two-operand table gets a single input is refused
+    when the circuit is composed."""
     ci, _ = fixtures.rand_lasso_circuit(3, np.random.RandomState(1), np.random.RandomState(2))
     lk = ci.lasso_lookups[0]
     ci.lasso_lookups = [type(lk)(lk.table, lk.inputs[:1], lk.output)]

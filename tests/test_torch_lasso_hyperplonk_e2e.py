@@ -3,10 +3,9 @@ setup, preprocess, prove and verify of the circuits that
 tests/test_lasso_hyperplonk.py runs for the JAX package (the byte parity
 with the JAX package is in tests/test_torch_lasso_hyperplonk.py):
 
-* rand_lasso_circuit at nv = 5;
-* a range subtable (2^10) larger than the circuit (2^4): the PCS must cover
+* a range subtable (2^10) larger than the circuit (2^3): the PCS must cover
   the final_cts size, and the 2^10 final counters are committed and opened
-  at their own size beside the 2^4 ones;
+  at their own size beside the 2^3 ones;
 * rand_full_feature_circuit at nv = 3: gate, copy constraint, a logup
   lookup and two Lasso lookups in one proof.
 """
@@ -35,11 +34,10 @@ def prove_and_verify(name, num_vars, **kw):
 @pytest.mark.parametrize(
     "name,num_vars,kw",
     [
-        ("rand_lasso_circuit", 5, {}),
-        ("rand_lasso_circuit", 4, {"range_bits": 10}),
+        ("rand_lasso_circuit", 3, {"range_bits": 10}),
         ("rand_full_feature_circuit", 3, {}),
     ],
-    ids=["e2e_nv5", "big_subtable", "full_feature"],
+    ids=["big_subtable", "full_feature"],
 )
 def test_lasso_hyperplonk_proves_and_verifies(name, num_vars, kw):
     prove_and_verify(name, num_vars, **kw)
