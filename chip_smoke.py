@@ -5,9 +5,14 @@
 
 Phases, each printing one line with its wall time:
   1. environment: torch / CUDA versions, the card, its power limit;
-  2. build: the one nvcc call that compiles every kernel (csrc/*.cu);
-  3. kernels: mont_mul, fold_all, sumcheck_round, ec_add and fix_var against
-     their plain PyTorch versions on the card, bit for bit, then timed;
+  2. build: one nvcc call per kernel source (csrc/*.cu), all started
+     together, and the registers, shared memory and spills of each kernel;
+  3. kernels: every kernel against its plain PyTorch version on the card,
+     bit for bit, then timed at a shape of a main path: sumcheck_round at
+     the Lasso-in-HyperPlonk zero check's first round (37 leaves, degree 3,
+     2^16) and the Lasso primary sumcheck's, msm_level over every level of
+     a 2^16 MSM (17 launches, no host sync), ec_add over PR 6's 878,592
+     lanes and the first level of that MSM's bit-plane tree;
   4. small proof: a Lasso range proof (range_table(8, 4), 16 lookups, SRS
      seed 3) on the card and through the plain path on the CPU; both must
      hash to SMALL_PROOF_SHA256, the hash of the JAX package's proof
@@ -23,7 +28,8 @@ Phases, each printing one line with its wall time:
      nv = 16, setup, preprocess, prove and verify on the card with per-stage
      times and the kernel launches of the prove alone; a proof with one
      flipped byte must be rejected; then one more prove under torch.profiler
-     for the card's busy share;
+     for the card's busy share, each hand kernel's device time and launches,
+     and the device-to-host copies (a failure there fails the run);
   8. two-operand Lasso: 2^16 lookups into and_table(32, 8) (operands from
      RandomState(1), SRS seed 3), setup, prove and verify with per-stage
      times; a proof with one flipped byte must be rejected;
@@ -54,6 +60,7 @@ import faulthandler
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,7 +79,7 @@ LASSO_PLONK = {
     "circuit": "rand_lasso_circuit", "num_vars": 16, "seeds": (16, 516), "setup_seed": 0,
     "kwargs": {"operand_bits": 32, "chunk_bits": 8, "range_bits": 16},
 }
-PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var")
+PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level")
 PATH_KERNELS = {
     "lasso": PROOF_KERNELS,
     "hyperplonk": PROOF_KERNELS,
@@ -112,14 +119,25 @@ def main() -> int:
     t0 = time.perf_counter()
     native.lib()
     stage("build", t0, f"nvcc {native.build_seconds:.1f}s" if native.build_seconds else "cached")
+    for line in ptxas_lines(native.ptxas_info):
+        print("  ptxas " + line, flush=True)
 
     # 3. kernels
     t0 = time.perf_counter()
     kernels = check_kernels(torch, np, dev)
     stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
     print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
-    fix_var = next(k for k in kernels if k["name"] == "fix_var")
-    print(f"fix_var vs fold_all on one table: {fix_var['k2_one_table_ms']:.4f}ms", flush=True)
+    by_name = {k["name"]: k for k in kernels}
+    print(f"fix_var vs fold_all on one table: {by_name['fix_var']['k2_one_table_ms']:.4f}ms", flush=True)
+    k1, k3, lv = by_name["sumcheck_round"], by_name["ec_add"], by_name["msm_level"]
+    print(f"sumcheck_round: {k1['shape']}: {k1['ms']:.4f}ms (bound {k1['bound_ms']:.4f}ms, {k1['bound_by']}); "
+          f"Lasso primary 2^16: {k1['primary_ms']:.4f}ms (bound {k1['primary_bound_ms']:.4f}ms, "
+          f"{k1['primary_bound_by']})", flush=True)
+    print(f"ec_add: 878,592 lanes of the five cases {k3['ms']:.4f}ms (bound {k3['bound_ms']:.4f}ms); "
+          f"bit-plane tree level 1 of a 2^16 MSM ({k3['tree_lanes']} lanes) {k3['tree_ms']:.4f}ms "
+          f"(bound {k3['tree_bound_ms']:.4f}ms)", flush=True)
+    print(f"msm_level: {lv['shape']}: {lv['ms']:.4f}ms (bound {lv['bound_ms']:.4f}ms over {lv['adds']} adds; "
+          f"plain {lv['plain_ms']:.2f}ms)", flush=True)
 
     # 4. small proof against the JAX package's bytes
     proof_gate(np, lasso_proof, SMALL, SMALL_PROOF_SHA256, "small_proof", "range_table(8,4), 16 lookups")
@@ -201,34 +219,64 @@ def run_hyperplonk_path(torch, np, launches, path, name, label, cfg):
     extra = {}
     run_path(launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
     print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
-    print("  second prove under torch.profiler: " + profile_prove(torch, extra["pp"], extra["circuit"]), flush=True)
+    prof = profile_prove(torch, extra["pp"], extra["circuit"])
+    print("  second prove under torch.profiler: " + json.dumps(prof), flush=True)
 
 
 def profile_prove(torch, pp, circuit):
-    """Wall time of one more prove and the device's busy time in it, from
-    torch.profiler's kernel times; "not measured" if the profiler gives no
-    device time on this machine."""
+    """One more prove under torch.profiler: its wall time, the card's busy
+    time, each hand kernel's device time and launches, the device-to-host
+    and host-to-device copies, and the heaviest other device rows. A failure
+    of the prove or of the profiler fails the run."""
     from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
+    from halo2_lasso_tpu_torch.ops import native
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            HyperPlonk.prove(pp, circuit, new_transcript())
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side rows only (kernels, copies, memsets): one stream, so
-        # their sum is the time the card was busy
-        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    except Exception as exc:  # the profiler is untried on that machine
-        return f"not measured ({type(exc).__name__}: {exc})"
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        HyperPlonk.prove(pp, circuit, new_transcript())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side rows only (kernels, copies, memsets): one stream, so their
+    # sum is the time the card was busy
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if busy_ms <= 0:
-        return f"wall {wall_ms:.1f}ms, device time not measured (profiler gave none)"
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    tops = "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.1f}ms" for e in top)
-    return f"wall {wall_ms:.1f}ms, device busy {busy_ms:.1f}ms ({100 * busy_ms / wall_ms:.1f}%); top: {tops}"
+        raise SystemExit("the profiler saw no device time in the prove")
+    hand, other = {k: [0.0, 0] for k in native.KERNELS}, []
+    for e in dev:
+        name = next((k for k, sym in native.SYMBOLS.items() if re.search(rf"(^|\W){sym}\s*[<(]", e.key)), None)
+        if name is None:
+            other.append(e)
+        else:
+            hand[name][0] += e.self_device_time_total / 1e3
+            hand[name][1] += e.count
+    copies = {d: [0.0, 0] for d in ("DtoH", "HtoD")}
+    for e in dev:
+        for d in copies:
+            if e.key.startswith(f"Memcpy {d}"):
+                copies[d][0] += e.self_device_time_total / 1e3
+                copies[d][1] += e.count
+    top = sorted(other, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {
+        "wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+        "hand_kernels": {k: {"ms": v[0], "launches": v[1]} for k, v in hand.items()},
+        "copies": {d: {"ms": v[0], "count": v[1]} for d, v in copies.items()},
+        "top_other": [{"key": e.key[:64], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top],
+    }
+
+
+def ptxas_lines(info):
+    """Registers, shared memory and spills per kernel from -Xptxas -v."""
+    out, fn = [], None
+    for line in info.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and ("Used" in line or "spill" in line):
+            out.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def print_stages(records):
@@ -399,8 +447,9 @@ def check_kernels(torch, np, dev):
            6 * n * 48, 6 * (n // 2) * IMAD_PER_MONT_MUL, err)
 
     # K1 round message: the Lasso primary expression and a GKR degree-3
-    # layer at 2^14; timed at the primary sumcheck's first round (2^16)
-    err = 0
+    # layer at 2^14, and the primary sumcheck's first round (2^16), timed
+    # beside the zero check's below
+    k1_err = 0
     for expr, n_polys, size in (
         (gkr.sum_check_expression_pure(2), 4, 1 << 14),
         (Expression.eq_xy(0) * range_table(16, 16).g, 1, 1 << 14),
@@ -412,15 +461,15 @@ def check_kernels(torch, np, dev):
         chal = rand_field(Fr, 1) if expr.used_challenge else None
         kernel_fn = lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)]  # noqa: E731
         plain_fn = lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]  # noqa: E731
-        err = max(err, same("sumcheck_round", kernel_fn, plain_fn))
-    muls = sum(op in (SC.OP_MUL, SC.OP_SCALED) for op, _ in prog.ops)
-    record("sumcheck_round", "halo2_lasso_tpu_torch/csrc/sumcheck_round.cu",
-           "halo2_lasso_tpu/ops/pallas_field.py:376", kernel_fn, plain_fn,
-           len(leaves) * n * 32, expr.degree * muls * (n // 2) * IMAD_PER_MONT_MUL, err)
+        k1_err = max(k1_err, same("sumcheck_round", kernel_fn, plain_fn))
+    primary = {"primary_ms": cuda_ms(kernel_fn, 20), "primary_plain_ms": cuda_ms(plain_fn, 2)}
+    primary["primary_bound_ms"], primary["primary_bound_by"] = bound_ms(
+        len(leaves) * n * 32, expr.degree * program_muls(SC, prog) * (n // 2) * IMAD_PER_MONT_MUL)
 
     # K3 ec_add: 2^12 lanes over the five cases (generic, P = Q, P = -Q,
-    # P = O, Q = O), also against host arithmetic; timed at the first level
-    # of a 2^16-point MSM (26 windows x 2^15 pairs + 26 x 2^10 buckets)
+    # P = O, Q = O), also against host arithmetic; timed over the five cases
+    # at 878,592 lanes (PR 6's shape: the first level of a 2^16 MSM before
+    # msm_level) and at the first level of a 2^16 MSM's bit-plane tree below
     pts_p, pts_q = ec_cases(np, rng, MJ, Fq.modulus, 1 << 12)
     P = {k: Fq.encode([pt[i] for pt in pts_p], dev) for i, k in enumerate(ec.COORDS)}
     Q = {k: Fq.encode([pt[i] for pt in pts_q], dev) for i, k in enumerate(ec.COORDS)}
@@ -428,15 +477,75 @@ def check_kernels(torch, np, dev):
     want = MJ.host_batch_affine([MJ.host_jac_add(a, b, Fq.modulus) for a, b in zip(pts_p, pts_q)], Fq.modulus)
     if ec.jacobian_to_affine(ec.ec_add(P, Q)) != want:
         raise SystemExit("ec_add disagrees with host arithmetic")
-    c = MJ.best_c(n)
-    windows = -(-Fr.num_bits // c)
-    lanes = windows * (n // 2 + (1 << c))
+    lanes = 878_592
     reps = -(-lanes // (1 << 12))
     P = {k: v.repeat(reps, 1)[:lanes] for k, v in P.items()}
     Q = {k: v.repeat(reps, 1)[:lanes] for k, v in Q.items()}
+    case = torch.arange(lanes) % (1 << 12) % 5  # ec_cases: lane i is case i % 5
+    products = int(16 * ((case == 0) | (case == 2)).sum() + 23 * (case == 1).sum())
     record("ec_add", "halo2_lasso_tpu_torch/csrc/ec_add.cu", "halo2_lasso_tpu/ops/pallas_ec.py:144",
            lambda: list(ec.ec_add(P, Q).values()), lambda: list(ec.ec_add_plain(P, Q).values()),
-           lanes * 9 * 32, lanes * 23 * IMAD_PER_MONT_MUL, err)
+           lanes * 9 * 32, products * IMAD_PER_MONT_MUL, err)
+
+    # msm_level: every level of a 64-point MSM (c = 3; P = Q, P = -Q,
+    # digit-0 and identity lanes) against the plain level, then a 2^16 MSM:
+    # bit-exact at every level, 16 level launches and a final flush, no
+    # host sync in its device part; timed over its 17 launches, the bound
+    # counting the adds this data needs (16 products where both inputs are
+    # not the identity; its points are distinct and random, so no lane meets
+    # P = Q or P = -Q)
+    err = check_msm_levels(torch, np, rng, dev, msm_edge_points(np, rng, MJ, Fq.modulus, dev), 64, Fr)
+    from halo2_lasso_tpu_torch.ops.bn254 import G1_GEN
+
+    points = ec.fixed_base_msm(G1_GEN, rand_field(Fr, n))
+    scal = rand_field(Fr, n)
+    err = max(err, check_msm_levels(torch, np, rng, dev, points, n, Fr))
+    MJ.msm_planes(points, scal)  # the cached constants exist before the sync check
+    native.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    planes = MJ.msm_planes(points, scal)[0]
+    torch.cuda.set_sync_debug_mode("default")
+    if native.counts["msm_level"] != 17:
+        raise SystemExit(f"a 2^16 MSM launched msm_level {native.counts['msm_level']} times, not 17")
+    print("msm_level: a 2^16 MSM launches it 17 times (16 levels + the final flush), with no host sync", flush=True)
+    c = MJ.best_c(n)
+    B, W = 1 << c, -(-Fr.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(Fr, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+
+    def levels(level_fn):
+        def run():
+            bucket = ec.identity_point(W * B + 1, dev)
+            pts, dig = level_fn(points, digits, bucket, W, B, order=order)
+            while dig.shape[0]:
+                pts, dig = level_fn(pts, dig, bucket, W, B)
+            return [bucket[k][: W * B] for k in ec.COORDS]
+        return run
+
+    adds = msm_level_adds(torch, torch.gather(digits, 1, order), B)
+    record("msm_level", "halo2_lasso_tpu_torch/csrc/msm_level.cu",
+           "halo2_lasso_tpu/ops/pallas_ec.py:144 with halo2_lasso_tpu/ops/msm_jacobian.py:168",
+           levels(MJ.msm_level), levels(MJ.msm_level_plain),
+           n * 96 + W * n * 12 + W * B * 96, adds * 16 * IMAD_PER_MONT_MUL, err)
+    results["msm_level"]["shape"] = "a 2^16 MSM's 17 launches (c = 10, W = 26)"
+    results["msm_level"]["adds"] = adds
+
+    # K3 at the first level of that MSM's bit-plane tree (c W 2^(c-1) lanes)
+    half = c * W * B // 2
+    idx, keep = MJ._plane_rows(c, W, str(dev))
+    bucket = dict(zip(ec.COORDS, levels(MJ.msm_level)()))
+    tree = {k: bucket[k][idx] for k in ec.COORDS}
+    tree["z"] = torch.where(keep, tree["z"], torch.zeros_like(tree["z"]))
+    lo, hi = ({k: v[a:b].contiguous() for k, v in tree.items()} for a, b in ((0, half), (half, 2 * half)))
+    if not all(torch.equal(x, y) for x, y in zip(ec.ec_add(lo, hi).values(), ec.ec_add_plain(lo, hi).values())):
+        raise SystemExit("kernel ec_add disagrees with its plain version on the bit-plane tree")
+    live = int((~F.is_zero(lo["z"]) & ~F.is_zero(hi["z"])).sum())
+    tree_ms = cuda_ms(lambda: ec.ec_add(lo, hi), 20)
+    tb_ms, tb_by = bound_ms(half * 9 * 32, live * 16 * IMAD_PER_MONT_MUL)
+    results["ec_add"].update(tree_lanes=half, tree_ms=tree_ms, tree_bound_ms=tb_ms, tree_bound_by=tb_by)
+    if planes["x"].shape[0] != c * W:
+        raise SystemExit("msm_planes returned the wrong number of plane sums")
 
     # K5 fix_var: a table of 2^16 with 0, 1, p-1, R mod p among its entries
     # and the challenge, both pair strides, and a ragged half-length; timed
@@ -468,8 +577,8 @@ def check_kernels(torch, np, dev):
     prog = SC.lower_expression(expr, keys)
     leaves = [rand_field(Fr, 1 << 14) for _ in keys]
     chal = rand_field(Fr, 3)
-    same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
-         lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)])
+    k1_err = max(k1_err, same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
+                              lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]))
 
     # K1 on the Lasso-in-HyperPlonk zero check: the composed expression of
     # the nv = 16 circuit of phase 9 (5 witness + 26 Lasso polys) at 2^14
@@ -479,12 +588,27 @@ def check_kernels(torch, np, dev):
     n_polys = ci.num_poly() + preprocessor.num_lasso_polys(ci) + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz
     keys = SC._leaf_keys(expr, n_polys)
     prog = SC.lower_expression(expr, keys)
-    leaves = [rand_field(Fr, 1 << 14) for _ in keys]
     chal = rand_field(Fr, 3)
-    same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
-         lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)])
+    for size in (1 << 14, 2 * 1037):
+        leaves = [rand_field(Fr, size) for _ in keys]
+        k1_err = max(k1_err, same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
+                                  lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]))
+    # timed at its first round (2^16), with no host sync or copy in the call
+    leaves = [rand_field(Fr, n) for _ in keys]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    SC.round_message(Fr, leaves, prog, chal, expr.degree)
+    torch.cuda.set_sync_debug_mode("default")
+    muls = program_muls(SC, prog)
+    record("sumcheck_round", "halo2_lasso_tpu_torch/csrc/sumcheck_round.cu",
+           "halo2_lasso_tpu/ops/pallas_field.py:376",
+           lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
+           lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)],
+           len(leaves) * n * 32, expr.degree * muls * (n // 2) * IMAD_PER_MONT_MUL, k1_err)
+    results["sumcheck_round"].update(primary, shape=f"zero check: {len(keys)} leaves, degree {expr.degree}, "
+                                     f"stack {prog.max_stack}, {muls} products a point, 2^16")
     print(f"K1 on the Lasso-in-HyperPlonk zero check: {len(keys)} leaves, degree {expr.degree}, "
-          f"stack {prog.max_stack}, bit-exact at 2^14", flush=True)
+          f"stack {prog.max_stack}, bit-exact at 2^14 and 2 * 1037, no host sync", flush=True)
 
     # K6 / K7 (the layout microbench's limbs-first and tiled products): at
     # 2^16 with 0, 1, p-1, R mod p among the inputs, at ragged lengths (a
@@ -552,6 +676,77 @@ def ec_cases(np, rng, MJ, mod, n):
         ps.append(a)
         qs.append(b)
     return ps, qs
+
+
+def program_muls(SC, prog):
+    """Montgomery products of one pass of a round program at one point."""
+    return sum(op in (SC.OP_MUL, SC.OP_SCALED) for op, _ in prog.ops)
+
+
+def msm_edge_points(np, rng, MJ, mod, dev, n=64):
+    """n points over two base points, rescaled and every other block of four
+    negated (P = Q and P = -Q lanes), point 5 the identity."""
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops.bn254 import Fq
+
+    base = [ec_cases(np, rng, MJ, mod, 1)[0][0] for _ in range(2)]
+    pts = []
+    for i in range(n):
+        x, y, z = base[i % 2]
+        lam = int(rng.randint(2, 1 << 40))
+        pts.append((x * lam * lam % mod, (-1) ** (i // 4) * y * lam**3 % mod, z * lam % mod))
+    pts[5] = (1, 1, 0)
+    return {k: Fq.encode([pt[i] for pt in pts], dev) for i, k in enumerate(ec.COORDS)}
+
+
+def check_msm_levels(torch, np, rng, dev, points, n, Fr):
+    """Every level of one MSM of the n points, msm_level against
+    msm_level_plain on the same inputs (survivors, digits, buckets); a third
+    of the scalars are 0 (digit-0 slots). Returns the largest difference."""
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+
+    scal = Fr.encode([int(rng.randint(0, 1 << 62)) * (i % 3 != 0) for i in range(n)], dev)
+    c = MJ.best_c(n)
+    B, W = 1 << c, -(-Fr.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(Fr, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bk, bp = ec.identity_point(W * B + 1, dev), ec.identity_point(W * B + 1, dev)
+    kp, kd, pp, pd, first = points, digits, points, digits, True
+    while True:
+        kp, kd = MJ.msm_level(kp, kd, bk, W, B, order=order if first else None)
+        pp, pd = MJ.msm_level_plain(pp, pd, bp, W, B, order=order if first else None)
+        got = [kd, *kp.values(), *(bk[k][: W * B] for k in ec.COORDS)]
+        want = [pd, *pp.values(), *(bp[k][: W * B] for k in ec.COORDS)]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"kernel msm_level disagrees with its plain version at {kd.shape[0]} survivors")
+        if kd.shape[0] == 0:
+            return 0
+        first = False
+
+
+def msm_level_adds(torch, dig, B):
+    """Adds with two non-identity inputs over an MSM's levels and final
+    flush, from the sorted (W, n) digits of distinct random points: a slot
+    is the identity where its digit is 0 (or both halves of its pair were),
+    a bucket until its first flush."""
+    W, m = dig.shape
+    live = dig != 0
+    filled = torch.zeros((W, B), dtype=torch.bool, device=dig.device)
+    rows = torch.arange(W, device=dig.device)[:, None]
+    adds = 0
+    while True:
+        if m == 1:
+            da, la = dig, live
+            adds += int((filled[rows, da] & la).sum())
+            return adds
+        da, db, la, lb = dig[:, 0::2], dig[:, 1::2], live[:, 0::2], live[:, 1::2]
+        same = da == db
+        flush = ~same & la
+        adds += int((same & la & lb).sum() + (flush & filled[rows, da]).sum())
+        filled[rows.expand_as(da)[flush], da[flush]] = True
+        dig, live, m = db, torch.where(same, la | lb, lb), m // 2
 
 
 if __name__ == "__main__":

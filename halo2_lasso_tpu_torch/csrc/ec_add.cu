@@ -2,12 +2,14 @@
 // _ec_add_kernel (halo2_lasso_tpu/ops/pallas_ec.py:144; math _ec_add_body
 // :85, launcher _ec_add_call :154, pallas_call :167).
 //
-// add-2007-bl for the generic lanes, dbl-2009-l computed alongside for
-// P = Q, identity (x = y = R mod p, z = 0) for P = -Q, pass-through when
-// either input is the identity; the choice is branch-free per lane, as in
-// the TPU kernel. Bound: operations (about 30 Montgomery products per lane
-// against 288 bytes moved). The product is kept out of line so the kernel
-// body stays small enough for a build of seconds.
+// add-2007-bl for the generic lanes; dbl-2009-l for P = Q, computed only
+// when some lane of the warp needs it (csrc/ec.cuh); identity (x = y = R
+// mod p, z = 0) for P = -Q; pass-through when either input is the identity.
+// The choice per lane is a select, as in the TPU kernel. The MSM's halving
+// levels run in csrc/msm_level.cu; this kernel serves the bit-plane
+// reduction tree and the fixed-base MSM. Bound: operations (16 Montgomery
+// products a generic lane against 288 bytes moved). The product is kept out
+// of line so the kernel body stays small enough for a build of seconds.
 #include "ec.cuh"
 
 __global__ void ec_add_kernel(const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,

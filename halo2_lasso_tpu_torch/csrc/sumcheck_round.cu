@@ -7,12 +7,36 @@
 //
 // The TPU kernel is generated per expression. This is ONE compiled kernel
 // that interprets the expression: the host lowers it to a short postfix
-// program (piop/sum_check.py, lower_expression) and each thread runs the
-// program on a small stack for its pairs. Sums are exact: field adds per
-// thread, then per block through shared memory, then a second one-block
-// pass over the block partials. Nothing is compiled per expression or shape.
-// Bound: bytes for shallow expressions (every leaf table is read once);
-// the interpreter's dispatch and local-memory stack cost more than that.
+// program (piop/sum_check.py, lower_expression), and each thread runs the
+// program on a small stack for its pairs. Nothing is compiled per
+// expression or shape.
+//
+// Bound: operations at the heavy shapes (the zero check's program does 27
+// Montgomery products a point, 3 points a pair, against 32 bytes read a
+// leaf table element); bytes for the two-leaf Lasso primary sumcheck. What
+// the design does about it:
+//   - one pass of the program per pair for all `degree` points: a leaf pair
+//     is loaded once (16-byte loads) and extended to t = 1..degree by adds,
+//     and every stack slot holds `degree` values;
+//   - the stack lives in shared memory, laid out [slot][t][limb][thread]
+//     (conflict-free), sized at launch from the program's depth and the
+//     degree; the accumulators sit in registers (a template over the
+//     degree). No dynamically indexed array is left in local memory;
+//   - the leaf pointers, the program and its constants travel by value in
+//     the kernel's parameters (the constant bank, where the uniform program
+//     is a broadcast read), so no host-to-device copy precedes the launch;
+//   - the sum across blocks is done in the same launch: the last block to
+//     finish (an atomic ticket) adds the block partials. Field addition mod
+//     p is exact, so the order does not change the result;
+//   - threads a block from the caller: 128 (piop/sum_check.py). One thread
+//     a pair gives the zero check's first round (2^15 pairs) 1024 warps,
+//     about 8 an SM, whatever the block size; at that shape 32 / 64 / 128 /
+//     256 threads took 0.184 / 0.161 / 0.155 / 0.157 ms (degree 5, 23
+//     leaves: 0.510 / 0.468 / 0.458 / 0.458 ms), by
+//     scripts/kernel_tune.py on an NVIDIA H100 80GB HBM3 at 700 W. ptxas:
+//     64-80 registers at degrees 1-3, 128 at 4-8, no spills, no stack.
+#include <cstring>
+
 #include "field.cuh"
 
 #define OP_LEAF 0
@@ -25,85 +49,202 @@
 
 #define MAX_STACK 8
 #define MAX_DEGREE 8
-#define THREADS 256
+#define MAX_LEAVES 64
+#define MAX_OPS 384
+#define MAX_CONSTS 32
 
-__device__ Fe leaf_at(const uint32_t* tab, long long i, int t) {
-  Fe lo = fe_load(tab, 2 * i);
-  Fe hi = fe_load(tab, 2 * i + 1);
-  Fe step = fe_sub<Fr>(hi, lo);
-  Fe v = hi;
-  for (int s = 1; s < t; ++s) v = fe_add<Fr>(v, step);
-  return v;
-}
+// 2.3 KB, under the 4 KB of kernel parameters every CUDA version takes.
+struct RoundParams {
+  const uint32_t* leaves[MAX_LEAVES];
+  Fe consts[MAX_CONSTS];
+  unsigned short ops[MAX_OPS];  // op | arg << 3
+  const uint32_t* chals;
+  long long h;
+  int nops;
+};
 
-__device__ void block_sum_store(Fe* buf, Fe v, uint32_t* dst) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) buf[threadIdx.x] = fe_add<Fr>(buf[threadIdx.x], buf[threadIdx.x + s]);
-    __syncthreads();
+// One thread's stack: value t of slot s, limb j at base[((s * D + t) * 8 + j) * T].
+template <int D>
+struct Stack {
+  uint32_t* base;
+  int T;
+  FD Fe get(int s, int t) const {
+    Fe r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.v[j] = base[((s * D + t) * 8 + j) * T];
+    return r;
   }
-  if (threadIdx.x == 0) fe_store(dst, 0, buf[0]);
-  __syncthreads();
-}
+  FD void put(int s, int t, const Fe& a) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) base[((s * D + t) * 8 + j) * T] = a.v[j];
+  }
+};
 
-__global__ void __launch_bounds__(THREADS)
-round_kernel(const uint32_t* const* leaves, long long h, const int* prog, int nprog,
-             const uint32_t* consts, const uint32_t* chals, int degree, uint32_t* partials) {
-  __shared__ Fe buf[THREADS];
-  Fe acc[MAX_DEGREE];
-  for (int t = 0; t < degree; ++t) acc[t] = fe_zero();
-  long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < h; i += stride) {
-    for (int t = 1; t <= degree; ++t) {
-      Fe st[MAX_STACK];
-      int sp = 0;
-      for (int pc = 0; pc < nprog; ++pc) {
-        int op = prog[2 * pc], arg = prog[2 * pc + 1];
-        switch (op) {
-          case OP_LEAF: st[sp++] = leaf_at(leaves[arg], i, t); break;
-          case OP_CONST: st[sp++] = fe_load(consts, arg); break;
-          case OP_CHAL: st[sp++] = fe_load(chals, arg); break;
-          case OP_NEG: st[sp - 1] = fe_neg<Fr>(st[sp - 1]); break;
-          case OP_ADD: --sp; st[sp - 1] = fe_add<Fr>(st[sp - 1], st[sp]); break;
-          default: {  // OP_MUL, OP_SCALED
-            Fe rhs = op == OP_MUL ? st[--sp] : fe_load(consts, arg);
-            st[sp - 1] = fe_mul<Fr>(st[sp - 1], rhs);
-          }
+// The program on pair i at t = 1..D; the values end in slot 0. Also compiled
+// for the host (FIELD_HOST_TEST), where the CPU tests hold it against the
+// plain version.
+template <int D>
+FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
+  int sp = 0;
+  for (int pc = 0; pc < p.nops; ++pc) {
+    const int code = p.ops[pc];
+    const int op = code & 7, arg = code >> 3;
+    if (op == OP_LEAF) {
+      const uint32_t* tab = p.leaves[arg];
+      const Fe lo = fe_load16(tab, 2 * i);
+      Fe v = fe_load16(tab, 2 * i + 1);
+      st.put(sp, 0, v);
+      if (D > 1) {
+        const Fe step = fe_sub<Fr>(v, lo);
+#pragma unroll 1
+        for (int t = 1; t < D; ++t) {
+          v = fe_add<Fr>(v, step);
+          st.put(sp, t, v);
         }
       }
-      acc[t - 1] = fe_add<Fr>(acc[t - 1], st[0]);
+      ++sp;
+    } else if (op == OP_CONST || op == OP_CHAL) {
+      const Fe c = op == OP_CONST ? p.consts[arg] : fe_load(p.chals, arg);
+#pragma unroll 1
+      for (int t = 0; t < D; ++t) st.put(sp, t, c);
+      ++sp;
+    } else if (op == OP_NEG) {
+#pragma unroll 1
+      for (int t = 0; t < D; ++t) st.put(sp - 1, t, fe_neg<Fr>(st.get(sp - 1, t)));
+    } else if (op == OP_ADD) {
+      --sp;
+#pragma unroll 1
+      for (int t = 0; t < D; ++t) st.put(sp - 1, t, fe_add<Fr>(st.get(sp - 1, t), st.get(sp, t)));
+    } else {  // OP_MUL, OP_SCALED
+      if (op == OP_MUL) --sp;
+#pragma unroll 1
+      for (int t = 0; t < D; ++t) {
+        const Fe rhs = op == OP_MUL ? st.get(sp, t) : p.consts[arg];
+        st.put(sp - 1, t, fe_mul<Fr>(st.get(sp - 1, t), rhs));
+      }
     }
   }
-  for (int t = 0; t < degree; ++t)
-    block_sum_store(buf, acc[t], partials + ((long long)blockIdx.x * degree + t) * 8);
 }
 
-__global__ void __launch_bounds__(THREADS)
-sum_partials_kernel(const uint32_t* partials, int nblocks, int degree, uint32_t* out) {
-  __shared__ Fe buf[THREADS];
-  for (int t = 0; t < degree; ++t) {
-    Fe acc = fe_zero();
-    for (int b = threadIdx.x; b < nblocks; b += THREADS)
-      acc = fe_add<Fr>(acc, fe_load(partials, (long long)b * degree + t));
-    block_sum_store(buf, acc, out + (long long)t * 8);
+#ifndef FIELD_HOST_TEST
+// Sums slot 0 of every thread's stack into thread 0's (T a power of two).
+template <int D>
+__device__ void block_sum(uint32_t* smem, const Stack<D>& st) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  __syncthreads();
+  for (int s = T / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      const Stack<D> other{smem + tid + s, T};
+#pragma unroll 1
+      for (int t = 0; t < D; ++t) st.put(0, t, fe_add<Fr>(st.get(0, t), other.get(0, t)));
+    }
+    __syncthreads();
   }
 }
 
-extern "C" int h2l_round_max_stack() { return MAX_STACK; }
+__device__ __forceinline__ Fe fe_load_cg(const uint32_t* base, long long idx) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = __ldcg(base + idx * 8 + j);
+  return r;
+}
 
-// partials: nblocks * degree field elements of scratch; out: degree elements.
-extern "C" int h2l_sumcheck_round(const void* leaves, long long h, const void* prog, int nprog,
-                                  const void* consts, const void* chals, int degree,
-                                  void* partials, int nblocks, void* out, void* stream) {
-  if (degree < 1 || degree > MAX_DEGREE || nblocks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  round_kernel<<<nblocks, THREADS, 0, s>>>((const uint32_t* const*)leaves, h, (const int*)prog,
-                                           nprog, (const uint32_t*)consts,
-                                           (const uint32_t*)chals, degree, (uint32_t*)partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sum_partials_kernel<<<1, THREADS, 0, s>>>((const uint32_t*)partials, nblocks, degree,
-                                            (uint32_t*)out);
+template <int D>
+__global__ void __launch_bounds__(256)
+round_kernel(const __grid_constant__ RoundParams p, uint32_t* partials, unsigned int* ticket,
+             uint32_t* out) {
+  extern __shared__ uint32_t smem[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const Stack<D> st{smem + tid, T};
+  Fe acc[D];
+#pragma unroll
+  for (int t = 0; t < D; ++t) acc[t] = fe_zero();
+  const long long stride = (long long)gridDim.x * T;
+  for (long long i = (long long)blockIdx.x * T + tid; i < p.h; i += stride) {
+    eval_pair<D>(p, i, st);
+#pragma unroll
+    for (int t = 0; t < D; ++t) acc[t] = fe_add<Fr>(acc[t], st.get(0, t));
+  }
+#pragma unroll
+  for (int t = 0; t < D; ++t) st.put(0, t, acc[t]);
+  block_sum<D>(smem, st);
+
+  __shared__ bool last;
+  if (tid == 0) {
+    for (int t = 0; t < D; ++t) fe_store(partials, (long long)blockIdx.x * D + t, st.get(0, t));
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every partial is written and fenced
+#pragma unroll
+  for (int t = 0; t < D; ++t) acc[t] = fe_zero();
+  for (int b = tid; b < gridDim.x; b += T) {
+#pragma unroll
+    for (int t = 0; t < D; ++t) acc[t] = fe_add<Fr>(acc[t], fe_load_cg(partials, (long long)b * D + t));
+  }
+#pragma unroll
+  for (int t = 0; t < D; ++t) st.put(0, t, acc[t]);
+  block_sum<D>(smem, st);
+  if (tid == 0) {
+    for (int t = 0; t < D; ++t) fe_store(out, t, st.get(0, t));
+    *ticket = 0;  // ready for the next launch on this stream
+  }
+}
+
+template <int D>
+int launch(const RoundParams& p, int stack, int threads, int blocks, void* partials, void* ticket,
+           void* out, cudaStream_t s) {
+  static bool optin = false;  // the shared-memory opt-in, once per process and degree (one card)
+  if (!optin) {
+    int dev = 0, most = 0;
+    cudaFuncAttributes attr;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaError_t e = cudaFuncGetAttributes(&attr, round_kernel<D>);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(round_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most - (int)attr.sharedSizeBytes);
+    if (e != cudaSuccess) return (int)e;
+    optin = true;
+  }
+  const size_t smem = (size_t)stack * D * 32 * threads;
+  round_kernel<D><<<blocks, threads, smem, s>>>(p, (uint32_t*)partials, (unsigned int*)ticket,
+                                                (uint32_t*)out);
   return (int)cudaGetLastError();
 }
+
+// leaves: host array of nleaves device pointers; ops: host array of nops
+// (op | arg << 3); consts: host array of nconsts Montgomery elements (8
+// words each); chals: device (c, 8) or null; stack: the program's depth;
+// threads: a power of two in 32..256; partials: blocks * degree elements of
+// device scratch; ticket: a device counter at 0; out: degree elements.
+extern "C" int h2l_sumcheck_round(const void* leaves, int nleaves, const void* ops, int nops,
+                                  const void* consts, int nconsts, const void* chals,
+                                  long long h, int degree, int stack, int threads, int blocks,
+                                  void* partials, void* ticket, void* out, void* stream) {
+  if (degree < 1 || degree > MAX_DEGREE || nleaves < 1 || nleaves > MAX_LEAVES || nops < 1 ||
+      nops > MAX_OPS || nconsts < 0 || nconsts > MAX_CONSTS || stack < 1 || stack > MAX_STACK ||
+      threads < 32 || threads > 256 || (threads & (threads - 1)) || blocks < 1 || h < 1)
+    return (int)cudaErrorInvalidValue;
+  RoundParams p;
+  memcpy(p.leaves, leaves, sizeof(void*) * nleaves);
+  memcpy(p.ops, ops, sizeof(unsigned short) * nops);
+  memcpy(p.consts, consts, sizeof(Fe) * nconsts);
+  p.chals = (const uint32_t*)chals;
+  p.h = h;
+  p.nops = nops;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (degree) {
+    case 1: return launch<1>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 2: return launch<2>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 3: return launch<3>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 4: return launch<4>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 5: return launch<5>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 6: return launch<6>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 7: return launch<7>(p, stack, threads, blocks, partials, ticket, out, s);
+    default: return launch<8>(p, stack, threads, blocks, partials, ticket, out, s);
+  }
+}
+#endif

@@ -56,8 +56,9 @@ def jacobian_to_affine(pts: Points) -> List[Tuple[int, int]]:
 
 
 def ec_add_plain(p: Points, q: Points) -> Points:
-    """add-2007-bl with the dbl-2009-l doubling alongside and the same lane
-    selection as the kernel (ops/pallas_ec.py:85-141)."""
+    """add-2007-bl with the dbl-2009-l doubling for P = Q and the same lane
+    selection as the kernel (ops/pallas_ec.py:85-141). As the kernel's warp
+    vote does, the doubling is computed only when some lane needs it."""
     s = Fq
     mul = functools.partial(F.mont_mul, s)
     add = functools.partial(F.add, s)
@@ -73,36 +74,38 @@ def ec_add_plain(p: Points, q: Points) -> Points:
     x3 = sub(sub(mul(r, r), hhh), add(v, v))
     y3 = sub(mul(r, sub(v, x3)), mul(s1, hhh))
     z3 = mul(mul(z1, z2), h)
-    a, b = mul(x1, x1), mul(y1, y1)
-    c = mul(b, b)
-    xb = add(x1, b)
-    t = sub(sub(mul(xb, xb), a), c)
-    d = add(t, t)
-    e = add(add(a, a), a)
-    xd = sub(mul(e, e), add(d, d))
-    c8 = add(add(c, c), add(c, c))
-    c8 = add(c8, c8)
-    yd = sub(mul(e, sub(d, xd)), c8)
-    zd = mul(add(y1, y1), z1)
 
     p_id, q_id = F.is_zero(z1), F.is_zero(z2)
     both = ~p_id & ~q_id
     use_dbl = both & F.is_zero(h) & F.is_zero(r)
     use_id = both & F.is_zero(h) & ~F.is_zero(r)
     take_q, take_id, take_p = p_id & ~q_id, p_id & q_id, q_id & ~p_id
+    if bool(use_dbl.any()):
+        a, b = mul(x1, x1), mul(y1, y1)
+        c = mul(b, b)
+        xb = add(x1, b)
+        t = sub(sub(mul(xb, xb), a), c)
+        d = add(t, t)
+        e = add(add(a, a), a)
+        xd = sub(mul(e, e), add(d, d))
+        c8 = add(add(c, c), add(c, c))
+        c8 = add(c8, c8)
+        yd = sub(mul(e, sub(d, xd)), c8)
+        zd = mul(add(y1, y1), z1)
+        dbl = use_dbl[:, None]
+        x3, y3, z3 = torch.where(dbl, xd, x3), torch.where(dbl, yd, y3), torch.where(dbl, zd, z3)
     one = s.one(x1.device)
     zero = torch.zeros_like(one)
 
-    def pick(add_v, dbl_v, idp_v, p_v, q_v):
-        out = torch.where(use_dbl[:, None], dbl_v, add_v)
-        out = torch.where(take_p[:, None], p_v, out)
+    def pick(add_v, idp_v, p_v, q_v):
+        out = torch.where(take_p[:, None], p_v, add_v)
         out = torch.where(take_q[:, None], q_v, out)
         return torch.where((use_id | take_id)[:, None], idp_v, out)
 
     return {
-        "x": pick(x3, xd, one, x1, x2),
-        "y": pick(y3, yd, one, y1, y2),
-        "z": pick(z3, zd, zero, z1, z2),
+        "x": pick(x3, one, x1, x2),
+        "y": pick(y3, one, y1, y2),
+        "z": pick(z3, zero, z1, z2),
     }
 
 
@@ -148,8 +151,7 @@ def msm_list_to_affine_int(jobs: Sequence[Tuple[Points, torch.Tensor]]) -> List[
     """Independent MSMs (any sizes) -> affine ints, one inversion in all."""
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 
-    totals = [MJ.msm(points, scal) for points, scal in jobs]
-    return MJ.host_batch_affine(totals, Fq.modulus)
+    return MJ.host_batch_affine(MJ.msm_many(jobs), Fq.modulus)
 
 
 def fixed_base_msm(base_xy: Tuple[int, int], scalars_mont: torch.Tensor, c: int = 8) -> Points:

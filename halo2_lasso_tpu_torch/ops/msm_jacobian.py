@@ -1,35 +1,40 @@
 """Halving-tree Pippenger MSM over complete Jacobian adds (the port of
 halo2_lasso_tpu/ops/msm_jacobian.py).
 
-Every point operation is one launch of the ``ec_add`` kernel over many
-lanes; the rest is sorting and gathering in plain torch.
-
   1. prologue: canonical scalars, c-bit digits for all W windows at once,
-     per-window descending sort, gather of the points (digit-0 lanes
-     become the identity);
-  2. halving levels: adjacent slots (2i, 2i+1) of a window with equal
-     digits are added; at a digit boundary the left slot ends its digit's
-     run and is flushed into bucket (w, digit), the right one survives. At
-     most one flush per digit per level, so the bucket scatter never
-     collides; pair adds and bucket adds of a level share one launch;
+     and each window's descending sort (a permutation, not a gather);
+  2. halving levels, one launch of the ``msm_level`` kernel each: adjacent
+     slots (2i, 2i+1) of a window with equal digits are added; at a digit
+     boundary the left slot ends its digit's run and is added into bucket
+     (w, digit) in place, and the right one survives. One add per lane; at
+     most one flush per digit per window per level, so the bucket scatter
+     never collides. The first level reads the points through the sort's
+     permutation; a last launch flushes each window's survivor;
   3. bit-plane bucket reduction: U_{w,j} = sum of bucket (w, v) over the v
-     with bit j set, by a halving tree of adds;
+     with bit j set, by a halving tree of ``ec_add`` launches;
   4. host: sum_{w,j} 2^(c w + j) U_{w,j} by double-and-add in Python ints.
 
-The TPU's 2^18-point slicing, index-scatter detour and bit-reversed slot
-storage are policies of that machine and are not carried over.
+No torch op runs between the level launches and nothing syncs with the host
+until the plane sums are read. ``msm_level_plain`` is the same level in
+plain torch, for CPU tensors and as the kernel's oracle. The TPU's
+2^18-point slicing, index-scatter detour, whole-bucket add per level and
+bit-reversed slot storage are policies of that machine and are not carried
+over.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from halo2_lasso_tpu_torch.ops import ec
 from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+
+LEVEL_THREADS = 128  # threads a block of msm_level (scripts/kernel_tune.py times the choice)
 
 
 def best_c(n: int) -> int:
@@ -39,17 +44,16 @@ def best_c(n: int) -> int:
 
 
 def digits_all(scal: torch.Tensor, c: int, num_windows: int) -> torch.Tensor:
-    """(n, 8) canonical limbs -> (W, n) c-bit digits (int64)."""
+    """(n, 8) canonical limbs -> (W, n) c-bit digits (int64), every window in
+    one pass: window w takes bits c*w .. c*w + c - 1, across a limb edge where
+    it straddles one (bits above the 256th are 0)."""
     limbs = scal.to(torch.int64) & 0xFFFFFFFF
-    outs = []
-    for w in range(num_windows):
-        lo_bit = c * w
-        lo, off = divmod(lo_bit, 32)
-        val = limbs[:, lo] >> off if lo < F.LIMBS else torch.zeros_like(limbs[:, 0])
-        if off + c > 32 and lo + 1 < F.LIMBS:
-            val = val | (limbs[:, lo + 1] << (32 - off))
-        outs.append(val & ((1 << c) - 1))
-    return torch.stack(outs)
+    limbs = torch.cat([limbs, torch.zeros_like(limbs[:, :1])], 1)  # limb 8 = 0
+    lo_bit = torch.arange(num_windows, device=scal.device) * c
+    lo = (lo_bit // 32).clamp(max=F.LIMBS)
+    off = lo_bit % 32
+    val = (limbs[:, lo] >> off) | (limbs[:, (lo + 1).clamp(max=F.LIMBS)] << (32 - off))
+    return (val & ((1 << c) - 1)).T.contiguous()
 
 
 def _pad_pow2(points: ec.Points, scal: torch.Tensor):
@@ -61,77 +65,157 @@ def _pad_pow2(points: ec.Points, scal: torch.Tensor):
     return ec.cat_points(points, idp), torch.cat([scal, scal.new_zeros((target - n, F.LIMBS))])
 
 
-def msm(points: ec.Points, scalars_mont: torch.Tensor) -> Tuple[int, int, int]:
-    """Variable-base MSM -> Jacobian (X, Y, Z) canonical ints."""
-    points, scalars_mont = _pad_pow2(points, scalars_mont)
+# ---------------------------------------------------------------------------
+# one halving level: kernel wrapper + plain version
+# ---------------------------------------------------------------------------
+
+
+def msm_level_plain(
+    pts: ec.Points, dig: torch.Tensor, bucket: ec.Points, W: int, B: int,
+    order: Optional[torch.Tensor] = None,
+) -> Tuple[ec.Points, torch.Tensor]:
+    """One level in plain torch, bit for bit what csrc/msm_level.cu does.
+
+    pts, dig: the level's W * m slots and their digits (int32), or with
+    ``order`` ((W, n) int64, the first level) the n points and the (W, n)
+    digits before the sort. bucket: W * B + 1 rows, updated in place; the
+    last row takes the writes of lanes that flush nothing. With m = 1 the
+    call is the final flush. Returns the W * m / 2 survivors and digits."""
+    if order is not None:
+        dig = torch.gather(dig, 1, order).reshape(-1)
+        pts = {k: pts[k][order.reshape(-1)] for k in ec.COORDS}
+        pts["z"] = torch.where((dig == 0)[:, None], torch.zeros_like(pts["z"]), pts["z"])
+    m = dig.shape[0] // W
+    if m == 1:  # final flush: each window's survivor goes to its bucket
+        a = b = pts
+        da = db = dig
+        same = torch.zeros_like(dig, dtype=torch.bool)
+    else:
+        half = dig.shape[0] // 2
+        a, b = {}, {}
+        for k in ec.COORDS:
+            a[k], b[k] = pts[k].view(half, 2, F.LIMBS).unbind(1)
+        da, db = dig.view(half, 2).unbind(1)
+        same = da == db
+    lanes = da.shape[0]
+    slot = torch.arange(lanes, device=dig.device) // (lanes // W) * B + da
+    sm = same[:, None]
+    p = {k: torch.where(sm, a[k], bucket[k][slot]) for k in ec.COORDS}
+    q = {k: torch.where(sm, b[k], a[k]) for k in ec.COORDS}
+    r = ec.ec_add_plain(p, q)
+    dump = torch.where(same, W * B, slot)
+    for k in ec.COORDS:
+        bucket[k][dump] = r[k]
+    if m == 1:
+        return {k: v[:0] for k, v in pts.items()}, dig[:0]
+    return {k: torch.where(sm, r[k], b[k]) for k in ec.COORDS}, db
+
+
+def msm_level(
+    pts: ec.Points, dig: torch.Tensor, bucket: ec.Points, W: int, B: int,
+    order: Optional[torch.Tensor] = None,
+) -> Tuple[ec.Points, torch.Tensor]:
+    """One halving level (see ``msm_level_plain``) in one launch of
+    csrc/msm_level.cu: the port of the TPU's _ec_add_kernel with the level
+    step around it (msm_jacobian._level_step)."""
+    if dig.device.type == "cpu":
+        return msm_level_plain(pts, dig, bucket, W, B, order)
+    coords = [pts[k] for k in ec.COORDS] + [bucket[k] for k in ec.COORDS]
+    native.require_cuda("msm_level", dig, *coords)
+    if any(t.dim() != 2 or t.shape[1] != F.LIMBS or t.data_ptr() % 16 for t in coords):
+        raise ValueError("msm_level: coordinates must be (n, 8) rows on 16-byte boundaries")
+    if any(bucket[k].shape[0] != W * B + 1 for k in ec.COORDS):
+        raise ValueError("msm_level: the bucket holds W * B + 1 rows")
+    if order is not None:
+        if order.dtype != torch.int64 or not order.is_contiguous() or order.shape != dig.shape:
+            raise ValueError("msm_level: order must be a contiguous int64 (W, n) like the digits")
+        m = order.shape[1]
+    else:
+        m = dig.shape[0] // W
+    if m & (m - 1) or dig.numel() != W * m or pts["x"].shape[0] != (dig.shape[1] if order is not None else W * m):
+        raise ValueError("msm_level: W windows of a power-of-two number of slots")
+    pairs = m // 2
+    device = dig.device
+    out = [torch.empty((W * pairs, F.LIMBS), dtype=torch.int32, device=device) for _ in ec.COORDS]
+    odig = torch.empty(W * pairs, dtype=torch.int32, device=device)
+    rc = native.lib().h2l_msm_level(
+        *[t.data_ptr() for t in coords[:3]], dig.data_ptr(), None if order is None else order.data_ptr(),
+        pairs, W, B, *[t.data_ptr() for t in coords[3:]], *[t.data_ptr() for t in out], odig.data_ptr(),
+        LEVEL_THREADS, native.stream(),
+    )
+    native.check(rc, "msm_level")
+    native.counts["msm_level"] += 1
+    return dict(zip(ec.COORDS, out)), odig
+
+
+# ---------------------------------------------------------------------------
+# the MSM
+# ---------------------------------------------------------------------------
+
+
+def msm_planes(points: ec.Points, scalars_mont: torch.Tensor) -> Tuple[ec.Points, int, int]:
+    """The device part of a variable-base MSM: the c * W plane sums
+    U_{w,j}, plane-major ([j * W + w]), with c and W."""
+    points, scalars_mont = _pad_pow2({k: v.contiguous() for k, v in points.items()}, scalars_mont)
     n = scalars_mont.shape[0]
-    device = scalars_mont.device
     c = best_c(n)
     B = 1 << c
     W = -(-Fr.num_bits // c)
-
-    # prologue
-    digits = digits_all(F.from_mont(Fr, scalars_mont), c, W)
+    digits = digits_all(F.from_mont(Fr, scalars_mont), c, W).to(torch.int32)
     order = torch.argsort(-digits, dim=1, stable=True)
-    dig = torch.gather(digits, 1, order).reshape(-1)
-    flat = order.reshape(-1)
-    x, y, z = (points[k][flat] for k in ec.COORDS)
-    z = torch.where((dig == 0)[:, None], torch.zeros_like(z), z)
-    bucket = ec.identity_point(W * B, device)
-    wslot = torch.arange(W, device=device) * B
+    bucket = ec.identity_point(W * B + 1, scalars_mont.device)
+    pts, dig = msm_level(points, digits, bucket, W, B, order=order)
+    while dig.shape[0] > W:
+        pts, dig = msm_level(pts, dig, bucket, W, B)
+    msm_level(pts, dig, bucket, W, B)  # final flush
+    return bucket_planes(bucket, c, W), c, W
 
-    # halving levels
-    m = n
-    while m > 1:
-        half = W * (m // 2)
-        xa, xb = x.view(half, 2, F.LIMBS).unbind(1)
-        ya, yb = y.view(half, 2, F.LIMBS).unbind(1)
-        za, zb = z.view(half, 2, F.LIMBS).unbind(1)
-        da, db = dig.view(half, 2).unbind(1)
-        same = (da == db)[:, None]
-        # same digit: A + B survives; boundary: A + O = A passes (and is
-        # flushed), B survives
-        q = {"x": torch.where(same, xb, xa), "y": torch.where(same, yb, ya),
-             "z": torch.where(same, zb, torch.zeros_like(za))}
-        flush = ec.identity_point(W * B, device)
-        bnd = ~same[:, 0]
-        slot = (wslot[:, None].expand(W, m // 2).reshape(-1) + da)[bnd]
-        for k, v in (("x", xa), ("y", ya), ("z", za)):
-            flush[k][slot] = v[bnd]
-        out = ec.ec_add(
-            ec.cat_points({"x": xa, "y": ya, "z": za}, bucket), ec.cat_points(q, flush)
-        )
-        r, bucket = ec.split_points(out, [half, W * B])
-        x = torch.where(same, r["x"], xb)
-        y = torch.where(same, r["y"], yb)
-        z = torch.where(same, r["z"], zb)
-        dig = db
-        m //= 2
 
-    # final flush of each window's last run
-    flush = ec.identity_point(W * B, device)
-    slot = wslot + dig
-    for k, v in (("x", x), ("y", y), ("z", z)):
-        flush[k][slot] = v
-    bucket = ec.ec_add(bucket, flush)
+@functools.lru_cache(maxsize=None)
+def _plane_rows(c: int, W: int, device: str):
+    """Row v * (c W) + j * W + w of the reduction tree reads bucket w * 2^c + v
+    and keeps it iff bit j of v is set."""
+    B = 1 << c
+    v = torch.arange(B, device=device)[:, None, None]
+    j = torch.arange(c, device=device)[None, :, None]
+    w = torch.arange(W, device=device)[None, None, :]
+    idx = (w * B + v).expand(B, c, W).reshape(-1)
+    keep = ((v >> j) & 1).bool().expand(B, c, W).reshape(-1, 1)
+    return idx, keep
 
-    # bit-plane reduction: plane j keeps bucket v iff bit j of v is set
-    v = torch.arange(B, device=device).repeat(W)
-    keep = torch.cat([(v >> j) & 1 for j in range(c)]).bool()[:, None]
-    tree = {k: bucket[k].repeat(c, 1) for k in ec.COORDS}
+
+def bucket_planes(bucket: ec.Points, c: int, W: int) -> ec.Points:
+    """U_{w,j} = sum of the buckets (w, v) with bit j of v set, for all (j, w)
+    at once: a halving tree over v whose two halves are contiguous rows."""
+    idx, keep = _plane_rows(c, W, str(bucket["x"].device))
+    tree = {k: bucket[k][idx] for k in ec.COORDS}
     tree["z"] = torch.where(keep, tree["z"], torch.zeros_like(tree["z"]))
-    groups = c * W
-    size = B
-    while size > 1:
-        size //= 2
-        lo, hi = {}, {}
-        for k in ec.COORDS:
-            t = tree[k].view(groups, 2, size, F.LIMBS)
-            lo[k] = t[:, 0].reshape(-1, F.LIMBS)
-            hi[k] = t[:, 1].reshape(-1, F.LIMBS)
-        tree = ec.ec_add(lo, hi)
-    u = [Fq.decode_ints(tree[k]) for k in ec.COORDS]
-    return finish_host(list(zip(*u)), c, W, Fq.modulus)
+    rows = tree["x"].shape[0]
+    while rows > c * W:
+        rows //= 2
+        tree = ec.ec_add({k: v[:rows] for k, v in tree.items()}, {k: v[rows:] for k, v in tree.items()})
+    return tree
+
+
+def msm(points: ec.Points, scalars_mont: torch.Tensor) -> Tuple[int, int, int]:
+    """Variable-base MSM -> Jacobian (X, Y, Z) canonical ints."""
+    return msm_many([(points, scalars_mont)])[0]
+
+
+def msm_many(jobs: Sequence[Tuple[ec.Points, torch.Tensor]]) -> List[Tuple[int, int, int]]:
+    """Independent MSMs -> Jacobian canonical ints, with one read of the card
+    for all of them."""
+    planes = [msm_planes(points, scal) for points, scal in jobs]
+    if not planes:
+        return []
+    flat = Fq.decode_ints(torch.cat([u[k] for u, _, _ in planes for k in ec.COORDS]))
+    out, at = [], 0
+    for _, c, W in planes:
+        cw = c * W
+        xs, ys, zs = flat[at : at + cw], flat[at + cw : at + 2 * cw], flat[at + 2 * cw : at + 3 * cw]
+        at += 3 * cw
+        out.append(finish_host(list(zip(xs, ys, zs)), c, W, Fq.modulus))
+    return out
 
 
 def finish_host(u: List[Tuple[int, int, int]], c: int, W: int, mod: int) -> Tuple[int, int, int]:

@@ -12,9 +12,11 @@ index gather), `_leaf_keys` as in the reference.
 (ops/pallas_field.py:376). Instead of generating a kernel per expression,
 the host lowers the expression ONCE per structural key to a postfix program
 (``lower_expression``) that csrc/sumcheck_round.cu interprets; the message
-is summed exactly on the card. On a CUDA tensor the wrapper launches the
-kernel or raises; only CPU tensors take ``round_message_plain``, which runs
-the same program with plain field ops. The TPU policies of the reference
+is summed exactly on the card, in one launch that takes the program, its
+constants and the leaf pointers by value (no host-to-device copy). On a
+CUDA tensor the wrapper launches the kernel or raises; only CPU tensors
+take ``round_message_plain``, which runs the same program with plain field
+ops. The TPU policies of the reference
 (host tail rounds, PALLAS_MIN, the 40-leaf cap, term chunking) are dropped:
 every round of every size goes through the kernel and the proof bytes are
 unchanged.
@@ -22,9 +24,11 @@ unchanged.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
@@ -101,10 +105,17 @@ def evaluate_at_point(
 # ---------------------------------------------------------------------------
 
 OP_LEAF, OP_CONST, OP_CHAL, OP_NEG, OP_ADD, OP_MUL, OP_SCALED = range(7)
-MAX_STACK = 8  # csrc/sumcheck_round.cu MAX_STACK, checked before each launch
-MAX_DEGREE = 8  # csrc/sumcheck_round.cu MAX_DEGREE, checked by its launcher
-_THREADS = 256
-_MAX_BLOCKS = 1024
+# csrc/sumcheck_round.cu's compiled limits (tests/test_torch_csrc.py holds
+# them equal); round_message raises before a launch that would exceed one
+MAX_STACK = 8
+MAX_DEGREE = 8
+MAX_LEAVES = 64
+MAX_OPS = 384
+MAX_CONSTS = 32
+ROUND_THREADS = 128  # threads a block (scripts/kernel_tune.py times the choice)
+_MAX_BLOCKS = 2048
+_SMEM_MAX = 226 * 1024  # the card's shared memory a block, less the kernel's own
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 @dataclasses.dataclass
@@ -115,15 +126,16 @@ class RoundProgram:
     ops: Tuple[Tuple[int, int], ...]
     consts: Tuple[int, ...]
     max_stack: int
-    _dev: dict = dataclasses.field(default_factory=dict)
+    _args: dict = dataclasses.field(default_factory=dict)
 
-    def device_tensors(self, spec: FieldSpec, device):
-        key = str(device)
-        if key not in self._dev:
-            prog = torch.tensor(self.ops, dtype=torch.int32).reshape(-1, 2).to(device)
-            consts = spec.encode(list(self.consts) or [0], device)
-            self._dev[key] = (prog, consts)
-        return self._dev[key]
+    def kernel_args(self, spec: FieldSpec):
+        """Host arrays the kernel takes by value, built once: the program as
+        op | arg << 3 (uint16) and the constants in Montgomery form."""
+        if spec.name not in self._args:
+            ops = np.array([op | arg << 3 for op, arg in self.ops], dtype=np.uint16)
+            consts = F.ints_to_u32([spec.to_mont_int(c % spec.modulus) for c in self.consts] or [0])
+            self._args[spec.name] = (ops, np.ascontiguousarray(consts, dtype=np.uint32))
+        return self._args[spec.name]
 
 
 _PROGRAMS: Dict[Tuple, RoundProgram] = {}
@@ -248,29 +260,51 @@ def round_message(
         raise ValueError("sumcheck_round: the kernel is compiled for Fr only")
     if not 1 <= degree <= MAX_DEGREE:
         raise SumcheckError(f"degree {degree} outside 1..{MAX_DEGREE}")
-    device = tables[0].device
+    if len(tables) > MAX_LEAVES or len(program.ops) > MAX_OPS or len(program.consts) > MAX_CONSTS:
+        raise SumcheckError(
+            f"program of {len(tables)} leaves, {len(program.ops)} ops and {len(program.consts)} "
+            f"constants exceeds the kernel's {MAX_LEAVES}, {MAX_OPS} and {MAX_CONSTS}"
+        )
     n = tables[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in tables) or n % 2:
         raise ValueError("sumcheck_round: tables must share one even length")
-    lib = native.lib()
-    if program.max_stack > lib.h2l_round_max_stack():
-        raise SumcheckError("program deeper than the compiled kernel's stack")
-    prog, consts = program.device_tensors(spec, device)
-    chals = challenges if challenges is not None else spec.zeros(1, device)
-    native.require_cuda("sumcheck_round", chals, consts, *tables)
+    native.require_cuda("sumcheck_round", *tables, *([] if challenges is None else [challenges]))
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("sumcheck_round: tables must start on a 16-byte boundary")
+    device = tables[0].device
     h = n // 2
-    nblocks = max(1, min(_MAX_BLOCKS, -(-h // _THREADS)))
-    partials = torch.empty((nblocks * degree, F.LIMBS), dtype=torch.int32, device=device)
+    threads = round_threads(program.max_stack, degree)
+    blocks = max(1, min(_MAX_BLOCKS, -(-h // threads)))
+    partials = torch.empty((blocks * degree, F.LIMBS), dtype=torch.int32, device=device)
     out = torch.empty((degree, F.LIMBS), dtype=torch.int32, device=device)
-    leaves = native.pointer_table(tables, device)
-    rc = lib.h2l_sumcheck_round(
-        leaves.data_ptr(), h, prog.data_ptr(), len(program.ops), consts.data_ptr(),
-        chals.data_ptr(), degree, partials.data_ptr(), nblocks, out.data_ptr(),
-        native.stream(),
+    ops, consts = program.kernel_args(spec)
+    leaves = (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables])
+    rc = native.lib().h2l_sumcheck_round(
+        ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops), consts.ctypes.data,
+        len(program.consts), None if challenges is None else challenges.data_ptr(), h, degree,
+        program.max_stack, threads, blocks, partials.data_ptr(), _ticket(device).data_ptr(),
+        out.data_ptr(), native.stream(),
     )
     native.check(rc, "sumcheck_round")
     native.counts["sumcheck_round"] += 1
     return out
+
+
+def round_threads(max_stack: int, degree: int) -> int:
+    """ROUND_THREADS, halved until the block's stack fits in shared memory."""
+    threads = ROUND_THREADS
+    while threads > 32 and max_stack * degree * 32 * threads > _SMEM_MAX:
+        threads //= 2
+    return threads
+
+
+def _ticket(device) -> torch.Tensor:
+    """The round kernel's block counter for this device and stream, at 0
+    between launches (the kernel's last block resets it)."""
+    key = (device.index, native.stream())
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[key]
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ HARNESS = r"""
 #include <cstdlib>
 #include "ec.cuh"
 #include "fix_var.cu"
+#include "msm_level.cu"
+#include "sumcheck_round.cu"
 #include <vector>
 static Fe rd() {
   Fe r;
@@ -37,6 +39,30 @@ static Fe rd() {
   return r;
 }
 static void wr(const Fe& a) { for (int i = 0; i < 8; ++i) printf("%u ", a.v[i]); }
+static long long rdi() {
+  long long v;
+  if (scanf("%lld", &v) != 1) exit(1);
+  return v;
+}
+static std::vector<uint32_t> rows(long long n) {  // n elements of 8 words
+  std::vector<uint32_t> t(8 * n + 8);
+  for (long long i = 0; i < n; ++i) {
+    Fe e = rd();
+    for (int j = 0; j < 8; ++j) t[8 * i + j] = e.v[j];
+  }
+  return t;
+}
+template <int D>
+static void round_sum(const RoundParams& p, int stack) {  // one line: the D sums
+  std::vector<uint32_t> st(stack * D * 8);
+  Fe acc[D];
+  for (int t = 0; t < D; ++t) acc[t] = fe_zero();
+  for (long long i = 0; i < p.h; ++i) {
+    eval_pair<D>(p, i, Stack<D>{st.data(), 1});
+    for (int t = 0; t < D; ++t) acc[t] = fe_add<Fr>(acc[t], Stack<D>{st.data(), 1}.get(0, t));
+  }
+  for (int t = 0; t < D; ++t) wr(acc[t]);
+}
 int main() {
   char op[8];
   while (scanf("%7s", op) == 1) {
@@ -51,6 +77,50 @@ int main() {
       for (long long i = 0; i < n / 2; ++i) {
         wr(fix_var_elem(lo, hi, step, i, x));
         if (i + 1 < n / 2) printf("\n");
+      }
+    } else if (op[0] == 'l') {  // l W B m n first: one MSM level, every lane in order
+      long long W = rdi(), B = rdi(), m = rdi(), n = rdi(), first = rdi();
+      std::vector<uint32_t> x = rows(n), y = rows(n), z = rows(n);
+      std::vector<int32_t> dig(first ? W * n : W * m);
+      for (auto& d : dig) d = (int32_t)rdi();
+      std::vector<long long> order(first ? W * m : 0);
+      for (auto& o : order) o = rdi();
+      std::vector<uint32_t> bx = rows(W * B), by = rows(W * B), bz = rows(W * B);
+      long long pairs = m / 2, lanes = pairs ? W * pairs : W;
+      std::vector<uint32_t> ox(8 * W * pairs + 8), oy(ox.size()), oz(ox.size());
+      std::vector<int32_t> odig(W * pairs + 1);
+      for (long long lane = 0; lane < lanes; ++lane)
+        msm_level_lane(x.data(), y.data(), z.data(), dig.data(), first ? order.data() : nullptr,
+                       pairs, (int)B, lane, bx.data(), by.data(), bz.data(), ox.data(), oy.data(),
+                       oz.data(), odig.data());
+      for (auto* t : {&ox, &oy, &oz})
+        for (long long i = 0; i < 8 * W * pairs; ++i) printf("%u ", (*t)[i]);
+      for (long long i = 0; i < W * pairs; ++i) printf("%d ", odig[i]);
+      for (auto* t : {&bx, &by, &bz})
+        for (long long i = 0; i < 8 * W * B; ++i) printf("%u ", (*t)[i]);
+    } else if (op[0] == 'r') {  // r D nleaves nops nconsts h nchals stack: one round message
+      static RoundParams p;
+      int D = (int)rdi(), nleaves = (int)rdi(), nops = (int)rdi(), nconsts = (int)rdi();
+      long long h = rdi();
+      int nchals = (int)rdi(), stack = (int)rdi();
+      std::vector<std::vector<uint32_t>> leaves;
+      for (int l = 0; l < nleaves; ++l) leaves.push_back(rows(2 * h));
+      for (int l = 0; l < nleaves; ++l) p.leaves[l] = leaves[l].data();
+      for (int k = 0; k < nops; ++k) p.ops[k] = (unsigned short)rdi();
+      for (int k = 0; k < nconsts; ++k) p.consts[k] = rd();
+      std::vector<uint32_t> chals = rows(nchals);
+      p.chals = chals.data();
+      p.h = h;
+      p.nops = nops;
+      switch (D) {
+        case 1: round_sum<1>(p, stack); break;
+        case 2: round_sum<2>(p, stack); break;
+        case 3: round_sum<3>(p, stack); break;
+        case 4: round_sum<4>(p, stack); break;
+        case 5: round_sum<5>(p, stack); break;
+        case 6: round_sum<6>(p, stack); break;
+        case 7: round_sum<7>(p, stack); break;
+        default: round_sum<8>(p, stack);
       }
     } else if (op[0] == 'e') {
       Fe x1 = rd(), y1 = rd(), z1 = rd(), x2 = rd(), y2 = rd(), z2 = rd(), ox, oy, oz;
@@ -80,7 +150,7 @@ def harness(tmp_path_factory):
         pytest.skip("needs g++ to compile the device arithmetic for the host")
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "h.cpp").write_text(HARNESS)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-Wno-unknown-pragmas", "-I", str(CSRC), "-o", str(d / "h"), str(d / "h.cpp")],
+    subprocess.run([gxx, "-O0", "-std=c++17", "-Wno-unknown-pragmas", "-I", str(CSRC), "-o", str(d / "h"), str(d / "h.cpp")],
                    check=True, capture_output=True, timeout=120)
     return d / "h"
 
@@ -129,3 +199,91 @@ def test_fix_var_elem_matches_plain(harness, last):
     line = f"v {t.shape[0]} {1 if last else 2} " + " ".join(rows(t) + rows(x))
     want = mle.fix_var_plain(Fr, t, x[0], last)
     assert np.array_equal(run(harness, [line]), F.to_numpy_u32(want))
+
+
+def words(t):
+    return " ".join(map(str, F.to_numpy_u32(t).reshape(-1).tolist()))
+
+
+def test_msm_level_lane_matches_plain(harness):
+    """csrc/msm_level.cu's lane, every lane of each level in order, against
+    msm_level_plain over a whole 8-point MSM (c = 3): the first level read
+    through the sort, the later ones, and the final flush. Two base points
+    (rescaled, some negated) make P = Q and P = -Q lanes frequent."""
+    rng = np.random.RandomState(12)
+    points = chip_smoke.msm_edge_points(np, rng, MJ, FQ_MODULUS, "cpu", n=8)
+    scal = Fr.encode([int(rng.randint(0, 1 << 62)) * (i % 3 != 0) for i in range(8)])
+    c = 3
+    B, W = 1 << c, -(-Fr.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(Fr, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bucket = ec.identity_point(W * B + 1)
+    lvl_pts, lvl_dig, first = points, digits, True
+    while True:
+        n = lvl_pts["x"].shape[0]
+        m = 8 if first else lvl_dig.shape[0] // W
+        line = " ".join([f"l {W} {B} {m} {n} {int(first)}"] + [words(lvl_pts[k]) for k in ec.COORDS]
+                        + [" ".join(map(str, lvl_dig.reshape(-1).tolist()))]
+                        + ([" ".join(map(str, order.reshape(-1).tolist()))] if first else [])
+                        + [words(bucket[k][: W * B]) for k in ec.COORDS])
+        got = run(harness, [line])[0].astype(np.int64)
+        lvl_pts, lvl_dig = MJ.msm_level_plain(lvl_pts, lvl_dig, bucket, W, B, order=order if first else None)
+        rows_out = W * (m // 2)
+        want = np.concatenate([F.to_numpy_u32(lvl_pts[k]).reshape(-1) for k in ec.COORDS]
+                              + [lvl_dig.numpy().astype(np.uint32)]
+                              + [F.to_numpy_u32(bucket[k][: W * B]).reshape(-1) for k in ec.COORDS])
+        assert np.array_equal(got, want.astype(np.int64)), f"level m={m}"
+        first = False
+        if m == 1:
+            break
+        assert rows_out == lvl_dig.shape[0]
+
+
+@pytest.mark.parametrize("name", ["degree1", "lasso_primary", "gkr_pure", "degree6_neg_const", "degree8"])
+def test_round_eval_pair_matches_plain(harness, name):
+    """csrc/sumcheck_round.cu's one-pass evaluation (every degree point of a
+    pair in one walk of the program), summed over the pairs, against
+    round_message_plain."""
+    from halo2_lasso_tpu_torch.expression import Expression as E
+    from halo2_lasso_tpu_torch.lasso.tables import range_table
+    from halo2_lasso_tpu_torch.piop import gkr
+    from halo2_lasso_tpu_torch.piop import sum_check as sc
+
+    expr, n_polys = {
+        "degree1": (E.poly(0) * 3 + E.challenge(0) - E.constant(9), 1),
+        "lasso_primary": (E.eq_xy(0) * range_table(8, 4).g, 2),
+        "gkr_pure": (gkr.sum_check_expression_pure(2), 4),
+        "degree6_neg_const": (E.distribute_powers(
+            [E.poly(0) * E.poly(1) * E.poly(2) * E.poly(3) - E.poly(1), -(E.poly(2) * 7) + E.constant(5)],
+            E.challenge(1)) * E.eq_xy(0) * E.lagrange(1) + E.identity(), 4),
+        "degree8": (E.poly(0) * E.poly(1) * E.poly(2) * E.poly(3) * E.poly(0) * E.poly(1) * E.poly(2)
+                    * E.eq_xy(0), 4),
+    }[name]
+    keys = sc._leaf_keys(expr, n_polys)
+    prog = sc.lower_expression(expr, keys)
+    rng = random.Random(len(name))
+    p = Fr.modulus
+    h = 9
+    tables = [Fr.encode([rng.randrange(p) for _ in range(2 * h)]) for _ in keys]
+    tables[0][:4] = Fr.encode([0, p - 1, 1, Fr.R])
+    chals = Fr.encode([rng.randrange(p) for _ in range(2)])
+    ops, consts = prog.kernel_args(Fr)
+    line = " ".join([f"r {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 2 {prog.max_stack}"]
+                    + [words(t) for t in tables] + [" ".join(map(str, ops.tolist()))]
+                    + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
+    want = sc.round_message_plain(Fr, tables, prog, chals, expr.degree)
+    assert np.array_equal(run(harness, [line]).reshape(-1, 8), F.to_numpy_u32(want))
+
+
+def test_round_kernel_limits_match_wrapper():
+    """The limits compiled into csrc/sumcheck_round.cu are the ones the
+    wrapper checks before a launch."""
+    import re
+
+    from halo2_lasso_tpu_torch.piop import sum_check as sc
+
+    src = (CSRC / "sumcheck_round.cu").read_text()
+    defines = dict(re.findall(r"#define (MAX_\w+) (\d+)", src))
+    assert {k: int(v) for k, v in defines.items()} == {
+        k: getattr(sc, k) for k in ("MAX_STACK", "MAX_DEGREE", "MAX_LEAVES", "MAX_OPS", "MAX_CONSTS")
+    }

@@ -100,6 +100,15 @@ def test_fix_var_kernel_matches_plain(cuda, last, size):
         assert native.counts["fix_var"] == before + 1
 
 
+def _degree_expr(d):
+    """A degree-d expression over three polys: poly_0 * challenge - 3, times
+    d - 1 more polys, every other one negated."""
+    e = Expression.poly(0) * Expression.challenge(0) - Expression.constant(3)
+    for i in range(1, d):
+        e = e * (Expression.poly(i % 3) if i % 2 else -Expression.poly(i % 3))
+    return e, 3
+
+
 @pytest.mark.parametrize(
     "expr,n_polys",
     [
@@ -107,14 +116,43 @@ def test_fix_var_kernel_matches_plain(cuda, last, size):
         (gkr.sum_check_expression_pure(2), 4),
         (Expression.eq_xy(0) * (Expression.lagrange(1) * Expression.poly(0) + Expression.identity())
          - Expression.poly(1) * 5 + Expression.constant(7), 2),
+        _degree_expr(1), _degree_expr(3), _degree_expr(5), _degree_expr(8),
     ],
-    ids=["lasso_primary", "gkr_pure", "lagrange_identity_neg_const"],
+    ids=["lasso_primary", "gkr_pure", "lagrange_identity_neg_const", "degree1", "degree3", "degree5", "degree8"],
 )
-def test_round_kernel_matches_plain(cuda, expr, n_polys):
+@pytest.mark.parametrize("pairs", [1 << 10, 1, 1037], ids=["pow2", "h1", "ragged"])
+def test_round_kernel_matches_plain(cuda, expr, n_polys, pairs):
+    """One launch per call (the counter moves by one) and no host sync or
+    host-to-device copy in it, bit-exact against the plain version."""
     keys = sc._leaf_keys(expr, n_polys)
     prog = sc.lower_expression(expr, keys)
-    tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 11), cuda) for _ in keys]
+    tables = [Fr.encode(rand_ints(Fr.modulus, 2 * pairs), cuda) for _ in keys]
     chals = Fr.encode(rand_ints(Fr.modulus, 1), cuda) if expr.used_challenge else None
+    before = native.counts["sumcheck_round"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sc.round_message(Fr, tables, prog, chals, expr.degree)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert native.counts["sumcheck_round"] == before + 1
+    assert torch.equal(got, sc.round_message_plain(Fr, tables, prog, chals, expr.degree))
+
+
+def test_round_kernel_on_the_lasso_zero_check(cuda):
+    """The nv = 16 Lasso-in-HyperPlonk zero check's expression (37 leaves,
+    degree 3, stack 5) at 2^12."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
+
+    ci, _ = fixtures.rand_lasso_circuit(16, np.random.RandomState(16), np.random.RandomState(516),
+                                        **chip_smoke.LASSO_PLONK["kwargs"])
+    nz, expr = preprocessor.compose(ci)
+    n_polys = ci.num_poly() + preprocessor.num_lasso_polys(ci) + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz
+    keys = sc._leaf_keys(expr, n_polys)
+    prog = sc.lower_expression(expr, keys)
+    assert (len(keys), expr.degree, prog.max_stack) == (37, 3, 5)
+    tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 12), cuda) for _ in keys]
+    chals = Fr.encode(rand_ints(Fr.modulus, 3), cuda)
     got = sc.round_message(Fr, tables, prog, chals, expr.degree)
     assert torch.equal(got, sc.round_message_plain(Fr, tables, prog, chals, expr.degree))
 
@@ -129,12 +167,37 @@ def test_ec_add_kernel_matches_plain_and_host(cuda):
     assert ec.jacobian_to_affine(got) == MJ.host_batch_affine(host, FQ_MODULUS)
 
 
-def test_msm_on_card_matches_cpu(cuda):
-    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, FQ_MODULUS, 1 << 9)
+@pytest.mark.parametrize("n", [1 << 9, 1 << 12])
+def test_msm_on_card_matches_cpu(cuda, n):
+    """The MSM on the card against the CPU's; its device part launches
+    msm_level log2(n) times and once more for the final flush, and never
+    syncs with the host."""
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, FQ_MODULUS, n)
     pts = {k: Fq.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
-    scal = Fr.encode(rand_ints(Fr.modulus, 1 << 9))
+    scal = Fr.encode(rand_ints(Fr.modulus, n))
     on_card = ec.msm_to_affine_int({k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda))
     assert on_card == ec.msm_to_affine_int(pts, scal)
+    card_pts, card_scal = {k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda)
+    before = native.counts["msm_level"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        MJ.msm_planes(card_pts, card_scal)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert native.counts["msm_level"] == before + n.bit_length()
+
+
+def test_msm_level_kernel_matches_plain(cuda):
+    """Every level of a 64-point MSM (c = 3) on the card against the plain
+    level on the same inputs: survivors, digits and buckets, bit for bit,
+    one launch a level. Two base points, rescaled and some negated, give
+    P = Q and P = -Q lanes; a third of the scalars are 0 (digit-0 slots) and
+    one point is the identity."""
+    points = chip_smoke.msm_edge_points(np, RNG, MJ, FQ_MODULUS, cuda)
+    before = native.counts["msm_level"]
+    assert chip_smoke.check_msm_levels(torch, np, RNG, cuda, points, 64, Fr) == 0
+    assert native.counts["msm_level"] == before + 7  # six levels and the final flush
 
 
 def test_small_lasso_proof_on_card_matches_jax(cuda):

@@ -96,3 +96,119 @@ def test_msm_matches_jax(n, monkeypatch):
     got = ec.msm_to_affine_int({k: F.from_jax_limbs(np.asarray(v)) for k, v in jpts.items()},
                                F.from_jax_limbs(np.asarray(jscal)))
     assert got == want
+
+
+def level_inputs(digits, pts, W, B, bucket_pts):
+    """Slot arrays of one level (W windows of len(digits) / W slots) and a
+    bucket table of W * B + 1 rows (the last one the plain version's dump)."""
+    slots = to_port(pts)
+    dig = torch.tensor(digits, dtype=torch.int32)
+    bucket = to_port(bucket_pts + [(1, 1, 0)])
+    return slots, dig, bucket
+
+
+def host_level(digits, pts, W, bucket_pts):
+    """The level by host arithmetic: survivors and buckets as Jacobian ints."""
+    m = len(digits) // W
+    B = len(bucket_pts) // W
+    buckets = list(bucket_pts)
+    surv = []
+    for w in range(W):
+        for i in range(0, m, 2) if m > 1 else [0]:
+            s = w * m + i
+            if m > 1 and digits[s] == digits[s + 1]:
+                surv.append(MJ.host_jac_add(pts[s], pts[s + 1], Q))
+                continue
+            slot = w * B + digits[s]
+            buckets[slot] = MJ.host_jac_add(buckets[slot], pts[s], Q)
+            if m > 1:
+                surv.append(pts[s + 1])
+    return surv, buckets
+
+
+def test_msm_level_edge_lanes_match_host():
+    """One level over the lane cases: equal digits (A + B), flushes into an
+    empty bucket, into a bucket holding the same point (P = Q, the
+    doubling) and into one holding its negation (P = -Q, the identity),
+    identity slots, and the final flush of each window's survivor."""
+    base = [host_mul(int(RNG.randint(1, 1 << 40))) for _ in range(6)]
+    a, b, c, d, e, f = (rescale(p, int(RNG.randint(2, 1 << 40))) for p in base)
+    W, B = 2, 4
+    digits = [3, 2, 2, 1,   # window 0: two flushes (into buckets 3 and 2)
+              2, 2, 1, 1]   # window 1: two equal-digit pairs
+    pts = [a, b, c, d,
+           e, (1, 1, 0), f, rescale(f, 3)]  # an identity slot; f + f
+    bucket_pts = [(1, 1, 0)] * (W * B)
+    bucket_pts[3] = rescale(a, 7)  # P = Q
+    bucket_pts[2] = (c[0], (-c[1]) % Q, c[2])  # P = -Q
+    slots, dig, bucket = level_inputs(digits, pts, W, B, bucket_pts)
+    surv, sdig = MJ.msm_level_plain(slots, dig, bucket, W, B)
+    want_surv, want_buckets = host_level(digits, pts, W, bucket_pts)
+    assert sdig.tolist() == [2, 1, 2, 1]
+    assert affine(jac_ints(surv, Fq.decode_ints)) == affine(want_surv)
+    got_buckets = jac_ints({k: v[: W * B] for k, v in bucket.items()}, Fq.decode_ints)
+    assert affine(got_buckets) == affine(want_buckets)
+    assert affine(got_buckets)[2] == (0, 0) and affine(got_buckets)[3] == affine([MJ.host_jac_double(a, Q)])[0]
+    # the final flush: one survivor per window into its bucket
+    final, _ = MJ.msm_level_plain(surv := {k: v[::2].contiguous() for k, v in surv.items()}, sdig[::2].contiguous(),
+                                  bucket, W, B)
+    assert final["x"].shape[0] == 0
+    flushed = affine(jac_ints({k: v[: W * B] for k, v in bucket.items()}, Fq.decode_ints))
+    want = affine([MJ.host_jac_add(want_buckets[w * B + 2], jac_ints(surv, Fq.decode_ints)[w], Q) for w in range(W)])
+    assert [flushed[w * B + 2] for w in range(W)] == want
+
+
+def test_msm_first_level_reads_through_the_sort():
+    """The first level reads the points through the sort's permutation, and
+    digit-0 slots are the identity (their points never reach a bucket)."""
+    n, W, B = 8, 2, 8
+    pts = [host_mul(int(RNG.randint(1, 1 << 30))) for _ in range(n)]
+    digits = torch.tensor([[5, 0, 5, 3, 0, 7, 3, 3], [1, 1, 1, 1, 0, 0, 2, 0]], dtype=torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bucket = to_port([(1, 1, 0)] * (W * B + 1))
+    surv, sdig = MJ.msm_level_plain(to_port(pts), digits, bucket, W, B, order=order)
+    sorted_pts = [pts[i] if digits[w, i] else (pts[i][0], pts[i][1], 0) for w in range(W) for i in order[w].tolist()]
+    sorted_dig = torch.gather(digits, 1, order).reshape(-1).tolist()
+    want_surv, want_buckets = host_level(sorted_dig, sorted_pts, W, [(1, 1, 0)] * (W * B))
+    assert affine(jac_ints(surv, Fq.decode_ints)) == affine(want_surv)
+    assert affine(jac_ints({k: v[: W * B] for k, v in bucket.items()}, Fq.decode_ints)) == affine(want_buckets)
+    assert sdig.tolist() == [5, 3, 3, 0, 1, 1, 0, 0]  # each pair's right slot
+
+
+def test_no_level_writes_one_bucket_twice():
+    """Over every level of an MSM whose windows repeat digits often (c = 3),
+    the flushed buckets of a level are distinct and are the only bucket rows
+    that change."""
+    n = 32
+    pts = [host_mul(int(RNG.randint(1, 1 << 30))) for _ in range(8)]
+    points = to_port([rescale(pts[i % 8], int(RNG.randint(2, 1 << 30))) for i in range(n)])
+    scal = Fr.encode(rand_fes(n))
+    c = MJ.best_c(n)
+    B, W = 1 << c, -(-Fr.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(Fr, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bucket = ec.identity_point(W * B + 1)
+    slot_dig = torch.gather(digits, 1, order).reshape(-1)
+    level_pts, level_dig, levels = points, digits, 0
+    while True:
+        m = slot_dig.shape[0] // W
+        if m == 1:
+            da, flush = slot_dig, torch.ones(W, dtype=torch.bool)
+        else:
+            da, db = slot_dig.view(-1, 2).unbind(1)
+            flush = da != db
+        lane_w = torch.arange(da.shape[0]) // (da.shape[0] // W)
+        slots = (lane_w * B + da)[flush]
+        assert slots.unique().numel() == slots.numel()
+        before = {k: v[: W * B].clone() for k, v in bucket.items()}
+        level_pts, level_dig = MJ.msm_level_plain(level_pts, level_dig, bucket, W, B,
+                                                  order=order if levels == 0 else None)
+        changed = torch.zeros(W * B, dtype=torch.bool)
+        for k in ec.COORDS:
+            changed |= (bucket[k][: W * B] != before[k]).any(1)
+        assert set(changed.nonzero().flatten().tolist()) <= set(slots.tolist())
+        levels += 1
+        if m == 1:
+            break
+        slot_dig = level_dig
+    assert levels == n.bit_length()  # log2(n) halving levels and the final flush
