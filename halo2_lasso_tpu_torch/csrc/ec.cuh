@@ -18,13 +18,8 @@
 #endif
 
 // The product out of line keeps the kernels' bodies small, so their build
-// takes seconds; H2L_QMUL_INLINE inlines it (scripts/kernel_tune.py times
-// both).
-#ifdef H2L_QMUL_INLINE
-static FD Fe qmul(const Fe& a, const Fe& b) { return fe_mul<Fq>(a, b); }
-#else
+// takes seconds, and measured faster than inlined (csrc/msm_level.cu).
 static FD_NOINLINE Fe qmul(Fe a, Fe b) { return fe_mul<Fq>(a, b); }
-#endif
 FD Fe qadd(const Fe& a, const Fe& b) { return fe_add<Fq>(a, b); }
 FD Fe qsub(const Fe& a, const Fe& b) { return fe_sub<Fq>(a, b); }
 

@@ -28,14 +28,14 @@
 // host syncs a level, and added the whole bucket array at every level),
 // the doubling only under a warp vote (csrc/ec.cuh), 16-byte loads.
 //
-// Launch choices, by scripts/kernel_tune.py on an NVIDIA H100 80GB HBM3 at
-// 700 W, over a 2^16 MSM's 17 launches (two calls): 128 threads a block
+// Launch choices, measured on an NVIDIA H100 80GB HBM3 at 700 W over a
+// 2^16 MSM's 17 launches (CUDA events, two calls): 128 threads a block
 // 1.110 / 1.196 ms, 64 threads 1.207 / 1.718, 256 threads 1.373 / 2.134;
 // the Fq product inlined 1.697 / 2.008 ms at 128 (170-176 registers), so it
 // stays out of line (140-146 registers, no spills; the 192-byte stack frame
 // is the calls' own); a register cap of 128 (4 blocks an SM) 1.458 ms and
-// of 102 (5 blocks) 2.201 ms, so there is none. The wrapper launches 128
-// threads (ops/msm_jacobian.py, LEVEL_THREADS).
+// of 102 (5 blocks) 2.201 ms, so there is none. The launch takes 128
+// threads a block.
 #include "ec.cuh"
 
 // One pair lane. Also compiled for the host (FIELD_HOST_TEST), where the
@@ -96,12 +96,9 @@ FD void msm_level_lane(const uint32_t* sx, const uint32_t* sy, const uint32_t* s
 }
 
 #ifndef FIELD_HOST_TEST
-// Launch bounds: scripts/kernel_tune.py builds variants with a register cap.
-#ifndef H2L_LEVEL_MAX_THREADS
-#define H2L_LEVEL_MAX_THREADS 256
-#define H2L_LEVEL_MIN_BLOCKS 1
-#endif
-__global__ void __launch_bounds__(H2L_LEVEL_MAX_THREADS, H2L_LEVEL_MIN_BLOCKS)
+#define LEVEL_THREADS 128
+
+__global__ void __launch_bounds__(LEVEL_THREADS)
 msm_level_kernel(const uint32_t* sx, const uint32_t* sy, const uint32_t* sz, const int32_t* dig,
                  const long long* order, long long pairs, int B, long long lanes, uint32_t* bx,
                  uint32_t* by, uint32_t* bz, uint32_t* ox, uint32_t* oy, uint32_t* oz,
@@ -118,12 +115,11 @@ msm_level_kernel(const uint32_t* sx, const uint32_t* sy, const uint32_t* sz, con
 extern "C" int h2l_msm_level(const void* sx, const void* sy, const void* sz, const void* dig,
                              const void* order, long long pairs, int W, int B, void* bx,
                              void* by, void* bz, void* ox, void* oy, void* oz, void* odig,
-                             int threads, void* stream) {
-  if (threads < 32 || threads > H2L_LEVEL_MAX_THREADS || threads % 32) return (int)cudaErrorInvalidValue;
+                             void* stream) {
   long long lanes = pairs == 0 ? (long long)W : (long long)W * pairs;
   if (lanes <= 0) return 0;
-  long long blocks = (lanes + threads - 1) / threads;
-  msm_level_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  long long blocks = (lanes + LEVEL_THREADS - 1) / LEVEL_THREADS;
+  msm_level_kernel<<<blocks, LEVEL_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (const int32_t*)dig,
       (const long long*)order, pairs, B, lanes, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
       (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)odig);

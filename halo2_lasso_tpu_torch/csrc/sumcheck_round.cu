@@ -32,8 +32,8 @@
 //     a pair gives the zero check's first round (2^15 pairs) 1024 warps,
 //     about 8 an SM, whatever the block size; at that shape 32 / 64 / 128 /
 //     256 threads took 0.184 / 0.161 / 0.155 / 0.157 ms (degree 5, 23
-//     leaves: 0.510 / 0.468 / 0.458 / 0.458 ms), by
-//     scripts/kernel_tune.py on an NVIDIA H100 80GB HBM3 at 700 W. ptxas:
+//     leaves: 0.510 / 0.468 / 0.458 / 0.458 ms), CUDA events on an
+//     NVIDIA H100 80GB HBM3 at 700 W. ptxas:
 //     64-80 registers at degrees 1-3, 128 at 4-8, no spills, no stack.
 #include <cstring>
 

@@ -34,8 +34,6 @@ from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
 
-LEVEL_THREADS = 128  # threads a block of msm_level (scripts/kernel_tune.py times the choice)
-
 
 def best_c(n: int) -> int:
     """Window bits: 10 at the sizes that matter (as the reference pins),
@@ -108,7 +106,7 @@ def msm_level_plain(
         bucket[k][dump] = r[k]
     if m == 1:
         return {k: v[:0] for k, v in pts.items()}, dig[:0]
-    return {k: torch.where(sm, r[k], b[k]) for k in ec.COORDS}, db
+    return {k: torch.where(sm, r[k], b[k]) for k in ec.COORDS}, db.contiguous()
 
 
 def msm_level(
@@ -117,13 +115,15 @@ def msm_level(
 ) -> Tuple[ec.Points, torch.Tensor]:
     """One halving level (see ``msm_level_plain``) in one launch of
     csrc/msm_level.cu: the port of the TPU's _ec_add_kernel with the level
-    step around it (msm_jacobian._level_step)."""
-    if dig.device.type == "cpu":
-        return msm_level_plain(pts, dig, bucket, W, B, order)
+    step around it (msm_jacobian._level_step). The inputs are checked on
+    either device, as the kernel reads them: contiguous int32 rows and
+    digits, a contiguous int64 ``order``."""
     coords = [pts[k] for k in ec.COORDS] + [bucket[k] for k in ec.COORDS]
-    native.require_cuda("msm_level", dig, *coords)
-    if any(t.dim() != 2 or t.shape[1] != F.LIMBS or t.data_ptr() % 16 for t in coords):
-        raise ValueError("msm_level: coordinates must be (n, 8) rows on 16-byte boundaries")
+    for t in (dig, *coords):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("msm_level: digits and coordinates must be contiguous int32 tensors")
+    if any(t.dim() != 2 or t.shape[1] != F.LIMBS for t in coords):
+        raise ValueError("msm_level: coordinates must be (n, 8) rows")
     if any(bucket[k].shape[0] != W * B + 1 for k in ec.COORDS):
         raise ValueError("msm_level: the bucket holds W * B + 1 rows")
     if order is not None:
@@ -134,6 +134,11 @@ def msm_level(
         m = dig.shape[0] // W
     if m & (m - 1) or dig.numel() != W * m or pts["x"].shape[0] != (dig.shape[1] if order is not None else W * m):
         raise ValueError("msm_level: W windows of a power-of-two number of slots")
+    if dig.device.type == "cpu":
+        return msm_level_plain(pts, dig, bucket, W, B, order)
+    native.require_cuda("msm_level", dig, *coords)
+    if any(t.data_ptr() % 16 for t in coords):
+        raise ValueError("msm_level: coordinates must start on 16-byte boundaries")
     pairs = m // 2
     device = dig.device
     out = [torch.empty((W * pairs, F.LIMBS), dtype=torch.int32, device=device) for _ in ec.COORDS]
@@ -141,7 +146,7 @@ def msm_level(
     rc = native.lib().h2l_msm_level(
         *[t.data_ptr() for t in coords[:3]], dig.data_ptr(), None if order is None else order.data_ptr(),
         pairs, W, B, *[t.data_ptr() for t in coords[3:]], *[t.data_ptr() for t in out], odig.data_ptr(),
-        LEVEL_THREADS, native.stream(),
+        native.stream(),
     )
     native.check(rc, "msm_level")
     native.counts["msm_level"] += 1

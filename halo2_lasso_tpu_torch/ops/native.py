@@ -1,12 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
 All kernel sources (``halo2_lasso_tpu_torch/csrc/*.cu`` over the shared
-``field.cuh``) are compiled by one ``nvcc`` call per source, all started
-together, and linked into one shared library with a plain C interface,
-loaded with ``ctypes``. Nothing includes PyTorch's headers, so the build
-takes seconds, and nothing compiles after it: the library is named by a hash
-of its sources and flags, so a stale build is never loaded and an existing
-one is reused.
+``field.cuh``) are compiled by ONE ``nvcc`` call into one shared library with
+a plain C interface, loaded with ``ctypes``. Nothing includes PyTorch's
+headers, so the build takes seconds, and nothing compiles after it: the
+library is named by a hash of its sources, so a stale build is never loaded
+and an existing one is reused.
 
 The build happens on the first launch of any kernel (never at import time:
 the CPU tests import every module and have no ``nvcc``). Every C entry point
@@ -35,7 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 BUILD_TIMEOUT_S = 600
 
@@ -51,7 +50,7 @@ SYMBOLS = {
     "mont_mul_limbs_first": "mont_mul_limbs_first_kernel", "mont_mul_tiled": "mont_mul_tiled_kernel",
     "msm_level": "msm_level_kernel",
 }
-build_seconds = None  # wall time of the nvcc calls, when this process built
+build_seconds = None  # wall time of the nvcc call, when this process built
 ptxas_info = ""  # what -Xptxas -v printed, when this process built
 
 _lib = None
@@ -65,7 +64,7 @@ _SIGNATURES = {
     "h2l_fix_var": [_P, _P, _LL, _P, _LL, _P, _P],
     "h2l_sumcheck_round": [_P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "h2l_ec_add": [_P] * 9 + [_LL, _P],
-    "h2l_msm_level": [_P] * 5 + [_LL, _I, _I] + [_P] * 7 + [_I, _P],
+    "h2l_msm_level": [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
     "h2l_mont_mul_limbs_first": [_P, _P, _P, _LL, _P],
     "h2l_mont_mul_tiled": [_P, _P, _P, _LL, _P],
 }
@@ -87,71 +86,40 @@ def _nvcc() -> str:
     return path
 
 
-def _run_all(cmds):
-    """Run the commands side by side; (returncode, stderr) of each. No
-    process outlives the call."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
-    try:
-        deadline = time.monotonic() + BUILD_TIMEOUT_S
-        errs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[1] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return [(p.returncode, e) for p, e in zip(procs, errs)]
-
-
-def build(extra_flags=()) -> str:
-    """Compile every kernel source, one nvcc per source in parallel, and link
-    them into one library; returns its path."""
+def build() -> str:
+    """Compile every kernel source into one library; returns its path."""
     global build_seconds, ptxas_info
-    flags = [*NVCC_FLAGS, *extra_flags]
     h = hashlib.sha256()
     for src in sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     lib_path = os.path.join(BUILD_DIR, f"libh2l_{h.hexdigest()[:16]}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     cu = [s for s in sources() if s.endswith(".cu")]
-    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
-    nvcc = _nvcc()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
     t0 = time.perf_counter()
-    try:
-        compiled = _run_all([[nvcc, *flags, "-I", CSRC, "-c", "-o", o, s] for s, o in zip(cu, objs)])
-        for src, (rc, err) in zip(cu, compiled):
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} ({rc}):\n{err}")
-        ((rc, err),) = _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed to link ({rc}):\n{err}")
-    finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    ptxas_info = "".join(err for _, err in compiled)
+    ptxas_info = proc.stdout + proc.stderr
     os.replace(tmp, lib_path)
     return lib_path
-
-
-def load(path: str) -> ctypes.CDLL:
-    dll = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(dll, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return dll
 
 
 def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = load(build())
+        dll = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = dll
     return _lib
 
 

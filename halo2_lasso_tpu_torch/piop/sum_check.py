@@ -112,7 +112,7 @@ MAX_DEGREE = 8
 MAX_LEAVES = 64
 MAX_OPS = 384
 MAX_CONSTS = 32
-ROUND_THREADS = 128  # threads a block (scripts/kernel_tune.py times the choice)
+ROUND_THREADS = 128  # threads a block, at most (csrc/sumcheck_round.cu gives the times)
 _MAX_BLOCKS = 2048
 _SMEM_MAX = 226 * 1024  # the card's shared memory a block, less the kernel's own
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}

@@ -1,0 +1,139 @@
+"""Time the heaviest shapes of the round kernel and of the MSM for two
+checkouts of the port on one card, in turns, so that a change to either is
+compared with its parent in one run.
+
+    python3 halo2_lasso_tpu_torch/scripts/compare_trees.py BASE [HEAD]
+
+BASE and HEAD are the roots of two checkouts (HEAD defaults to the one that
+holds this file). Run it as a file, not with ``-m``: each measurement is a
+process of its own that imports the package from its root, in the order
+base, head, head, base. Each process builds its tree's kernels and, on
+inputs drawn from fixed seeds, measures
+
+  - the round message at the nv = 16 Lasso-in-HyperPlonk zero check's first
+    round (``rand_lasso_circuit`` with 32-bit AND and 16-bit range lookups:
+    37 leaf tables of 2^16, degree 3): CUDA events per call over 20 calls,
+    and the profiler's device time per call, in all (kernels and copies)
+    and in ``round_kernel``;
+  - one variable-base MSM of 2^16 points (``msm_jacobian.msm``): host wall
+    time per call, and per call the profiler's device time in all, in the
+    ``ec_add`` and ``msm_level`` kernels, and the device-to-host copies.
+
+The timing helpers are this file's tree's (``utils/bench.py``), whichever
+tree is measured. Each process prints one JSON line, with SHA-256 hashes of
+the round message and of the MSM's affine result; the script fails unless
+they agree across the trees. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HEAD_ROOT = os.path.dirname(os.path.dirname(HERE))
+N = 1 << 16
+REPS_K1, REPS_MSM = 20, 3
+
+
+def _bench():
+    path = os.path.join(HEAD_ROOT, "halo2_lasso_tpu_torch", "utils", "bench.py")
+    spec = importlib.util.spec_from_file_location("h2l_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure(root: str) -> dict:
+    """The numbers of one tree (see the module's docstring)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import G1_GEN, Fq, Fr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+
+    if not native.__file__.startswith(os.path.join(root, "")):
+        raise SystemExit(f"imported {native.__file__}, not the package under {root}")
+    bench = _bench()
+    rng = np.random.RandomState(7)
+
+    def rand_fr(n):
+        limbs = rng.randint(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+        limbs[:, 7] = rng.randint(0, Fr.modulus >> 224, size=n)  # below p
+        return F.from_numpy_u32(limbs, "cuda")
+
+    native.lib()
+    out = {"root": root, "build_s": native.build_seconds}
+
+    ci, _ = fixtures.rand_lasso_circuit(16, np.random.RandomState(16), np.random.RandomState(516),
+                                        operand_bits=32, chunk_bits=8, range_bits=16)
+    nz, expr = preprocessor.compose(ci)
+    n_polys = ci.num_poly() + preprocessor.num_lasso_polys(ci) + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz
+    keys = SC._leaf_keys(expr, n_polys)
+    prog = SC.lower_expression(expr, keys)
+    leaves = [rand_fr(N) for _ in keys]
+    chal = rand_fr(3)
+
+    def k1():
+        return SC.round_message(Fr, leaves, prog, chal, expr.degree)
+
+    out["k1_shape"] = f"{len(keys)} leaves of 2^16, degree {expr.degree}"
+    out["k1_sha"] = hashlib.sha256(k1().cpu().numpy().tobytes()).hexdigest()
+    out["k1_event_ms"] = bench.cuda_ms(k1, REPS_K1)
+    dev = bench.device_ms(k1, REPS_K1, ["round_kernel"])
+    out["k1_device_ms"], out["k1_round_kernel_ms"] = dev["all"], dev["round_kernel"]
+
+    points = ec.fixed_base_msm(G1_GEN, rand_fr(N))
+    scal = rand_fr(N)
+
+    def msm():
+        return MJ.msm(points, scal)
+
+    out["msm_sha"] = hashlib.sha256(repr(MJ.host_batch_affine([msm()], Fq.modulus)).encode()).hexdigest()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS_MSM):
+        msm()  # reads its result back, so each call ends synchronized
+    out["msm_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS_MSM
+    dev = bench.device_ms(msm, REPS_MSM, ["ec_add_kernel", "msm_level_kernel"])
+    out.update(msm_device_ms=dev["all"], msm_ec_add_ms=dev["ec_add_kernel"],
+               msm_level_ms=dev["msm_level_kernel"], msm_dtoh=dev["DtoH"])
+    return out
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--one"]:
+        print(json.dumps(measure(os.path.abspath(argv[1]))), flush=True)
+        return 0
+    if not argv:
+        raise SystemExit(__doc__)
+    base = os.path.abspath(argv[0])
+    head = os.path.abspath(argv[1]) if len(argv) > 1 else HEAD_ROOT
+    recs = []
+    for tree, root in (("base", base), ("head", head), ("head", head), ("base", base)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                              capture_output=True, text=True, timeout=900, check=False)
+        if proc.returncode != 0:
+            raise SystemExit(f"the {tree} tree failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        rec = {"tree": tree, **json.loads(proc.stdout.strip().splitlines()[-1])}
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    for key in ("k1_sha", "msm_sha"):
+        if len({r[key] for r in recs}) != 1:
+            raise SystemExit(f"the trees disagree on {key}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,9 +1,12 @@
-"""The card's peak rates and the two timing helpers that chip_smoke.py and
-scripts/layout_bench.py share: a kernel's least time (its bound) and its
-mean time over repeated launches with CUDA events.
+"""The card's peak rates and the timing helpers that chip_smoke.py and the
+port's scripts share: a kernel's least time (its bound), its mean time over
+repeated launches with CUDA events, and the device's own time per call from
+torch.profiler.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -35,3 +38,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_rows(rows, symbol: str):
+    """The profiler rows of the __global__ function `symbol`."""
+    return [e for e in rows if re.search(rf"(^|\W){symbol}\s*[<(]", e.key)]
+
+
+def device_ms(fn, reps: int, symbols=()) -> dict:
+    """Per call over `reps` calls after one warm-up, from torch.profiler's
+    device-side rows: "all", the device time of every kernel, copy and
+    memset (the host's gaps between them excluded); each of `symbols` (a
+    kernel's __global__ name), its device time; "DtoH", the device-to-host
+    copies."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"all": sum(e.self_device_time_total for e in rows) / 1e3 / reps}
+    if out["all"] <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    for sym in symbols:
+        out[sym] = sum(e.self_device_time_total for e in kernel_rows(rows, sym)) / 1e3 / reps
+    out["DtoH"] = sum(e.count for e in rows if e.key.startswith("Memcpy DtoH")) / reps
+    return out

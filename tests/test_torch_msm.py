@@ -212,3 +212,26 @@ def test_no_level_writes_one_bucket_twice():
             break
         slot_dig = level_dig
     assert levels == n.bit_length()  # log2(n) halving levels and the final flush
+
+
+@pytest.mark.parametrize("fault", ["int64 digits", "strided digits", "strided rows", "int32 order"])
+def test_msm_level_refuses_what_the_kernel_cannot_read(fault):
+    """The wrapper checks its inputs on either device as the kernel reads
+    them (contiguous int32 rows and digits, a contiguous int64 order), so a
+    CPU call refuses what a card call could not read correctly."""
+    W, B, n = 2, 4, 4
+    pts = ec.identity_point(n)
+    digits = torch.tensor([[3, 1, 0, 2], [1, 1, 2, 0]], dtype=torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bucket = ec.identity_point(W * B + 1)
+    MJ.msm_level(pts, digits, bucket, W, B, order=order)  # the well-formed call runs
+    if fault == "int64 digits":
+        digits = digits.to(torch.int64)
+    elif fault == "strided digits":
+        digits = torch.zeros((W, 2 * n), dtype=torch.int32)[:, ::2]
+    elif fault == "strided rows":
+        pts = {k: torch.cat([v, v]).view(n, 2 * F.LIMBS)[:, : F.LIMBS] for k, v in pts.items()}
+    else:
+        order = order.to(torch.int32)
+    with pytest.raises(ValueError, match="msm_level"):
+        MJ.msm_level(pts, digits, bucket, W, B, order=order)
