@@ -13,7 +13,13 @@ Phases, each printing one line with its wall time:
      2^16) and the Lasso primary sumcheck's, msm_level over every level of
      a 2^16 MSM (17 launches, no host sync; the profiler's device time),
      ec_add at the first level of that MSM's bit-plane tree and over PR 6's
-     878,592 lanes of the five cases;
+     878,592 lanes of the five cases; fold_all (1, 37, 64, 65 tables, the
+     challenge as a host int and on the card) at 6 tables of 2^16; the
+     Montgomery chains of csrc/mont_chain.cu: mont_pow (exponents 0, 1, 2,
+     p - 2, random) on batch_inv's one total, the scan both ways and
+     batch_inv with zero rows at n = 1 ... 2^17 + 3 and timed at 2^17,
+     eq_xy at k = 0, 1, 5, 16 and timed at k = 16; fold_all, the scan,
+     batch_inv and eq_xy must make no host sync or copy;
   4. small proof: a Lasso range proof (range_table(8, 4), 16 lookups, SRS
      seed 3) on the card and through the plain path on the CPU; both must
      hash to SMALL_PROOF_SHA256, the hash of the JAX package's proof
@@ -46,7 +52,8 @@ Phases, each printing one line with its wall time:
      2^16, 2^20 and 2^22, and timed.
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, and 10) and read just after it; each path must
-launch every kernel it names in PATH_KERNELS.
+launch every kernel it names in PATH_KERNELS, and the K4 family's launches
+(K4 and the mont_chain entries) are printed by path.
 
 The last lines are a JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -80,14 +87,18 @@ LASSO_PLONK = {
     "circuit": "rand_lasso_circuit", "num_vars": 16, "seeds": (16, 516), "setup_seed": 0,
     "kwargs": {"operand_bits": 32, "chunk_bits": 8, "range_bits": 16},
 }
-PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level")
+PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy")
+# the HyperPlonk paths' batch inversions and permutation scan
+HYPERPLONK_KERNELS = PROOF_KERNELS + ("mont_pow", "prefix_products")
 PATH_KERNELS = {
     "lasso": PROOF_KERNELS,
-    "hyperplonk": PROOF_KERNELS,
+    "hyperplonk": HYPERPLONK_KERNELS,
     "lasso_and": PROOF_KERNELS,
-    "lasso_hyperplonk": PROOF_KERNELS,
+    "lasso_hyperplonk": HYPERPLONK_KERNELS,
     "layout": ("mont_mul", "mont_mul_limbs_first", "mont_mul_tiled"),
 }
+# K4 and the entries that replaced its caller loops (csrc/mont_chain.cu)
+K4_FAMILY = ("mont_mul", "mont_pow", "prefix_products", "eq_xy")
 
 
 def stage(name, t0, msg=""):
@@ -139,6 +150,14 @@ def main() -> int:
           f"of the five cases {k3['five_case_ms']:.4f}ms (bound {k3['five_case_bound_ms']:.4f}ms)", flush=True)
     print(f"msm_level: {lv['shape']}: device {lv['ms']:.4f}ms, events {lv['event_ms']:.4f}ms (bound "
           f"{lv['bound_ms']:.4f}ms over {lv['adds']} adds; plain {lv['plain_ms']:.2f}ms)", flush=True)
+    for name in ("fold_all", "mont_pow", "prefix_products", "eq_xy"):
+        k = by_name[name]
+        print(f"{name}: {k['shape']}: events {k['ms']:.4f}ms, device {k['device_ms']:.4f}ms (bound "
+              f"{k['bound_ms']:.5f}ms, {k['bound_by']}; plain {k['plain_ms']:.3f}ms)", flush=True)
+    bi = by_name["prefix_products"]
+    print(f"batch_inv: 2^17 Fr: events {bi['batch_inv_ms']:.4f}ms, device {bi['batch_inv_device_ms']:.4f}ms "
+          f"(bound {bi['batch_inv_bound_ms']:.5f}ms, {bi['batch_inv_bound_by']}; plain "
+          f"{bi['batch_inv_plain_ms']:.3f}ms)", flush=True)
 
     # 4. small proof against the JAX package's bytes
     proof_gate(np, lasso_proof, SMALL, SMALL_PROOF_SHA256, "small_proof", "range_table(8,4), 16 lookups")
@@ -182,6 +201,8 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in launches.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    print("K4 family launches by path: " + json.dumps(
+        {path: sum(counts[k] for k in K4_FAMILY) for path, counts in launches.items()}), flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -437,15 +458,103 @@ def check_kernels(torch, np, dev):
     record("mont_mul", "halo2_lasso_tpu_torch/csrc/mont_mul.cu", "halo2_lasso_tpu/ops/pallas_field.py:225",
            kernel_fn, plain_fn, 96 * n, n * IMAD_PER_MONT_MUL, err)
 
-    # K2 fold_all: 8 tables of 2^14; timed at the batch open's first fold
-    # (3 eq tables + 3 polys of 2^16)
-    x = rand_field(Fr, 1)[0]
-    tabs = [rand_field(Fr, 1 << 14) for _ in range(8)]
-    err = same("fold_all", lambda: mle.fold_all(Fr, tabs, x), lambda: mle.fold_all_plain(Fr, tabs, x))
+    # K2 fold_all: 1, 37, 64 and 65 tables of 2^10 (two launches beyond
+    # 64), both strides, the challenge as a host int and as a card tensor;
+    # timed at the batch open's first fold (3 eq tables + 3 polys of 2^16)
+    # with the challenge as a host int, as the sumchecks pass it
+    p = Fr.modulus
+    xv = Fr.decode_ints(rand_field(Fr, 1))[0]
+    x = Fr.encode([xv], dev)[0]
+    err = 0
+    for ntables in (1, 37, 64, 65):
+        tabs = [rand_field(Fr, 1 << 10, [0, 1, p - 1, Fr.R]) for _ in range(ntables)]
+        for last in (False, True):
+            for xc in (xv, x):
+                err = max(err, same("fold_all", lambda: mle.fold_all(Fr, tabs, xc, last),
+                                    lambda: mle.fold_all_plain(Fr, tabs, x, last)))
     tabs = [rand_field(Fr, n) for _ in range(6)]
+    no_sync(torch, lambda: mle.fold_all(Fr, tabs, xv))
     record("fold_all", "halo2_lasso_tpu_torch/csrc/fold.cu", "halo2_lasso_tpu/ops/pallas_field.py:293",
-           lambda: mle.fold_all(Fr, tabs, x), lambda: mle.fold_all_plain(Fr, tabs, x),
+           lambda: mle.fold_all(Fr, tabs, xv), lambda: mle.fold_all_plain(Fr, tabs, x),
            6 * n * 48, 6 * (n // 2) * IMAD_PER_MONT_MUL, err)
+    results["fold_all"].update(
+        shape="6 tables of 2^16, the challenge by value",
+        device_ms=device_ms(lambda: mle.fold_all(Fr, tabs, xv), 20, ["fold_all_kernel"])["fold_all_kernel"])
+
+    # mont_pow: exponents 0, 1, 2, p - 2 and a random 254-bit one, in both
+    # fields, on 2^10 rows with 0, 1, p - 1 and R mod p; timed where the
+    # proofs run it, on batch_inv's one total (a single row, exponent
+    # p - 2): one thread's chain of products, bound by their latency, not by
+    # the bound below, which counts its products at the card's full rate
+    err = 0
+    for spec in (Fr, Fq):
+        q = spec.modulus
+        rows = rand_field(spec, 1 << 10, [0, 1, q - 1, spec.R])
+        for e in (0, 1, 2, q - 2, int.from_bytes(rng.bytes(32), "little") % (1 << 254) | 1 << 253):
+            err = max(err, same("mont_pow", lambda: [F.pow_fixed(spec, rows, e)],
+                                lambda: [F.pow_fixed_plain(spec, rows, e)]))
+    e = p - 2
+    tot = rand_field(Fr, 1)
+    record("mont_pow", "halo2_lasso_tpu_torch/csrc/mont_chain.cu",
+           "halo2_lasso_tpu/ops/field.py:387 over halo2_lasso_tpu/ops/pallas_field.py:225",
+           lambda: [F.pow_fixed(Fr, tot, e)], lambda: [F.pow_fixed_plain(Fr, tot, e)],
+           64, (e.bit_length() - 2 + bin(e).count("1")) * IMAD_PER_MONT_MUL, err)
+    results["mont_pow"].update(
+        shape="one row, exponent p - 2 (batch_inv's total)",
+        device_ms=device_ms(lambda: F.pow_fixed(Fr, tot, e), 20, ["mont_pow_kernel"])["mont_pow_kernel"])
+
+    # the scan, forward and reverse, and batch_inv with zero rows in both
+    # fields, at n = 1, 255, 256, 257 and 2^17 + 3; both timed at 2^17 (the
+    # vanilla circuit's lookup batch_inv), the scan's bound n products and
+    # its rows read and written once, batch_inv's 4 products a row (the two
+    # scans, then prefix * suffix * inverse) and the power's
+    err = 0
+    for size in (1, 255, 256, 257, (1 << 17) + 3):
+        xs = rand_field(Fr, size, [0, 1, p - 1, Fr.R][:size])
+        for rev in (False, True):
+            err = max(err, same("prefix_products", lambda: [F.prefix_products(Fr, xs, rev)],
+                                lambda: [F.prefix_products_plain(Fr, xs, rev)]))
+        for spec in (Fr, Fq):
+            zs = rand_field(spec, size, [0, 1, spec.modulus - 1, spec.R][:size])
+            zs[5::7] = 0
+            err = max(err, same("batch_inv", lambda: [F.batch_inv(spec, zs)], lambda: [F.batch_inv_plain(spec, zs)]))
+    big = rand_field(Fr, 1 << 17)
+    no_sync(torch, lambda: F.prefix_products(Fr, big))
+    no_sync(torch, lambda: F.batch_inv(Fr, big))
+    record("prefix_products", "halo2_lasso_tpu_torch/csrc/mont_chain.cu",
+           "halo2_lasso_tpu/ops/field.py:416 over halo2_lasso_tpu/ops/pallas_field.py:225",
+           lambda: [F.prefix_products(Fr, big)], lambda: [F.prefix_products_plain(Fr, big)],
+           64 << 17, (1 << 17) * IMAD_PER_MONT_MUL, err)
+    pp = results["prefix_products"]
+    pp["shape"] = "2^17 rows, Fr"
+    pp["device_ms"] = device_ms(lambda: F.prefix_products(Fr, big), 20, ["scan_kernel"])["scan_kernel"]
+    bi_dev = device_ms(lambda: F.batch_inv(Fr, big), 20, ["scan_kernel", "mont_pow_kernel"])
+    pp.update(batch_inv_ms=cuda_ms(lambda: F.batch_inv(Fr, big), 20),
+              batch_inv_plain_ms=cuda_ms(lambda: F.batch_inv_plain(Fr, big), 2),
+              batch_inv_device_ms=bi_dev["scan_kernel"] + bi_dev["mont_pow_kernel"])
+    pp["batch_inv_bound_ms"], pp["batch_inv_bound_by"] = bound_ms(
+        64 << 17, (4 * (1 << 17) + e.bit_length() - 2 + bin(e).count("1")) * IMAD_PER_MONT_MUL)
+
+    # eq_xy: k = 0, 1, 5 and 16, the point as host ints and on the card,
+    # with 0, 1 and p - 1 among its coordinates; timed at k = 16 from host
+    # ints (the nv = 16 sumchecks' eq tables), bound 2^k products and the
+    # table written once
+    err = 0
+    for k in (0, 1, 5, 16):
+        y = ([0, 1, p - 1] + Fr.decode_ints(rand_field(Fr, k)))[:k]
+        ty = Fr.encode(y, dev) if k else Fr.zeros(0, dev)
+        for point in (y, ty):
+            err = max(err, same("eq_xy", lambda: [mle.eq_xy(Fr, point, dev)], lambda: [mle.eq_xy_plain(Fr, ty)]))
+    no_sync(torch, lambda: mle.eq_xy(Fr, y, dev))
+    record("eq_xy", "halo2_lasso_tpu_torch/csrc/mont_chain.cu",
+           "halo2_lasso_tpu/poly/multilinear.py:55 over halo2_lasso_tpu/ops/pallas_field.py:225",
+           lambda: [mle.eq_xy(Fr, y, dev)], lambda: [mle.eq_xy_plain(Fr, ty)],
+           32 << 16, (1 << 16) * IMAD_PER_MONT_MUL, err)
+    results["eq_xy"].update(
+        shape="k = 16, the point as host ints",
+        device_ms=device_ms(lambda: mle.eq_xy(Fr, y, dev), 20, ["eq_xy_kernel"])["eq_xy_kernel"])
+    print("fold_all (int challenge), prefix_products, batch_inv and eq_xy (host ints) ran with no host "
+          "sync or copy", flush=True)
 
     # K1 round message: the Lasso primary expression and a GKR degree-3
     # layer at 2^14, and the primary sumcheck's first round (2^16), timed
@@ -507,10 +616,7 @@ def check_kernels(torch, np, dev):
     err = max(err, check_msm_levels(torch, np, rng, dev, points, n, Fr))
     MJ.msm_planes(points, scal)  # the cached constants exist before the sync check
     native.reset_counts()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    planes = MJ.msm_planes(points, scal)[0]
-    torch.cuda.set_sync_debug_mode("default")
+    planes = no_sync(torch, lambda: MJ.msm_planes(points, scal))[0]
     if native.counts["msm_level"] != 17:
         raise SystemExit(f"a 2^16 MSM launched msm_level {native.counts['msm_level']} times, not 17")
     print("msm_level: a 2^16 MSM launches it 17 times (16 levels + the final flush), with no host sync", flush=True)
@@ -605,10 +711,7 @@ def check_kernels(torch, np, dev):
                                   lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]))
     # timed at its first round (2^16), with no host sync or copy in the call
     leaves = [rand_field(Fr, n) for _ in keys]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    SC.round_message(Fr, leaves, prog, chal, expr.degree)
-    torch.cuda.set_sync_debug_mode("default")
+    no_sync(torch, lambda: SC.round_message(Fr, leaves, prog, chal, expr.degree))
     muls = program_muls(SC, prog)
     record("sumcheck_round", "halo2_lasso_tpu_torch/csrc/sumcheck_round.cu",
            "halo2_lasso_tpu/ops/pallas_field.py:376",
@@ -654,6 +757,16 @@ def check_kernels(torch, np, dev):
            lambda: [LB.mont_mul_tiled_plain(a_t, b_t)], 96 * big, big * IMAD_PER_MONT_MUL,
            errs["mont_mul_tiled"])
     return [results[k] for k in native.KERNELS]
+
+
+def no_sync(torch, fn):
+    """fn() with any host sync, a blocking copy included, raising."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def ec_cases(np, rng, MJ, mod, n):

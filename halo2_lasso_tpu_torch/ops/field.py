@@ -9,9 +9,11 @@ same 256-bit numbers as 16 limbs of 16 bits (``ops/field.py:86``), so
 
 The plain versions compute on 16-bit limbs in ``int64``, where every product
 and lazy column sum fits exactly (torch has no general ``uint32`` arithmetic
-on the CPU). ``mont_mul`` is the one kernel of this module: on a CUDA tensor
-it launches ``csrc/mont_mul.cu`` or raises; only a CPU tensor takes the
-plain version. ``add``/``sub``/``neg`` are plain tensor code on any device.
+on the CPU). ``mont_mul`` launches ``csrc/mont_mul.cu``; ``pow_fixed``,
+``prefix_products`` and ``batch_inv`` launch ``csrc/mont_chain.cu``, a fixed
+number of launches each, whatever the length. On a CUDA tensor each
+launches its kernel or raises; only a CPU tensor takes the plain version
+(``*_plain``). ``add``/``sub``/``neg`` are plain tensor code on any device.
 """
 
 from __future__ import annotations
@@ -244,7 +246,7 @@ def u32_to_mont(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     return to_mont(spec, limbs)
 
 
-def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+def pow_fixed_plain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     result = spec.one(a.device).expand(a.shape).contiguous()
     base = a
     while exponent:
@@ -256,9 +258,12 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     return result
 
 
-def prefix_products(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix products of the rows of (n, 8): a log-depth
-    Hillis-Steele scan, one mont_mul launch per level."""
+def prefix_products_plain(spec: FieldSpec, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix products of the rows of (n, 8) (from the last row
+    when ``reverse``): a log-depth Hillis-Steele scan, one mont_mul launch
+    per level."""
+    if reverse:
+        return prefix_products_plain(spec, x.flip(0)).flip(0)
     k = 1
     while k < x.shape[0]:
         x = torch.cat([x[:k], mont_mul(spec, x[k:], x[:-k])])
@@ -266,19 +271,100 @@ def prefix_products(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Invert every row of (n, 8) (zeros stay zero): log-depth prefix and
-    suffix products and ONE Fermat inversion, as ops/field.py:416 does."""
+def batch_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     zero = is_zero(a)
     one = spec.one(a.device)
     aa = torch.where(zero[:, None], one, a)
-    pre = prefix_products(spec, aa)
-    suf = prefix_products(spec, aa.flip(0)).flip(0)
-    total_inv = pow_fixed(spec, pre[-1:], spec.modulus - 2)
+    pre = prefix_products_plain(spec, aa)
+    suf = prefix_products_plain(spec, aa, reverse=True)
+    total_inv = pow_fixed_plain(spec, pre[-1:], spec.modulus - 2)
     pre_ex = torch.cat([one[None], pre[:-1]])
     suf_ex = torch.cat([suf[1:], one[None]])
     out = mont_mul(spec, mont_mul(spec, pre_ex, suf_ex), total_inv.expand_as(pre_ex))
     return torch.where(zero[:, None], torch.zeros_like(out), out)
+
+
+# csrc/mont_chain.cu's compiled limits and tile (tests/test_torch_csrc.py
+# holds them equal)
+MAX_POW_WORDS = 8
+SCAN_TILE = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _exponent(e: int):
+    """(the exponent's 8 words as a host array, its bit length)."""
+    if not 0 <= e < 1 << (32 * MAX_POW_WORDS):
+        raise ValueError(f"pow_fixed: the kernel takes exponents below 2^{32 * MAX_POW_WORDS}")
+    return np.ascontiguousarray(ints_to_u32([e])[0]), e.bit_length()
+
+
+def _rows(name: str, a: torch.Tensor) -> int:
+    """Check a kernel's (n, 8) field rows on the card; returns n."""
+    if a.dim() != 2 or a.shape[1] != LIMBS:
+        raise ValueError(f"{name}: expected (n, {LIMBS}) field rows, got {tuple(a.shape)}")
+    native.require_cuda(name, a)
+    if a.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must start on a 16-byte boundary")
+    return a.shape[0]
+
+
+def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent for every row of (n, 8). Kernel: csrc/mont_chain.cu, one
+    launch (the port of the fori_loop in halo2_lasso_tpu/ops/field.py:387)."""
+    if a.device.type == "cpu":
+        return pow_fixed_plain(spec, a, exponent)
+    n = _rows("mont_pow", a)
+    words, nbits = _exponent(exponent)
+    out = torch.empty_like(a)
+    if n:
+        rc = native.lib().h2l_mont_pow(
+            spec.kernel_id, a.data_ptr(), out.data_ptr(), n, words.ctypes.data, nbits, native.stream()
+        )
+        native.check(rc, "mont_pow")
+        native.counts["mont_pow"] += 1
+    return out
+
+
+def prefix_products(spec: FieldSpec, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix products of the rows of (n, 8), from the last row
+    when ``reverse``. Kernel: csrc/mont_chain.cu's scan, 1 launch up to
+    SCAN_TILE rows, else 3."""
+    if x.device.type == "cpu":
+        return prefix_products_plain(spec, x, reverse)
+    n = _rows("prefix_products", x)
+    out = torch.empty_like(x)
+    if n:
+        nb = -(-n // SCAN_TILE)
+        scratch = torch.empty((3 * nb + 2, LIMBS), dtype=torch.int32, device=x.device)
+        rc = native.lib().h2l_prefix_products(
+            spec.kernel_id, x.data_ptr(), out.data_ptr(), n, int(reverse), scratch.data_ptr(), native.stream()
+        )
+        native.check(rc, "prefix_products")
+        native.counts["prefix_products"] += 1 if nb == 1 else 3
+    return out
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Invert every row of (n, 8) (zeros stay zero): prefix and suffix
+    products and ONE Fermat inversion, as ops/field.py:416 does. Kernel:
+    csrc/mont_chain.cu, the scan's phases around one mont_pow (3 launches
+    up to SCAN_TILE rows, else 4), no host sync."""
+    if a.device.type == "cpu":
+        return batch_inv_plain(spec, a)
+    n = _rows("batch_inv", a)
+    words, nbits = _exponent(spec.modulus - 2)
+    out = torch.empty_like(a)
+    if n:
+        nb = -(-n // SCAN_TILE)
+        scratch = torch.empty((3 * nb + 2, LIMBS), dtype=torch.int32, device=a.device)
+        rc = native.lib().h2l_batch_inv(
+            spec.kernel_id, a.data_ptr(), out.data_ptr(), n, scratch.data_ptr(), words.ctypes.data, nbits,
+            native.stream(),
+        )
+        native.check(rc, "batch_inv")
+        native.counts["prefix_products"] += 2 if nb == 1 else 3
+        native.counts["mont_pow"] += 1
+    return out
 
 
 def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ BUILD_TIMEOUT_S = 600
 
 KERNELS = (
     "mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "mont_mul_limbs_first",
-    "mont_mul_tiled", "msm_level",
+    "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy",
 )
 counts = {k: 0 for k in KERNELS}
 # the __global__ function of each kernel, as a profiler names it
@@ -48,7 +48,8 @@ SYMBOLS = {
     "mont_mul": "mont_mul_kernel", "fold_all": "fold_all_kernel", "sumcheck_round": "round_kernel",
     "ec_add": "ec_add_kernel", "fix_var": "fix_var_kernel",
     "mont_mul_limbs_first": "mont_mul_limbs_first_kernel", "mont_mul_tiled": "mont_mul_tiled_kernel",
-    "msm_level": "msm_level_kernel",
+    "msm_level": "msm_level_kernel", "mont_pow": "mont_pow_kernel", "prefix_products": "scan_kernel",
+    "eq_xy": "eq_xy_kernel",
 }
 build_seconds = None  # wall time of the nvcc call, when this process built
 ptxas_info = ""  # what -Xptxas -v printed, when this process built
@@ -60,13 +61,17 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "h2l_mont_mul": [_I, _P, _P, _I, _P, _LL, _P],
-    "h2l_fold_all": [_P, _P, _I, _LL, _LL, _P, _P],
+    "h2l_fold_all": [_P, _P, _I, _LL, _LL, _P, _P, _P],
     "h2l_fix_var": [_P, _P, _LL, _P, _LL, _P, _P],
     "h2l_sumcheck_round": [_P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "h2l_ec_add": [_P] * 9 + [_LL, _P],
     "h2l_msm_level": [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
     "h2l_mont_mul_limbs_first": [_P, _P, _P, _LL, _P],
     "h2l_mont_mul_tiled": [_P, _P, _P, _LL, _P],
+    "h2l_mont_pow": [_I, _P, _P, _LL, _P, _I, _P],
+    "h2l_prefix_products": [_I, _P, _P, _LL, _I, _P, _P],
+    "h2l_batch_inv": [_I, _P, _P, _LL, _P, _P, _I, _P],
+    "h2l_eq_xy": [_I, _P, _P, _I, _P, _P],
 }
 
 
@@ -141,10 +146,3 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: every input must lie on the same CUDA device")
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous int32 tensors")
-
-
-def pointer_table(tensors, device) -> torch.Tensor:
-    """Device array of the tensors' data pointers (for one-launch batches)."""
-    return torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64).to(
-        device, non_blocking=False
-    )

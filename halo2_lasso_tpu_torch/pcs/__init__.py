@@ -44,7 +44,7 @@ def g1_sum_with_scalar(scalars: Sequence[int], bases: Sequence[Tuple[int, int]])
 def _eq_xt(t: Sequence[int], device) -> List[int]:
     if not t:
         return [1]
-    return Fr.decode_ints(mle.eq_xy(Fr, Fr.encode(list(t), device)))
+    return Fr.decode_ints(mle.eq_xy(Fr, list(t), device))
 
 
 def additive_batch_open(
@@ -82,7 +82,7 @@ def additive_batch_open(
     for j, m in enumerate(merged):
         if m is not None:
             scalar, arr = m
-            terms.append((scalar, mle.eq_xy(spec, spec.encode(list(points[j]), device)), arr, j))
+            terms.append((scalar, mle.eq_xy(spec, list(points[j]), device), arr, j))
 
     tilde_gs_sum = sum(ev.value * eq_i for ev, eq_i in zip(evals, eq_xt)) % p
     with timed.scope("batch_open_sumcheck"):

@@ -94,7 +94,7 @@ class MultilinearKzg:
         # all eq tables concatenated: sizes 1, 2, ..., 2^k
         tables = [Fr.one(device)[None]]
         for j in range(1, num_vars + 1):
-            tables.append(mle.eq_xy(Fr, Fr.encode(ss[:j], device)))
+            tables.append(mle.eq_xy(Fr, ss[:j], device))
         pts = ec.fixed_base_msm(G1_GEN, torch.cat(tables))
         eqs = ec.split_points(pts, [1 << j for j in range(num_vars + 1)])
         ss_g2 = [hostec.g2_mul(G2_GEN, s) for s in ss]

@@ -349,7 +349,7 @@ def _leaf_table(spec: FieldSpec, key, vp: VirtualPolynomial, num_vars: int, devi
         poly = vp.polys[key[1]]
         return mle.rotate_evals(spec, poly, key[2]) if key[2] else poly
     if kind == "eq":
-        return mle.eq_xy(spec, spec.encode(vp.ys[key[1]], device))
+        return mle.eq_xy(spec, vp.ys[key[1]], device)
     if kind == "identity":
         return F.u32_to_mont(spec, torch.arange(n, device=device))
     if kind == "lagrange":
@@ -391,7 +391,7 @@ def prove(
         r = transcript.squeeze_challenge()
         challenges.append(r)
         current_sum = barycentric_interpolate(p, weights, points, evals, r)
-        tables = mle.fold_all(spec, tables, spec.encode([r], device)[0])
+        tables = mle.fold_all(spec, tables, r)
     n_polys = len(virtual_poly.polys)
     return challenges, spec.decode_ints(torch.cat([t[:1] for t in tables[:n_polys]]))
 
@@ -416,7 +416,6 @@ def prove_coeff_products(
     T = len(terms)
     tables = [t[1] for t in terms] + [t[2] for t in terms]
     scalars = [t[0] % p for t in terms]
-    device = tables[0].device
     challenges: List[int] = []
     current_sum = sum_ % p
     for _ in range(num_vars):
@@ -436,7 +435,7 @@ def prove_coeff_products(
         r = transcript.squeeze_challenge()
         challenges.append(r)
         current_sum = (c0 + c1 * r + c2 * r * r) % p
-        tables = mle.fold_all(spec, tables, spec.encode([r], device)[0])
+        tables = mle.fold_all(spec, tables, r)
     return challenges, tables[T:]
 
 

@@ -4,14 +4,16 @@ halo2_lasso_tpu/poly/multilinear.py).
 An MLE over k variables is an (2^k, 8) field tensor; hypercube index b has
 X_0 as its least-significant bit, as in the JAX package.
 
-Two kernels live here. ``fold_all`` is the port of make_fold_all
+Three kernels live here. ``fold_all`` is the port of make_fold_all
 (ops/pallas_field.py:293): one launch of csrc/fold.cu binds one variable of
-every table of a list (the sumcheck state). ``fix_var`` / ``fix_last_var``
-are the port of make_fix_var (ops/pallas_field.py:250): one launch of
-csrc/fix_var.cu binds one variable of one table (MLE evaluation, the KZG
-quotient chain, rotated evaluations). On a CUDA tensor each launches its
-kernel or raises; only CPU tensors take ``fold_all_plain`` /
-``fix_var_plain``.
+every table of a list (the sumcheck state), its pointers and an int
+challenge by value. ``fix_var`` / ``fix_last_var`` are the port of
+make_fix_var (ops/pallas_field.py:250): one launch of csrc/fix_var.cu binds
+one variable of one table (MLE evaluation, the KZG quotient chain, rotated
+evaluations). ``eq_xy`` writes the eq table in one launch of
+csrc/mont_chain.cu. On a CUDA tensor each launches its kernel or raises;
+only CPU tensors take ``fold_all_plain`` / ``fix_var_plain`` /
+``eq_xy_plain``.
 
 Rotations (halo2 ``Rotation`` over the bh cyclic order) are materialised by
 an index gather (``rotate_evals``) or evaluated at the 2^distance rotated
@@ -21,6 +23,7 @@ points (``evaluate_for_rotation``); the verifier's recombination
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence
 
 import torch
@@ -48,32 +51,46 @@ def fold_all_plain(
     return list(out.split(h))
 
 
-def fold_all(
-    spec: FieldSpec, tables: Sequence[torch.Tensor], x: torch.Tensor, last: bool = False
-) -> List[torch.Tensor]:
-    """Bind one variable of every (2h, 8) table to the challenge x (8,):
-    out = (hi - lo) * x + lo, with (lo, hi) = (t[2i], t[2i+1]) for the lowest
-    variable, or (t[i], t[i+h]) for the highest (``last``)."""
+FOLD_MAX_TABLES = 64  # csrc/fold.cu's tables a launch
+
+
+def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = False) -> List[torch.Tensor]:
+    """Bind one variable of every (2h, 8) table to the challenge x, a host
+    int or an (8,) tensor on the tables' device: out = (hi - lo) * x + lo,
+    with (lo, hi) = (t[2i], t[2i+1]) for the lowest variable, or (t[i],
+    t[i+h]) for the highest (``last``). On the card the table pointers and
+    an int challenge travel by value, one launch for up to FOLD_MAX_TABLES
+    tables."""
     tables = list(tables)
+    by_value = not isinstance(x, torch.Tensor)
     if tables[0].device.type == "cpu":
-        return fold_all_plain(spec, tables, x, last)
+        return fold_all_plain(spec, tables, spec.encode([x])[0] if by_value else x, last)
     if spec.kernel_id != 0:
         raise ValueError("fold_all: the kernel is compiled for Fr only")
     n = tables[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in tables) or n % 2:
         raise ValueError("fold_all: tables must share one even length")
-    native.require_cuda("fold_all", x, *tables)
+    native.require_cuda("fold_all", *tables, *([] if by_value else [x]))
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("fold_all: tables must start on a 16-byte boundary")
+    if by_value:
+        x_host, x_dev = spec.to_mont_int(int(x) % spec.modulus).to_bytes(32, "little"), None
+    elif x.shape != (F.LIMBS,):
+        raise ValueError("fold_all: the challenge must be one (8,) element")
+    else:
+        x_host, x_dev = None, x.data_ptr()
     h = n // 2
-    outs = [torch.empty((h, F.LIMBS), dtype=torch.int32, device=x.device) for _ in tables]
-    ins_p = native.pointer_table(tables, x.device)
-    outs_p = native.pointer_table(outs, x.device)
-    rc = native.lib().h2l_fold_all(
-        ins_p.data_ptr(), outs_p.data_ptr(), len(tables), h, h if last else 1,
-        x.data_ptr(), native.stream(),
-    )
-    native.check(rc, "fold_all")
-    native.counts["fold_all"] += 1
-    return outs
+    out = torch.empty((len(tables), h, F.LIMBS), dtype=torch.int32, device=tables[0].device)
+    for g in range(0, len(tables), FOLD_MAX_TABLES):
+        ins = tables[g : g + FOLD_MAX_TABLES]
+        ins_p = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+        rc = native.lib().h2l_fold_all(
+            ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS, len(ins), h, h if last else 1,
+            x_host, x_dev, native.stream(),
+        )
+        native.check(rc, "fold_all")
+        native.counts["fold_all"] += 1
+    return list(out.unbind(0))
 
 
 def fix_var_plain(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor, last: bool = False) -> torch.Tensor:
@@ -114,15 +131,47 @@ def fix_last_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch
     return _fix_var(spec, evals, x, last=True)
 
 
-def eq_xy(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
-    """eq(X, y) over 2^k points for y (k, 8); index bit i pairs with y_i
-    (doubling expansion from the last variable, multilinear.rs:91-127)."""
+def eq_xy_plain(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
     evals = spec.one(y.device)[None]
     for i in range(y.shape[0] - 1, -1, -1):
         hi = F.mont_mul(spec, evals, y[i])
         lo = F.sub(spec, evals, hi)
         evals = torch.stack([lo, hi], dim=1).reshape(-1, F.LIMBS)
     return evals
+
+
+MAX_EQ_VARS = 32  # csrc/mont_chain.cu's coordinates by value
+
+
+def eq_xy(spec: FieldSpec, y, device=None) -> torch.Tensor:
+    """eq(X, y) over 2^k points; index bit i pairs with y_i (the doubling
+    expansion from the last variable, multilinear.rs:91-127). ``y`` is a
+    (k, 8) tensor, or k host ints with the ``device`` to build on. Kernel:
+    csrc/mont_chain.cu, one launch; host ints travel by value, so nothing
+    is copied to the card."""
+    by_value = not isinstance(y, torch.Tensor)
+    if not by_value:
+        device = y.device
+    elif device is None:
+        raise ValueError("eq_xy: give the device for a point of host ints")
+    if torch.device(device).type == "cpu":
+        return eq_xy_plain(spec, spec.encode(list(y)) if by_value else y)
+    k = len(y)
+    if k > MAX_EQ_VARS:
+        raise ValueError(f"eq_xy: the kernel takes at most {MAX_EQ_VARS} variables")
+    if by_value:
+        y_host = b"".join(spec.to_mont_int(int(v) % spec.modulus).to_bytes(32, "little") for v in y) or None
+        y_dev = None
+    else:
+        if y.shape != (k, F.LIMBS):
+            raise ValueError("eq_xy: the point must be (k, 8)")
+        native.require_cuda("eq_xy", y)
+        y_host, y_dev = None, y.data_ptr()
+    out = torch.empty((1 << k, F.LIMBS), dtype=torch.int32, device=device)
+    rc = native.lib().h2l_eq_xy(spec.kernel_id, y_host, y_dev, k, out.data_ptr(), native.stream())
+    native.check(rc, "eq_xy")
+    native.counts["eq_xy"] += 1
+    return out
 
 
 def evaluate(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -138,10 +187,9 @@ def evaluate_stacked_ints(spec: FieldSpec, polys: Sequence[torch.Tensor], x: Seq
     ints, one fold launch per variable for all of them and one pull."""
     if not polys:
         return []
-    xd = spec.encode(list(x), polys[0].device)
     cur = list(polys)
-    for i in range(len(x)):
-        cur = fold_all(spec, cur, xd[i])
+    for xi in x:
+        cur = fold_all(spec, cur, int(xi))
     return spec.decode_ints(torch.cat(cur))
 
 

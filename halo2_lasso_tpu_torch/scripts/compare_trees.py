@@ -1,6 +1,6 @@
-"""Time the heaviest shapes of the round kernel and of the MSM for two
-checkouts of the port on one card, in turns, so that a change to either is
-compared with its parent in one run.
+"""Time the heaviest shapes of the round kernel, the MSM, the fold and the
+Montgomery chains for two checkouts of the port on one card, in turns, so
+that a change to any is compared with its parent in one run.
 
     python3 halo2_lasso_tpu_torch/scripts/compare_trees.py BASE [HEAD]
 
@@ -17,18 +17,30 @@ inputs drawn from fixed seeds, measures
     and in ``round_kernel``;
   - one variable-base MSM of 2^16 points (``msm_jacobian.msm``): host wall
     time per call, and per call the profiler's device time in all, in the
-    ``ec_add`` and ``msm_level`` kernels, and the device-to-host copies.
+    ``ec_add`` and ``msm_level`` kernels, and the device-to-host copies;
+  - ``fold_all`` of 6 tables of 2^16 (the batch open's first fold) with the
+    challenge as the tree's sumchecks pass it: CUDA events per call, the
+    profiler's device time in all and in ``fold_all_kernel``, and the
+    host-to-device copies per call;
+  - ``batch_inv`` of 2^17 rows (Fr) and ``eq_xy`` at k = 16 with the point
+    as the tree's callers pass it: CUDA events, host wall time (each call
+    followed by a synchronize) and the profiler's device time per call, and
+    the host-to-device copies.
 
+Trees from the one whose ``eq_xy`` takes a ``device`` on take the fold's
+challenge and the eq point as host ints; older trees take card tensors,
+encoded on the host and copied over in each call, as their callers did.
 The timing helpers are this file's tree's (``utils/bench.py``), whichever
 tree is measured. Each process prints one JSON line, with SHA-256 hashes of
-the round message and of the MSM's affine result; the script fails unless
-they agree across the trees. It needs a CUDA device.
+every output; the script fails unless they agree across the trees. It
+needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -38,7 +50,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEAD_ROOT = os.path.dirname(os.path.dirname(HERE))
 N = 1 << 16
-REPS_K1, REPS_MSM = 20, 3
+REPS_K1, REPS_MSM, REPS_CHAIN = 20, 3, 20
 
 
 def _bench():
@@ -62,6 +74,7 @@ def measure(root: str) -> dict:
     from halo2_lasso_tpu_torch.ops import native
     from halo2_lasso_tpu_torch.ops.bn254 import G1_GEN, Fq, Fr
     from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
 
     if not native.__file__.startswith(os.path.join(root, "")):
         raise SystemExit(f"imported {native.__file__}, not the package under {root}")
@@ -109,7 +122,40 @@ def measure(root: str) -> dict:
     dev = bench.device_ms(msm, REPS_MSM, ["ec_add_kernel", "msm_level_kernel"])
     out.update(msm_device_ms=dev["all"], msm_ec_add_ms=dev["ec_add_kernel"],
                msm_level_ms=dev["msm_level_kernel"], msm_dtoh=dev["DtoH"])
+
+    by_value = "device" in inspect.signature(mle.eq_xy).parameters
+    tabs = [rand_fr(N) for _ in range(6)]
+    r = Fr.decode_ints(rand_fr(1))[0]
+
+    def fold():
+        return mle.fold_all(Fr, tabs, r if by_value else Fr.encode([r], "cuda")[0])
+
+    out["fold_sha"] = digest(torch.cat(fold()))
+    out["fold_event_ms"] = bench.cuda_ms(fold, REPS_CHAIN)
+    dev = bench.device_ms(fold, REPS_CHAIN, ["fold_all_kernel"])
+    out.update(fold_device_ms=dev["all"], fold_kernel_ms=dev["fold_all_kernel"], fold_htod=dev["HtoD"])
+
+    inv_in = rand_fr(1 << 17)
+    y = Fr.decode_ints(rand_fr(16))
+    for name, fn in (
+        ("batch_inv", lambda: F.batch_inv(Fr, inv_in)),
+        ("eq_xy", lambda: mle.eq_xy(Fr, y, "cuda") if by_value else mle.eq_xy(Fr, Fr.encode(y, "cuda"))),
+    ):
+        out[f"{name}_sha"] = digest(fn())
+        out[f"{name}_event_ms"] = bench.cuda_ms(fn, REPS_CHAIN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS_CHAIN):
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS_CHAIN
+        dev = bench.device_ms(fn, REPS_CHAIN)
+        out.update({f"{name}_device_ms": dev["all"], f"{name}_htod": dev["HtoD"]})
     return out
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
 
 
 def main(argv) -> int:
@@ -129,7 +175,7 @@ def main(argv) -> int:
         rec = {"tree": tree, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(rec), flush=True)
         recs.append(rec)
-    for key in ("k1_sha", "msm_sha"):
+    for key in ("k1_sha", "msm_sha", "fold_sha", "batch_inv_sha", "eq_xy_sha"):
         if len({r[key] for r in recs}) != 1:
             raise SystemExit(f"the trees disagree on {key}")
     return 0

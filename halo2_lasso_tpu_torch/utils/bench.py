@@ -49,8 +49,8 @@ def device_ms(fn, reps: int, symbols=()) -> dict:
     """Per call over `reps` calls after one warm-up, from torch.profiler's
     device-side rows: "all", the device time of every kernel, copy and
     memset (the host's gaps between them excluded); each of `symbols` (a
-    kernel's __global__ name), its device time; "DtoH", the device-to-host
-    copies."""
+    kernel's __global__ name), its device time; "DtoH" and "HtoD", the
+    device-to-host and host-to-device copies."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -64,5 +64,6 @@ def device_ms(fn, reps: int, symbols=()) -> dict:
         raise RuntimeError("the profiler saw no device time")
     for sym in symbols:
         out[sym] = sum(e.self_device_time_total for e in kernel_rows(rows, sym)) / 1e3 / reps
-    out["DtoH"] = sum(e.count for e in rows if e.key.startswith("Memcpy DtoH")) / reps
+    for d in ("DtoH", "HtoD"):
+        out[d] = sum(e.count for e in rows if e.key.startswith(f"Memcpy {d}")) / reps
     return out

@@ -3,7 +3,8 @@
 csrc/field.cuh and csrc/ec.cuh build with g++ under FIELD_HOST_TEST, so the
 Montgomery product, add, sub, neg and the complete EC add that the kernels
 run can be held against the plain PyTorch versions on the CPU, bit for bit,
-without a GPU, and so is the fold of csrc/fix_var.cu. (The kernels' launch and reduction code runs only on the
+without a GPU, and so are the fold of csrc/fix_var.cu and the power and eq
+table entries of csrc/mont_chain.cu. (The kernels' launch and reduction code runs only on the
 card: tests/test_torch_kernels.py.)
 """
 
@@ -30,6 +31,7 @@ HARNESS = r"""
 #include <cstdlib>
 #include "ec.cuh"
 #include "fix_var.cu"
+#include "mont_chain.cu"
 #include "msm_level.cu"
 #include "sumcheck_round.cu"
 #include <vector>
@@ -122,6 +124,18 @@ int main() {
         case 7: round_sum<7>(p, stack); break;
         default: round_sum<8>(p, stack);
       }
+    } else if (op[0] == 'p') {  // p<field> nbits w0..w7 a: a^e
+      PowExp e;
+      e.nbits = (int)rdi();
+      for (int i = 0; i < 8; ++i) e.w[i] = (uint32_t)rdi();
+      Fe a = rd();
+      wr(op[1] == '1' ? fe_pow<Fq>(a, e) : fe_pow<Fr>(a, e));
+    } else if (op[0] == 'q') {  // q k y_0..y_{k-1}: the 2^k eq table, entry by entry
+      static EqParams p;
+      p.k = (int)rdi();
+      p.y_dev = nullptr;
+      for (int i = 0; i < p.k; ++i) p.y[i] = rd();
+      for (long long b = 0; b < (1ll << p.k); ++b) wr(eq_xy_elem<Fr>(p, b));
     } else if (op[0] == 'e') {
       Fe x1 = rd(), y1 = rd(), z1 = rd(), x2 = rd(), y2 = rd(), z2 = rd(), ox, oy, oz;
       ec_add_lane(x1, y1, z1, x2, y2, z2, ox, oy, oz);
@@ -287,3 +301,47 @@ def test_round_kernel_limits_match_wrapper():
     assert {k: int(v) for k, v in defines.items()} == {
         k: getattr(sc, k) for k in ("MAX_STACK", "MAX_DEGREE", "MAX_LEAVES", "MAX_OPS", "MAX_CONSTS")
     }
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+def test_pow_matches_plain(harness, spec):
+    """csrc/mont_chain.cu's per-row power (left-to-right square and
+    multiply, the exponent by value) against pow_fixed's plain loop, at
+    exponents 0, 1, 2, p - 2 and a random 254-bit one, on rows with 0, 1,
+    p - 1 and R mod p."""
+    rng = random.Random(9)
+    p = spec.modulus
+    a = spec.encode([0, 1, p - 1, spec.R] + [rng.randrange(p) for _ in range(4)])
+    for e in (0, 1, 2, p - 2, rng.getrandbits(254) | 1 << 253):
+        words, nbits = F._exponent(e)
+        head = f"p{spec.kernel_id} {nbits} " + " ".join(map(str, words.tolist()))
+        got = run(harness, [f"{head} {r}" for r in rows(a)])
+        assert np.array_equal(got, F.to_numpy_u32(F.pow_fixed_plain(spec, a, e))), e
+
+
+def test_eq_xy_elem_matches_plain(harness):
+    """csrc/mont_chain.cu's eq table entry (two 4-variable tables times the
+    product over the higher variables) at k = 5 and k = 0, against the
+    doubling, with 0, 1 and p - 1 among the coordinates."""
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    rng = random.Random(4)
+    p = Fr.modulus
+    for y in ([0, 1, p - 1] + [rng.randrange(p) for _ in range(2)], []):
+        ty = Fr.encode(y) if y else Fr.zeros(0)
+        got = run(harness, [" ".join([f"q {len(y)}"] + (rows(ty) if y else []))]).reshape(-1, 8)
+        assert np.array_equal(got, F.to_numpy_u32(mle.eq_xy_plain(Fr, ty)))
+
+
+def test_chain_and_fold_limits_match_wrappers():
+    """The limits compiled into csrc/mont_chain.cu and csrc/fold.cu are the
+    ones their wrappers use."""
+    import re
+
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    chain = dict(re.findall(r"#define (\w+) (\d+)", (CSRC / "mont_chain.cu").read_text()))
+    fold = dict(re.findall(r"#define (\w+) (\d+)", (CSRC / "fold.cu").read_text()))
+    tile = int(chain["SCAN_THREADS"]) * int(chain["SCAN_ITEMS"])
+    assert (int(chain["MAX_POW_WORDS"]), tile, int(chain["MAX_EQ_VARS"]), int(fold["FOLD_MAX_TABLES"])) == (
+        F.MAX_POW_WORDS, F.SCAN_TILE, mle.MAX_EQ_VARS, mle.FOLD_MAX_TABLES)

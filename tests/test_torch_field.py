@@ -80,6 +80,28 @@ def test_reductions_match_jax(op):
     assert np.array_equal(F.to_jax_limbs(got), np.asarray(getattr(JF, op)(JFr, ja)))
 
 
+@pytest.mark.parametrize("op", ["pow_fixed", "prefix_products", "prefix_products_reverse"])
+def test_chains_match_jax(op):
+    """The chains that csrc/mont_chain.cu runs in one launch each, through
+    their plain versions: pow_fixed (Fermat's exponent p - 2) against the
+    JAX package's, and the prefix products both ways against
+    jax.lax.associative_scan over its mont_mul (as its batch_inv scans)."""
+    import functools
+
+    import jax
+
+    a, _ = operands(Fr)
+    ja = jnp.asarray(JFr.encode(a))
+    ta = F.from_jax_limbs(np.asarray(ja))
+    if op == "pow_fixed":
+        got, want = F.pow_fixed(Fr, ta, Fr.modulus - 2), JF.pow_fixed(JFr, ja, Fr.modulus - 2)
+    else:
+        reverse = op.endswith("reverse")
+        got = F.prefix_products(Fr, ta, reverse=reverse)
+        want = jax.lax.associative_scan(functools.partial(JF.mont_mul, JFr), ja, reverse=reverse)
+    assert np.array_equal(F.to_jax_limbs(got), np.asarray(want))
+
+
 @pytest.mark.parametrize("last", [False, True], ids=["fix_var", "fix_last_var"])
 def test_fold_all_matches_jax(last):
     tables = [rand_ints(Fr.modulus, N) for _ in range(3)]
@@ -92,6 +114,8 @@ def test_fold_all_matches_jax(last):
         assert np.array_equal(F.to_jax_limbs(got), np.asarray(jfold(JFr, j, jx)))
     fold_one = mle.fix_last_var if last else mle.fix_var
     assert torch.equal(fold_one(Fr, tt[0], tx), mle.fold_all(Fr, tt, tx, last=last)[0])
+    x = Fr.decode_ints(tx[None])[0]  # the challenge as the sumchecks pass it, a host int
+    assert all(torch.equal(a, b) for a, b in zip(mle.fold_all(Fr, tt, x, last=last), mle.fold_all(Fr, tt, tx, last=last)))
 
 
 @pytest.mark.parametrize("last", [False, True], ids=["fix_var", "fix_last_var"])
@@ -134,9 +158,11 @@ def test_layout_products_match_jax():
 
 
 def test_eq_xy_matches_jax():
-    jy = jnp.asarray(JFr.encode(rand_ints(Fr.modulus, 6)))
+    y = rand_ints(Fr.modulus, 6)
+    jy = jnp.asarray(JFr.encode(y))
     eq = mle.eq_xy(Fr, F.from_jax_limbs(np.asarray(jy)))
     assert np.array_equal(F.to_jax_limbs(eq), np.asarray(jmle.eq_xy(JFr, jy)))
+    assert torch.equal(mle.eq_xy(Fr, y, "cpu"), eq)  # the point as host ints
 
 
 def test_evaluate_matches_jax():

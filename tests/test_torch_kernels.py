@@ -78,13 +78,79 @@ def test_layout_kernels_match_plain_and_mont_mul(cuda, size):
     assert torch.equal(got.reshape(8, size), want) and torch.equal(got, layout_bench.mont_mul_tiled_plain(a_t, b_t))
 
 
-def test_fold_all_kernel_matches_plain(cuda):
-    tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 10), cuda) for _ in range(5)]
-    x = Fr.encode(rand_ints(Fr.modulus, 1), cuda)[0]
+def no_sync(fn):
+    return chip_smoke.no_sync(torch, fn)
+
+
+def launches(fn, *names):
+    """(fn(), the launches it made of each kernel named)."""
+    before = {k: native.counts[k] for k in names}
+    out = fn()
+    return out, tuple(native.counts[k] - before[k] for k in names)
+
+
+@pytest.mark.parametrize("ntables", [1, 37, 64, 65])
+def test_fold_all_kernel_matches_plain(cuda, ntables):
+    """Both pair strides, the challenge as a host int (no sync, no copy) and
+    as a card tensor; one launch up to 64 tables, two beyond."""
+    tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 6), cuda) for _ in range(ntables)]
+    xv = rand_ints(Fr.modulus, 1)[0]
+    x = Fr.encode([xv], cuda)[0]
+    groups = -(-ntables // mle.FOLD_MAX_TABLES)
     for last in (False, True):
-        got = mle.fold_all(Fr, tables, x, last=last)
         want = mle.fold_all_plain(Fr, tables, x, last=last)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got, n = launches(lambda: no_sync(lambda: mle.fold_all(Fr, tables, xv, last=last)), "fold_all")
+        assert n == (groups,) and all(torch.equal(g, w) for g, w in zip(got, want))
+        got, n = launches(lambda: mle.fold_all(Fr, tables, x, last=last), "fold_all")
+        assert n == (groups,) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+def test_mont_pow_kernel_matches_plain(cuda, spec):
+    """Exponents 0, 1, 2, p - 2 and a random 254-bit one on one row and on
+    304 rows with 0, 1, p - 1 and R mod p: one launch each."""
+    p = spec.modulus
+    rows = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, 300), cuda)
+    for a in (rows[3:4], rows):
+        for e in (0, 1, 2, p - 2, int.from_bytes(RNG.bytes(32), "little") % (1 << 254) | 1 << 253):
+            got, n = launches(lambda: F.pow_fixed(spec, a, e), "mont_pow")
+            assert n == (1,) and torch.equal(got, F.pow_fixed_plain(spec, a, e)), e
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1024, 1025, (1 << 17) + 3])
+def test_prefix_products_kernel_matches_plain(cuda, n):
+    """Both directions; 1 launch up to one tile (1024 rows), else 3."""
+    x = Fr.encode([0, 1, Fr.modulus - 1, Fr.R] + rand_ints(Fr.modulus, n), cuda)[:n].contiguous()
+    for reverse in (False, True):
+        got, k = launches(lambda: no_sync(lambda: F.prefix_products(Fr, x, reverse)), "prefix_products")
+        assert k == ((1 if n <= F.SCAN_TILE else 3),)
+        assert torch.equal(got, F.prefix_products_plain(Fr, x, reverse))
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 257, 1025, (1 << 17) + 3])
+def test_batch_inv_kernel_matches_plain(cuda, spec, n):
+    """Zero rows stay zero; the scan's phases and one mont_pow, a fixed
+    number of launches whatever n is, and no host sync or copy."""
+    p = spec.modulus
+    a = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, n), cuda)[:n].contiguous()
+    a[7::11] = 0
+    got, k = launches(lambda: no_sync(lambda: F.batch_inv(spec, a)), "prefix_products", "mont_pow")
+    assert k == ((2 if n <= F.SCAN_TILE else 3), 1)
+    assert torch.equal(got, F.batch_inv_plain(spec, a))
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 9, 16])
+def test_eq_xy_kernel_matches_plain(cuda, k):
+    """One launch, the point as host ints (no sync, no copy) or on the card,
+    with 0, 1 and p - 1 among the coordinates."""
+    y = ([0, 1, Fr.modulus - 1] + rand_ints(Fr.modulus, k))[:k]
+    ty = Fr.encode(y, cuda) if k else Fr.zeros(0, cuda)
+    want = mle.eq_xy_plain(Fr, ty)
+    got, n = launches(lambda: no_sync(lambda: mle.eq_xy(Fr, y, cuda)), "eq_xy")
+    assert n == (1,) and torch.equal(got, want)
+    got, n = launches(lambda: mle.eq_xy(Fr, ty), "eq_xy")
+    assert n == (1,) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("size", [1 << 12, 2 * 1037], ids=["pow2", "ragged"])
@@ -129,12 +195,7 @@ def test_round_kernel_matches_plain(cuda, expr, n_polys, pairs):
     tables = [Fr.encode(rand_ints(Fr.modulus, 2 * pairs), cuda) for _ in keys]
     chals = Fr.encode(rand_ints(Fr.modulus, 1), cuda) if expr.used_challenge else None
     before = native.counts["sumcheck_round"]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = sc.round_message(Fr, tables, prog, chals, expr.degree)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    got = no_sync(lambda: sc.round_message(Fr, tables, prog, chals, expr.degree))
     assert native.counts["sumcheck_round"] == before + 1
     assert torch.equal(got, sc.round_message_plain(Fr, tables, prog, chals, expr.degree))
 
@@ -179,12 +240,7 @@ def test_msm_on_card_matches_cpu(cuda, n):
     assert on_card == ec.msm_to_affine_int(pts, scal)
     card_pts, card_scal = {k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda)
     before = native.counts["msm_level"]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        MJ.msm_planes(card_pts, card_scal)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    no_sync(lambda: MJ.msm_planes(card_pts, card_scal))
     assert native.counts["msm_level"] == before + n.bit_length()
 
 
