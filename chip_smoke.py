@@ -8,7 +8,15 @@ Phases, each printing one line with its wall time:
   2. build: one nvcc call for every kernel source (csrc/*.cu), and the
      registers, shared memory and spills of each kernel;
   3. kernels: every kernel against its plain PyTorch version on the card,
-     bit for bit, then timed at a shape of a main path: sumcheck_round at
+     bit for bit, then timed at a shape of a main path: K4's elementwise
+     kernel (every op code at Fr and Fq, n = 1, 257, 1037, 2^16, full,
+     strided, broadcast and by-value operands; timed at 2^16 for mul,
+     mul_add, add, sub and neg), its row sum sum_reduce (n = 1, 257,
+     2^15 + 3, batched over 2 x 6 columns and the coefficient prover's
+     transposed view; timed at 2^16 and at that view), K5's fix_var chain
+     (k = 0, 1, 5, 12, 13, 16, both directions, with and without quotients,
+     Fr and Fq; timed at k = 16 as a KZG open's quotient chain and as an
+     evaluation), each of them one launch with no host sync; sumcheck_round at
      the Lasso-in-HyperPlonk zero check's first round (37 leaves, degree 3,
      2^16) and the Lasso primary sumcheck's, msm_level over every level of
      a 2^16 MSM (17 launches, no host sync; the profiler's device time),
@@ -52,8 +60,12 @@ Phases, each printing one line with its wall time:
      2^16, 2^20 and 2^22, and timed.
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, and 10) and read just after it; each path must
-launch every kernel it names in PATH_KERNELS, and the K4 family's launches
-(K4 and the mont_chain entries) are printed by path.
+launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
+its row sum and the mont_chain entries) and K5's are printed by path, and a
+proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
+tensor fails the run. The profiled HyperPlonk proves also count their host
+syncs by the port function that made them (a third prove, under
+torch.cuda.set_sync_debug_mode("warn")).
 
 The last lines are a JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -87,7 +99,7 @@ LASSO_PLONK = {
     "circuit": "rand_lasso_circuit", "num_vars": 16, "seeds": (16, 516), "setup_seed": 0,
     "kwargs": {"operand_bits": 32, "chunk_bits": 8, "range_bits": 16},
 }
-PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy")
+PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy", "sum_reduce")
 # the HyperPlonk paths' batch inversions and permutation scan
 HYPERPLONK_KERNELS = PROOF_KERNELS + ("mont_pow", "prefix_products")
 PATH_KERNELS = {
@@ -97,8 +109,9 @@ PATH_KERNELS = {
     "lasso_hyperplonk": HYPERPLONK_KERNELS,
     "layout": ("mont_mul", "mont_mul_limbs_first", "mont_mul_tiled"),
 }
-# K4 and the entries that replaced its caller loops (csrc/mont_chain.cu)
-K4_FAMILY = ("mont_mul", "mont_pow", "prefix_products", "eq_xy")
+# K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
+# entries that replaced its caller loops (csrc/mont_chain.cu)
+K4_FAMILY = ("mont_mul", "sum_reduce", "mont_pow", "prefix_products", "eq_xy")
 
 
 def stage(name, t0, msg=""):
@@ -140,7 +153,10 @@ def main() -> int:
     stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
     print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
     by_name = {k["name"]: k for k in kernels}
-    print(f"fix_var vs fold_all on one table: {by_name['fix_var']['k2_one_table_ms']:.4f}ms", flush=True)
+    for name in ("mont_mul", "sum_reduce", "fix_var"):
+        for shape, r in by_name[name]["timed"].items():
+            print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r['device_ms']:.4f}ms (bound "
+                  f"{r['bound_ms']:.5f}ms, {r['bound_by']}; plain {r['plain_ms']:.3f}ms)", flush=True)
     k1, k3, lv = by_name["sumcheck_round"], by_name["ec_add"], by_name["msm_level"]
     print(f"sumcheck_round: {k1['shape']}: {k1['ms']:.4f}ms, device {k1['device_ms']:.4f}ms "
           f"(bound {k1['bound_ms']:.4f}ms, {k1['bound_by']}); "
@@ -203,6 +219,8 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     print("K4 family launches by path: " + json.dumps(
         {path: sum(counts[k] for k in K4_FAMILY) for path, counts in launches.items()}), flush=True)
+    print("K5 (fix_var chain) launches by path: " + json.dumps(
+        {path: counts["fix_var"] for path, counts in launches.items()}), flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -223,15 +241,21 @@ def proof_gate(np, prove_fn, cfg, want_sha, name, label):
 
 
 def run_path(launches, path, name, label, run):
-    """One main path: launch counts reset just before `run` (which returns
-    the proof and its stage records) and kept in `launches[path]` just after."""
+    """One main path: launch counts and the plain carry passes run on the
+    card reset just before `run` (which returns the proof and its stage
+    records) and read just after: the counts kept in `launches[path]`, and
+    any carry pass on the card a failure."""
+    from halo2_lasso_tpu_torch.ops import field as F
     from halo2_lasso_tpu_torch.ops import native
 
     t0 = time.perf_counter()
     native.reset_counts()
+    F.norm_on_card = 0
     proof, records = run()
     launches[path] = dict(native.counts)
-    stage(name, t0, f"{label}: {len(proof)} bytes, verified, tamper rejected")
+    if F.norm_on_card:
+        raise SystemExit(f"the {path} path ran the plain carry pass on the card {F.norm_on_card} times")
+    stage(name, t0, f"{label}: {len(proof)} bytes, verified, tamper rejected, no plain carry pass on the card")
     print_stages(records)
 
 
@@ -243,6 +267,39 @@ def run_hyperplonk_path(torch, np, launches, path, name, label, cfg):
     print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
     prof = profile_prove(torch, extra["pp"], extra["circuit"])
     print("  second prove under torch.profiler: " + json.dumps(prof), flush=True)
+    sites = sync_sites(torch, extra["pp"], extra["circuit"])
+    print(f"  third prove, host syncs by site ({sum(sites.values())}): " + json.dumps(sites), flush=True)
+
+
+def sync_sites(torch, pp, circuit):
+    """One more prove with every host sync counted by the innermost port
+    function outside ops/field.py that made it (the syncs' kinds: round
+    messages, MSM results, witness reads)."""
+    import collections
+    import traceback
+    import warnings
+
+    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
+
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "halo2_lasso_tpu_torch", "")
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        frames = [fr for fr in traceback.extract_stack()[:-1] if fr.filename.startswith(pkg)]
+        site = next((fr for fr in reversed(frames) if not fr.filename.endswith(os.path.join("ops", "field.py"))),
+                    frames[-1] if frames else None)
+        sites["outside the package" if site is None else f"{os.path.relpath(site.filename, pkg)}:{site.name}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            HyperPlonk.prove(pp, circuit, new_transcript())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sites.most_common())
 
 
 def profile_prove(torch, pp, circuit):
@@ -253,18 +310,23 @@ def profile_prove(torch, pp, circuit):
     from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
     from halo2_lasso_tpu_torch.ops import native
 
+    from halo2_lasso_tpu_torch.utils.bench import PROFILER_SESSIONS
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        HyperPlonk.prove(pp, circuit, new_transcript())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only (kernels, copies, memsets): one stream, so their
-    # sum is the time the card was busy
-    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    if busy_ms <= 0:
+    for _ in range(PROFILER_SESSIONS):  # as utils/bench.py's device_ms, a session that saw nothing is repeated
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            HyperPlonk.prove(pp, circuit, new_transcript())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side rows only (kernels, copies, memsets): one stream, so
+        # their sum is the time the card was busy
+        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        if busy_ms > 0:
+            break
+    else:
         raise SystemExit("the profiler saw no device time in the prove")
     hand, other = {k: [0.0, 0] for k in native.KERNELS}, []
     for e in dev:
@@ -445,18 +507,73 @@ def check_kernels(torch, np, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
 
-    # K4 mont_mul, Fr and Fq, 2^16 elements (the witness encodes) with
-    # 0, 1, p-1, R mod p among the inputs
+    def timing(fn, plain_fn, symbols, bytes_moved, imads):
+        """Events, device time, bound and plain time of fn at one shape; fn
+        must make no host sync."""
+        no_sync(torch, fn)
+        b_ms, b_by = bound_ms(bytes_moved, imads)
+        dev_ms = device_ms(fn, 20, symbols)
+        return {"ms": cuda_ms(fn, 20), "device_ms": sum(dev_ms[s] for s in symbols), "bound_ms": b_ms,
+                "bound_by": b_by, "plain_ms": cuda_ms(plain_fn, 2)}
+
+    # K4, csrc/mont_mul.cu's elementwise kernel: every op code in Fr and Fq
+    # at n = 1, 257, 1037 and 2^16 over the operands of ew_cases (full,
+    # strided, broadcast, by value), with 0, 1, p - 1 and R mod p among the
+    # rows, against the plain versions (their carry pass on the card), each
+    # launch with no host sync; timed at 2^16 in Fr: the product (the
+    # witness encodes) and mul_add (b by value), add, sub and neg as the
+    # rewired sites run them
     n = 1 << 16
     err = 0
     for spec in (Fq, Fr):
         p = spec.modulus
-        a = rand_field(spec, n, [0, 1, p - 1, spec.R])
-        b = rand_field(spec, n, [p - 1, spec.R, p - 1, 1])
-        kernel_fn, plain_fn = (lambda: [F.mont_mul(spec, a, b)]), (lambda: [F.mont_mul_plain(spec, a, b)])
-        err = max(err, same("mont_mul", kernel_fn, plain_fn))
+        for size in (1, 257, 1037, n):
+            t = rand_field(spec, 4 * size, [0, 1, p - 1, spec.R][: 4 * size])
+            for a, b, c in ew_cases(t, spec.decode_ints(rand_field(spec, 1))[0], p - 1):
+                for op in range(6):
+                    args = [a, b, c][: F._EW_ARGS[op]]
+                    vals = [v if isinstance(v, torch.Tensor) else spec.encode([v], dev)[0] for v in args]
+                    err = max(err, same("mont_mul", lambda: [no_sync(torch, lambda: F._ew(spec, op, *args))],
+                                        lambda: [F._ew_plain(spec, op, *vals).expand(a.shape)]))
+    a, b, c = (rand_field(Fr, n) for _ in range(3))
+    xv = Fr.decode_ints(rand_field(Fr, 1))[0]
+    xe = Fr.encode([xv], dev)[0]
     record("mont_mul", "halo2_lasso_tpu_torch/csrc/mont_mul.cu", "halo2_lasso_tpu/ops/pallas_field.py:225",
-           kernel_fn, plain_fn, 96 * n, n * IMAD_PER_MONT_MUL, err)
+           lambda: [F.mont_mul(Fr, a, b)], lambda: [F.mont_mul_plain(Fr, a, b)], 96 * n, n * IMAD_PER_MONT_MUL, err)
+    sym = ["mont_mul_kernel"]
+    results["mont_mul"]["timed"] = {
+        "mul 2^16": timing(lambda: F.mont_mul(Fr, a, b), lambda: F.mont_mul_plain(Fr, a, b), sym, 96 * n,
+                           n * IMAD_PER_MONT_MUL),
+        "mul_add 2^16, b by value": timing(lambda: F.mul_add(Fr, a, xv, c),
+                                           lambda: F.add_plain(Fr, F.mont_mul_plain(Fr, a, xe), c), sym, 96 * n,
+                                           n * IMAD_PER_MONT_MUL),
+        "add 2^16": timing(lambda: F.add(Fr, a, b), lambda: F.add_plain(Fr, a, b), sym, 96 * n, 0),
+        "sub 2^16": timing(lambda: F.sub(Fr, a, b), lambda: F.sub_plain(Fr, a, b), sym, 96 * n, 0),
+        "neg 2^16": timing(lambda: F.neg(Fr, a), lambda: F.neg_plain(Fr, a), sym, 64 * n, 0),
+    }
+
+    # K4's row sum: n = 1, 257 and 2^15 + 3 rows, a batch of 2 x 6 columns
+    # and the coefficient prover's transposed (h, 2T) view, Fr and Fq, one
+    # launch with no host sync; timed at 2^16 rows and at the batch open's
+    # first round (6 columns of 2^15, transposed)
+    err = 0
+    for spec in (Fr, Fq):
+        for size in (1, 257, (1 << 15) + 3):
+            t = rand_field(spec, 12 * size, [spec.modulus - 1] * 3)
+            for x in (t[:size], t.view(size, 2, 6, 8), t.view(12, size, 8).transpose(0, 1)):
+                err = max(err, same("sum_reduce", lambda: [no_sync(torch, lambda: F.sum_reduce(spec, x))],
+                                    lambda: [F.sum_reduce_plain(spec, x)]))
+    record("sum_reduce", "halo2_lasso_tpu_torch/csrc/mont_mul.cu",
+           "halo2_lasso_tpu/ops/field.py:477 over halo2_lasso_tpu/ops/pallas_field.py:225",
+           lambda: [F.sum_reduce(Fr, a)], lambda: [F.sum_reduce_plain(Fr, a)], 32 * n + 32, 0, err)
+    cols = rand_field(Fr, 6 * (n // 2)).view(6, n // 2, 8).transpose(0, 1)
+    sym = ["sum_reduce_kernel"]
+    results["sum_reduce"]["timed"] = {
+        "2^16 rows": timing(lambda: F.sum_reduce(Fr, a), lambda: F.sum_reduce_plain(Fr, a), sym, 32 * n + 32, 0),
+        "6 columns of 2^15, transposed": timing(lambda: F.sum_reduce(Fr, cols), lambda: F.sum_reduce_plain(Fr, cols),
+                                                sym, 6 * 32 * (n // 2) + 6 * 32, 0),
+    }
+    print("K4's op codes and row sum: bit-exact in Fr and Fq, one launch each, no host sync", flush=True)
 
     # K2 fold_all: 1, 37, 64 and 65 tables of 2^10 (two launches beyond
     # 64), both strides, the challenge as a host int and as a card tensor;
@@ -663,12 +780,29 @@ def check_kernels(torch, np, dev):
     if planes["x"].shape[0] != c * W:
         raise SystemExit("msm_planes returned the wrong number of plane sums")
 
-    # K5 fix_var: a table of 2^16 with 0, 1, p-1, R mod p among its entries
-    # and the challenge, both pair strides, and a ragged half-length; timed
-    # at the first fold of a KZG open at nv = 16 (fix_last_var on 2^16),
-    # beside fold_all (K2) called with that one table, which it replaces
+    # K5, csrc/fix_var.cu's chain: k = 0, 1, 5, 12, 13 and 16, both
+    # directions, with and without quotients, Fr and Fq, the point as host
+    # ints and on the card, with 0, 1 and p - 1 among its coordinates and 0,
+    # 1, p - 1, R mod p among the rows; each one launch with no host sync;
+    # the one-variable case (fix_var / fix_last_var) at 2^16 and 2 * 1037
+    # rows with the challenge's edge values. Timed at k = 16: a KZG open's
+    # quotient chain (highest first, the quotients written) and an
+    # evaluation (lowest first); the bound counts 2^k - 1 products and the
+    # rows read and written once
     p = Fr.modulus
     err = 0
+    for spec in (Fr, Fq):
+        q = spec.modulus
+        for k in (0, 1, 5, 12, 13, 16):
+            tab = rand_field(spec, 1 << k, [0, 1, q - 1, spec.R][: 1 << k])
+            y = ([0, 1, q - 1] + spec.decode_ints(rand_field(spec, k)))[:k]
+            ty = spec.encode(y, dev) if k else spec.zeros(0, dev)
+            for last in (False, True):
+                for quot in (False, True):
+                    for point in (y, ty):
+                        err = max(err, same("fix_var", lambda: no_sync(torch, lambda: [
+                            t for t in mle.fix_var_chain(spec, tab, point, last, quot) if t is not None]),
+                            lambda: [t for t in mle.fix_var_chain_plain(spec, tab, ty, last, quot) if t is not None]))
     for size in (n, 2 * 1037):
         tab = rand_field(Fr, size, [0, 1, p - 1, Fr.R, p - 1, 0, 1, p - 1])
         for xv in ([0], [1], [p - 1], [Fr.R], []):
@@ -678,10 +812,21 @@ def check_kernels(torch, np, dev):
                 err = max(err, same("fix_var", lambda: [fold(Fr, tab, x)],
                                     lambda: [mle.fix_var_plain(Fr, tab, x, last)]))
     tab = rand_field(Fr, n)
+    y = Fr.decode_ints(rand_field(Fr, 16))
+    ty = Fr.encode(y, dev)
     record("fix_var", "halo2_lasso_tpu_torch/csrc/fix_var.cu", "halo2_lasso_tpu/ops/pallas_field.py:250",
-           lambda: [mle.fix_last_var(Fr, tab, x)], lambda: [mle.fix_var_plain(Fr, tab, x, True)],
-           n * 32 + (n // 2) * 32, (n // 2) * IMAD_PER_MONT_MUL, err)
-    results["fix_var"]["k2_one_table_ms"] = cuda_ms(lambda: mle.fold_all(Fr, [tab], x, last=True), 20)
+           lambda: list(mle.fix_var_chain(Fr, tab, y, True, True)),
+           lambda: list(mle.fix_var_chain_plain(Fr, tab, ty, True, True)),
+           32 * (2 * n), (n - 1) * IMAD_PER_MONT_MUL, err)
+    sym = ["fix_var_kernel"]
+    results["fix_var"]["timed"] = {
+        "k = 16 KZG quotient chain": timing(lambda: mle.fix_var_chain(Fr, tab, y, True, True),
+                                            lambda: mle.fix_var_chain_plain(Fr, tab, ty, True, True), sym,
+                                            32 * (2 * n), (n - 1) * IMAD_PER_MONT_MUL),
+        "k = 16 evaluation": timing(lambda: mle.evaluate(Fr, tab, y), lambda: mle.fix_var_chain_plain(Fr, tab, ty, False),
+                                    sym, 32 * (n + 1), (n - 1) * IMAD_PER_MONT_MUL),
+    }
+    print("K5's chain: bit-exact in Fr and Fq, both directions, with quotients, one launch, no host sync", flush=True)
 
     # K1 on the HyperPlonk zero check: the composed expression of the
     # nv = 16 with-lookup circuit (23 leaf tables, degree 5) at 2^14
@@ -757,6 +902,23 @@ def check_kernels(torch, np, dev):
            lambda: [LB.mont_mul_tiled_plain(a_t, b_t)], 96 * big, big * IMAD_PER_MONT_MUL,
            errs["mont_mul_tiled"])
     return [results[k] for k in native.KERNELS]
+
+
+def ew_cases(t, x, y):
+    """(a, b, c) operand triples for csrc/mont_mul.cu over t, 4n rows on the
+    card, and host ints x and y: full rows, a table's odd and even rows
+    (pair stride 2) with one broadcast row, b or c by value, and a 2-D grid
+    of halves of two stacked tables."""
+    n = t.shape[0] // 4
+    one = t[5 % (4 * n)]
+    st = t.view(2, 2 * n, 8)
+    return [
+        (t[:n], t[n : 2 * n], t[2 * n : 3 * n]),
+        (t[1 : 2 * n : 2], t[0 : 2 * n : 2], one),
+        (t[:n], x, t[3 * n :]),
+        (t[n : 2 * n], one, y),
+        (st[:, 1::2], st[:, 0::2], st[:, :n]),
+    ]
 
 
 def no_sync(torch, fn):

@@ -74,16 +74,14 @@ def lookup_compressed_polys(
     n = polys[0].shape[0]
     leaf = hypercube_leaves(spec, n.bit_length() - 1, polys)
     chal = list(spec.encode(list(challenges), device)) if challenges else []
-    betas_dev = spec.encode(list(betas), device)
     out = []
     for lookup in lookups:
         pair = []
         for exprs in ([inp for inp, _ in lookup], [tbl for _, tbl in lookup]):
             acc = None
-            for beta_d, e in zip(betas_dev, exprs):
-                v = evaluate_torch(spec, e, leaf, chal, device)
-                term = F.mont_mul(spec, v.expand(n, F.LIMBS).contiguous(), beta_d)
-                acc = term if acc is None else F.add(spec, acc, term)
+            for beta, e in zip(betas, exprs):
+                v = evaluate_torch(spec, e, leaf, chal, device)  # (n, 8), or (8,) for a constant
+                acc = F.mont_mul(spec, v.expand(n, F.LIMBS), beta) if acc is None else F.mul_add(spec, v, beta, acc)
             pair.append(acc)
         out.append((pair[0], pair[1]))
     return out
@@ -132,8 +130,7 @@ def lookup_h_polys(
     out = []
     for (inp, tbl), m in zip(compressed, m_polys):
         n = inp.shape[0]
-        g = spec.encode([gamma], inp.device)[0]
-        inv = F.batch_inv(spec, torch.cat([F.add(spec, inp, g), F.add(spec, tbl, g)]))
+        inv = F.batch_inv(spec, F.add(spec, torch.cat([inp, tbl]), gamma))
         h = F.sub(spec, inv[:n], F.mont_mul(spec, inv[n:], m))
         out.append(h)
         if sanity_enabled():  # prover.rs:245-247 (`sanity-check`): sum h == 0
@@ -161,7 +158,7 @@ def permutation_z_polys(
     n = polys[0].shape[0]
     num_vars = n.bit_length() - 1
     chunk_size = -(-len(permutation_polys) // num_chunks)
-    beta_d, gamma_d = spec.encode([beta, gamma], device)
+    p = spec.modulus
     idx = F.u32_to_mont(spec, torch.arange(n, device=device))
 
     products = []
@@ -170,11 +167,12 @@ def permutation_z_polys(
         numer = denom = None
         for poly_idx, perm_poly in permutation_polys[c * chunk_size : (c + 1) * chunk_size]:
             val = polys[poly_idx]
-            d = F.add(spec, F.add(spec, val, F.mont_mul(spec, perm_poly, beta_d)), gamma_d)
+            # val + beta * perm + gamma, and val + beta * (idx + id_off) + gamma
+            # with the id offset's beta * id_off folded into the host scalar
+            d = F.add(spec, F.mul_add(spec, perm_poly, beta, val), gamma)
             denom = d if denom is None else F.mont_mul(spec, denom, d)
-            id_off = spec.encode([global_idx << num_vars], device)[0]
-            id_vals = F.add(spec, idx, id_off)
-            nmr = F.add(spec, F.add(spec, val, F.mont_mul(spec, id_vals, beta_d)), gamma_d)
+            id_gamma = (gamma + beta * (global_idx << num_vars)) % p
+            nmr = F.add(spec, F.mul_add(spec, idx, beta, val), id_gamma)
             numer = nmr if numer is None else F.mont_mul(spec, numer, nmr)
             global_idx += 1
         products.append(F.mont_mul(spec, numer, F.batch_inv(spec, denom)))

@@ -79,6 +79,19 @@ FD Fe fe_load16(const uint32_t* base, long long idx) {
 #endif
 }
 
+#ifndef FIELD_HOST_TEST
+// A load through L2 only, for rows that other blocks of the same launch
+// wrote (read after an atomic ticket): no stale L1 line.
+__device__ __forceinline__ Fe fe_load_cg(const uint32_t* base, long long idx) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = __ldcg(base + idx * 8 + j);
+  return r;
+}
+#else
+inline Fe fe_load_cg(const uint32_t* base, long long idx) { return fe_load(base, idx); }
+#endif
+
 FD void fe_store(uint32_t* base, long long idx, const Fe& a) {
   uint32_t* d = base + idx * 8;
 #pragma unroll

@@ -142,13 +142,6 @@ __device__ void block_sum(uint32_t* smem, const Stack<D>& st) {
   }
 }
 
-__device__ __forceinline__ Fe fe_load_cg(const uint32_t* base, long long idx) {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r.v[j] = __ldcg(base + idx * 8 + j);
-  return r;
-}
-
 template <int D>
 __global__ void __launch_bounds__(256)
 round_kernel(const __grid_constant__ RoundParams p, uint32_t* partials, unsigned int* ticket,

@@ -314,21 +314,28 @@ def evaluate_torch(
 
     `leaf_fn(kind, arg)` returns an (n, 8) tensor for 'identity' /
     ('lagrange', i) / ('eq_xy', idx) / Query leaves. Challenges are (8,)
-    Montgomery rows. Constants/scalars are encoded on the fly."""
+    Montgomery rows. Constants and scalars stay host ints, by value in the
+    field kernels, until a constant is the whole result."""
+    p = spec.modulus
 
-    def const(v):
-        return spec.encode([v % spec.modulus], device)[0]
+    def binary(op, fold):
+        def fn(a, b):
+            if isinstance(a, int) and isinstance(b, int):
+                return fold(a, b) % p
+            return op(spec, b, a) if isinstance(a, int) else op(spec, a, b)
+        return fn
 
-    return expr.evaluate(
-        lambda v: const(v),
+    out = expr.evaluate(
+        lambda v: v % p,
         lambda e: leaf_fn(e.kind, e.args[0] if e.args else None),
         lambda q: leaf_fn("poly", q),
         lambda c: challenges[c],
-        lambda a: F.neg(spec, a),
-        lambda a, b: F.add(spec, a, b),
-        lambda a, b: F.mont_mul(spec, a, b),
-        lambda a, s: F.mont_mul(spec, a, const(s)),
+        lambda a: (-a) % p if isinstance(a, int) else F.neg(spec, a),
+        binary(F.add, lambda a, b: a + b),
+        binary(F.mont_mul, lambda a, b: a * b),
+        binary(F.mont_mul, lambda a, s: a * s),
     )
+    return spec.encode([out], device)[0] if isinstance(out, int) else out
 
 
 def hypercube_leaves(spec: FieldSpec, num_vars: int, polys: Sequence[torch.Tensor]):

@@ -133,13 +133,26 @@ def _subtable_dev(subtable: Subtable, device: str) -> torch.Tensor:
     return Fr.encode(subtable.values(), device)
 
 
-def _fingerprint(addr, val, ts, gamma: int, tau: int) -> torch.Tensor:
-    """h = ts*gamma^2 + val*gamma + addr - tau over field tensors."""
-    g1, g2, t = Fr.encode([gamma, gamma * gamma % P, tau], addr.device)
-    acc = F.mont_mul(Fr, ts, g2)
-    acc = F.add(Fr, acc, F.mont_mul(Fr, val, g1))
-    acc = F.add(Fr, acc, addr)
-    return F.sub(Fr, acc, t)
+def _fingerprint(addr_tau, val, ts, gamma: int) -> torch.Tensor:
+    """h = ts*gamma^2 + val*gamma + addr - tau over field tensors, given
+    addr_tau = addr - tau (ts None for 0): one product kernel launch a
+    term, gamma by value."""
+    acc = F.mul_add(Fr, val, gamma, addr_tau)
+    return acc if ts is None else F.mul_add(Fr, ts, gamma * gamma % P, acc)
+
+
+def _read_write_fingerprints(addr_tau, val, ts, gamma: int):
+    """A memory's read fingerprint (timestamps ts) and write fingerprint
+    (ts + 1: the read's plus gamma^2); three launches."""
+    rs = _fingerprint(addr_tau, val, ts, gamma)
+    return rs, F.add(Fr, rs, gamma * gamma % P)
+
+
+def _init_final_fingerprints(addr_tau, tvals, final_cts, gamma: int):
+    """A subtable's init fingerprint (timestamps 0) and final one (the final
+    counts: init plus final_cts * gamma^2); two launches."""
+    init = _fingerprint(addr_tau, tvals, None, gamma)
+    return init, F.mul_add(Fr, final_cts, gamma * gamma % P, init)
 
 
 @timed("lasso_prove")
@@ -174,7 +187,7 @@ def prove(pp, table: LassoTable, indices: Sequence[int], transcript, pcs=Multili
 
     # ---- primary sumcheck ----
     r = transcript.squeeze_challenges(nv_m)
-    v = spec.decode_ints(mle.evaluate(spec, a_poly, spec.encode(r, device))[None])[0]
+    v = spec.decode_ints(mle.evaluate(spec, a_poly, r)[None])[0]
     transcript.write_field_element(v)
 
     expression = Expression.eq_xy(0) * table.g
@@ -188,17 +201,17 @@ def prove(pp, table: LassoTable, indices: Sequence[int], transcript, pcs=Multili
     tau = transcript.squeeze_challenge()
 
     with timed.scope("lasso_fingerprints"):
-        one = spec.one(device)
-        addr_n = F.u32_to_mont(spec, torch.arange(1 << nv_n, device=device))
-        zeros_n = spec.zeros(1 << nv_n, device)
+        addr_n_tau = F.sub(spec, F.u32_to_mont(spec, torch.arange(1 << nv_n, device=device)), tau)
+        dims_tau = [F.sub(spec, d, tau) for d in dim_polys]
         rs_polys, ws_polys, init_polys, final_polys = [], [], [], []
         for j, mem in enumerate(table.memories):
-            addr = dim_polys[mem.chunk]
-            rs_polys.append(_fingerprint(addr, e_polys[j], ts_polys[j], gamma, tau))
-            ws_polys.append(_fingerprint(addr, e_polys[j], F.add(spec, ts_polys[j], one), gamma, tau))
+            rs, ws = _read_write_fingerprints(dims_tau[mem.chunk], e_polys[j], ts_polys[j], gamma)
             tvals = _subtable_dev(mem.subtable, str(device))
-            init_polys.append(_fingerprint(addr_n, tvals, zeros_n, gamma, tau))
-            final_polys.append(_fingerprint(addr_n, tvals, fc_polys[j], gamma, tau))
+            init, final = _init_final_fingerprints(addr_n_tau, tvals, fc_polys[j], gamma)
+            rs_polys.append(rs)
+            ws_polys.append(ws)
+            init_polys.append(init)
+            final_polys.append(final)
 
     # ps = None: pure grand products
     none = [None] * (2 * alpha)

@@ -36,7 +36,13 @@ import torch
 
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
 from halo2_lasso_tpu_torch.expression import Expression, evaluate_torch, hypercube_leaves
-from halo2_lasso_tpu_torch.lasso import _fingerprint, _read_ts_and_final_dev, _subtable_dev, _subtable_mle_eval
+from halo2_lasso_tpu_torch.lasso import (
+    _init_final_fingerprints,
+    _read_ts_and_final_dev,
+    _read_write_fingerprints,
+    _subtable_dev,
+    _subtable_mle_eval,
+)
 from halo2_lasso_tpu_torch.lasso.tables import LassoTable, Subtable, identity_subtable
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
@@ -244,13 +250,13 @@ def build_lookup_witness(
 # ---------------------------------------------------------------------------
 
 
-def _addr_dev(spec: FieldSpec, locals_dev: Sequence[torch.Tensor], ms: MemSpec) -> torch.Tensor:
-    acc = None
-    for dl, coeff in ms.addr_terms:
-        term = locals_dev[dl]
-        if coeff != 1:
-            term = F.mont_mul(spec, term, spec.encode([coeff], term.device)[0])
-        acc = term if acc is None else F.add(spec, acc, term)
+def _addr_dev(spec: FieldSpec, locals_dev: Sequence[torch.Tensor], ms: MemSpec, tau: int) -> torch.Tensor:
+    """The memory's address sum_i coeff_i * dim_i, less tau: one product
+    kernel launch a term, the coefficients and tau by value."""
+    (dl, coeff), *rest = ms.addr_terms
+    acc = F.mul_add(spec, locals_dev[dl], coeff, tau, sub=True)
+    for dl, coeff in rest:
+        acc = F.mul_add(spec, locals_dev[dl], coeff, acc)
     return acc
 
 
@@ -282,26 +288,24 @@ def prove_memory_check(
     sets. Returns (x_m, {nv_n: x_n}), the GKR points whose leaf claims the
     caller opens through the PCS."""
     device = locals_by_lookup[0][0].device
-    one = spec.one(device)
     rs, ws = [], []
     for layout, locs in zip(layouts, locals_by_lookup):
         for ms in layout.mems:
-            addr = _addr_dev(spec, locs, ms)
-            val, ts = locs[ms.e_local], locs[ms.ts_local]
-            rs.append(_fingerprint(addr, val, ts, gamma, tau))
-            ws.append(_fingerprint(addr, val, F.add(spec, ts, one), gamma, tau))
+            r, w = _read_write_fingerprints(_addr_dev(spec, locs, ms, tau), locs[ms.e_local], locs[ms.ts_local], gamma)
+            rs.append(r)
+            ws.append(w)
     x_m = _pure_grand_products(rs + ws, transcript)
     del rs, ws
 
     x_ns: Dict[int, List[int]] = {}
     for nv_n, members in _n_groups(layouts).items():
-        addr_n = F.u32_to_mont(spec, torch.arange(1 << nv_n, device=device))
-        zeros_n = spec.zeros(1 << nv_n, device)
+        addr_n_tau = F.sub(spec, F.u32_to_mont(spec, torch.arange(1 << nv_n, device=device)), tau)
         inits, finals = [], []
         for li, mi in members:
             tvals = _subtable_dev(layouts[li].mems[mi].subtable, str(device))
-            inits.append(_fingerprint(addr_n, tvals, zeros_n, gamma, tau))
-            finals.append(_fingerprint(addr_n, tvals, fcs_by_lookup[li][mi], gamma, tau))
+            init, final = _init_final_fingerprints(addr_n_tau, tvals, fcs_by_lookup[li][mi], gamma)
+            inits.append(init)
+            finals.append(final)
         x_ns[nv_n] = _pure_grand_products(inits + finals, transcript)
     return x_m, x_ns
 

@@ -9,17 +9,25 @@ same 256-bit numbers as 16 limbs of 16 bits (``ops/field.py:86``), so
 
 The plain versions compute on 16-bit limbs in ``int64``, where every product
 and lazy column sum fits exactly (torch has no general ``uint32`` arithmetic
-on the CPU). ``mont_mul`` launches ``csrc/mont_mul.cu``; ``pow_fixed``,
-``prefix_products`` and ``batch_inv`` launch ``csrc/mont_chain.cu``, a fixed
-number of launches each, whatever the length. On a CUDA tensor each
-launches its kernel or raises; only a CPU tensor takes the plain version
-(``*_plain``). ``add``/``sub``/``neg`` are plain tensor code on any device.
+on the CPU); their carry pass (``_norm``) loops until no carry is left,
+reading a flag back from the tensor's device each pass. ``mont_mul``,
+``mul_add``, ``add``, ``sub`` and ``neg`` launch ``csrc/mont_mul.cu``'s
+elementwise kernel, one launch each, with any operand but the first a
+tensor (broadcast rows are read in place) or a host int (by value);
+``sum_reduce`` launches its row sum; ``pow_fixed``, ``prefix_products`` and
+``batch_inv`` launch ``csrc/mont_chain.cu``, a fixed number of launches
+each, whatever the length. On a CUDA tensor each launches its kernel or
+raises; only a CPU tensor takes the plain version (``*_plain``).
+``norm_on_card`` counts the plain carry passes run on a CUDA tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import math
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -141,8 +149,14 @@ def _join(t: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
+norm_on_card = 0  # plain carry passes run on a CUDA tensor (each reads the card back)
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
     """Resolve lazy (possibly negative) limbs of a non-negative number."""
+    global norm_on_card
+    if v.is_cuda:
+        norm_on_card += 1
     v = v.clone()
     while True:
         c = v[..., :-1] >> 16
@@ -163,19 +177,19 @@ def _p16(spec: FieldSpec, device) -> torch.Tensor:
     return _const(spec, "p16", str(device))
 
 
-def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def add_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p16 = _p16(spec, a.device)
     s = _norm(_split(a) + _split(b))
     return _join(_norm(s - _geq(s, p16)[..., None] * p16))
 
 
-def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     A, B = torch.broadcast_tensors(_split(a), _split(b))
     lt = ~_geq(A, B)
     return _join(_norm(A - B + lt[..., None] * _p16(spec, a.device)))
 
 
-def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+def neg_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     A = _split(a)
     nz = A.any(-1, keepdim=True)
     return _join(_norm(nz * _p16(spec, a.device) - A))
@@ -205,24 +219,123 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     return _join(r[..., :16]).reshape(shape + (LIMBS,))
 
 
-def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise Montgomery product; ``b`` may be a single element (8,).
-    Kernel: csrc/mont_mul.cu (port of pallas_field.make_mont_mul)."""
-    if a.device.type == "cpu":
-        return mont_mul_plain(spec, a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    a = a.expand(shape).contiguous()
-    bcast = tuple(b.shape) == (LIMBS,)
-    b = b.contiguous() if bcast else b.expand(shape).contiguous()
-    native.require_cuda("mont_mul", a, b)
-    out = torch.empty_like(a)
-    rc = native.lib().h2l_mont_mul(
-        spec.kernel_id, a.data_ptr(), b.data_ptr(), int(bcast), out.data_ptr(),
-        a.numel() // LIMBS, native.stream(),
-    )
-    native.check(rc, "mont_mul")
-    native.counts["mont_mul"] += 1
+# csrc/mont_mul.cu's op codes and the operands each reads
+EW_MUL, EW_MUL_ADD, EW_MUL_SUB, EW_ADD, EW_SUB, EW_NEG = range(6)
+_EW_ARGS = (2, 3, 3, 2, 2, 1)
+_PTRS3, _STRIDES6, _ZERO_ROW = ctypes.c_void_p * 3, ctypes.c_longlong * 6, bytes(32)
+Operand = Union[torch.Tensor, int]
+
+
+def _ew_plain(spec: FieldSpec, op: int, a, b=None, c=None) -> torch.Tensor:
+    if op == EW_NEG:
+        return neg_plain(spec, a)
+    if op in (EW_ADD, EW_SUB):
+        return (add_plain if op == EW_ADD else sub_plain)(spec, a, b)
+    ab = mont_mul_plain(spec, a, b)
+    if op == EW_MUL:
+        return ab
+    return (add_plain if op == EW_MUL_ADD else sub_plain)(spec, ab, c)
+
+
+def _grid_strides(t: torch.Tensor):
+    """t's rows over csrc/mont_mul.cu's (outer, inner) grid: (s0, s1) row
+    strides, the inner index the last leading dim and the outer one the
+    others merged; None where the strides cannot say it."""
+    if t.data_ptr() % 16:
+        return None
+    if t.is_contiguous():
+        return (t.shape[-2] if t.dim() > 2 else 0), 1
+    lead, st = t.shape[:-1], t.stride()
+    if st[-1] != 1 or any(s % LIMBS for s in st[:-1]):
+        return None
+    if not lead:
+        return 0, 0
+    rows = [(n, s // LIMBS) for n, s in zip(lead[:-1], st[:-1]) if n != 1]
+    if any(s != s1 * n1 for (_, s), (n1, s1) in zip(rows, rows[1:])):
+        return None
+    return (rows[-1][1] if rows else 0), st[-2] // LIMBS
+
+
+def _ew(spec: FieldSpec, op: int, a: torch.Tensor, b: Optional[Operand] = None, c: Optional[Operand] = None,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of csrc/mont_mul.cu's elementwise kernel, or its plain
+    version on the CPU. ``a`` is a tensor of rows; ``b`` and ``c`` a tensor
+    (broadcast against the others, read in place) or a host int (by value).
+    The output has the broadcast shape; ``out``, a contiguous tensor of that
+    shape, receives it."""
+    args = [a, b, c][: _EW_ARGS[op]]
+    tensors = [x for x in args if isinstance(x, torch.Tensor)]
+    if not isinstance(a, torch.Tensor) or any(x is None for x in args):
+        raise ValueError("field op: the first operand must be a tensor, and every operand given")
+    if any(t.dtype != torch.int32 or t.dim() < 1 or t.shape[-1] != LIMBS for t in tensors):
+        raise ValueError(f"field op: operands must be int32 (..., {LIMBS}) field rows")
+    shape = a.shape if all(t.shape == a.shape for t in tensors) else torch.broadcast_shapes(*(t.shape for t in tensors))
+    if out is not None and (out.shape != shape or out.dtype != torch.int32 or not out.is_contiguous()):
+        raise ValueError(f"field op: out must be a contiguous int32 tensor of shape {tuple(shape)}")
+    device = a.device
+    if device.type == "cpu":
+        r = _ew_plain(spec, op, *(x if isinstance(x, torch.Tensor) else spec.encode([x])[0] for x in args))
+        return r if out is None else out.copy_(r)
+    if any(not t.is_cuda or t.device != device for t in tensors + ([] if out is None else [out])):
+        raise ValueError("field op: every tensor must lie on the same CUDA device")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=device)
+    lead = shape[:-1]
+    inner = lead[-1] if lead else 1
+    outer = math.prod(lead[:-1])
+    ptrs, strides, vals, keep = [], [], [], []
+    for x in args + [0] * (3 - len(args)):
+        if isinstance(x, torch.Tensor):
+            if x.shape != shape:
+                x = x.expand(shape)
+            st = _grid_strides(x)
+            if st is None:
+                x = x.contiguous()
+                st = _grid_strides(x)
+            keep.append(x)
+            ptrs.append(x.data_ptr())
+            strides += st
+            vals.append(_ZERO_ROW)
+        else:
+            ptrs.append(None)
+            strides += (0, 0)
+            vals.append(spec.to_mont_int(int(x) % spec.modulus).to_bytes(32, "little"))
+    if outer * inner:
+        rc = native.lib().h2l_mont_mul(
+            spec.kernel_id, op, _PTRS3(*ptrs), _STRIDES6(*strides), b"".join(vals), out.data_ptr(), outer, inner,
+            native.stream(),
+        )
+        native.check(rc, "mont_mul")
+        native.counts["mont_mul"] += 1
     return out
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: Operand, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Elementwise Montgomery product a * b; ``b`` a tensor (broadcast, e.g.
+    one (8,) element) or a host int. Kernel: csrc/mont_mul.cu (port of
+    pallas_field.make_mont_mul)."""
+    return _ew(spec, EW_MUL, a, b, out=out)
+
+
+def mul_add(spec: FieldSpec, a: torch.Tensor, b: Operand, c: Operand, sub: bool = False,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a * b + c (a * b - c with ``sub``) in one launch of csrc/mont_mul.cu."""
+    return _ew(spec, EW_MUL_SUB if sub else EW_MUL_ADD, a, b, c, out=out)
+
+
+def add(spec: FieldSpec, a: torch.Tensor, b: Operand, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a + b in one launch of csrc/mont_mul.cu (field.cuh's carry chain)."""
+    return _ew(spec, EW_ADD, a, b, out=out)
+
+
+def sub(spec: FieldSpec, a: torch.Tensor, b: Operand, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a - b in one launch of csrc/mont_mul.cu."""
+    return _ew(spec, EW_SUB, a, b, out=out)
+
+
+def neg(spec: FieldSpec, a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """-a in one launch of csrc/mont_mul.cu."""
+    return _ew(spec, EW_NEG, a, out=out)
 
 
 def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -367,10 +480,46 @@ def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Field sum over axis 0 by a pairwise tree of adds -> (8,)."""
+def sum_reduce_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Field sum over axis 0 by a pairwise tree of adds."""
     while a.shape[0] > 1:
         if a.shape[0] % 2:
             a = torch.cat([a, torch.zeros_like(a[:1])])
-        a = add(spec, a[0::2], a[1::2])
+        a = add_plain(spec, a[0::2], a[1::2])
     return a[0]
+
+
+# csrc/mont_mul.cu's row sum: threads a block, and blocks a column at most
+SUM_THREADS = 256
+SUM_MAX_BLOCKS = 256
+
+
+def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Field sum over axis 0: (n, 8) -> (8,), or (n, *cols, 8) -> (*cols, 8)
+    for every column at once. Kernel: csrc/mont_mul.cu's row sum, one
+    launch, strided rows read in place, no host sync."""
+    if a.dtype != torch.int32 or a.dim() < 2 or a.shape[-1] != LIMBS or a.shape[0] < 1:
+        raise ValueError(f"sum_reduce: expected int32 (n, ..., {LIMBS}) field rows with n >= 1")
+    if a.device.type == "cpu":
+        return sum_reduce_plain(spec, a)
+    if not a.is_cuda:
+        raise ValueError("sum_reduce: the rows must lie on the CPU or a CUDA device")
+    n, cols = a.shape[0], a.shape[1:-1]
+    m = math.prod(cols)
+    if m > 65535:
+        raise ValueError("sum_reduce: at most 65535 columns")
+    out = torch.empty((m, LIMBS), dtype=torch.int32, device=a.device)
+    if m == 0:
+        return out.reshape(cols + (LIMBS,))
+    t = a.reshape(n, m, LIMBS)  # (rows, columns): a view wherever the strides allow
+    if _grid_strides(t) is None:
+        t = t.contiguous()
+    nb = max(1, min(-(-n // (4 * SUM_THREADS)), SUM_MAX_BLOCKS // m))
+    partials = torch.empty((m * nb if nb > 1 else 0, LIMBS), dtype=torch.int32, device=a.device)
+    rc = native.lib().h2l_sum_reduce(
+        spec.kernel_id, t.data_ptr(), n, m, t.stride(0) // LIMBS, t.stride(1) // LIMBS, nb, partials.data_ptr(),
+        native.ticket("sum_reduce", a.device).data_ptr(), out.data_ptr(), native.stream(),
+    )
+    native.check(rc, "sum_reduce")
+    native.counts["sum_reduce"] += 1
+    return out.reshape(cols + (LIMBS,))

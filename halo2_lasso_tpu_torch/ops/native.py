@@ -40,7 +40,7 @@ BUILD_TIMEOUT_S = 600
 
 KERNELS = (
     "mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "mont_mul_limbs_first",
-    "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy",
+    "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy", "sum_reduce",
 )
 counts = {k: 0 for k in KERNELS}
 # the __global__ function of each kernel, as a profiler names it
@@ -49,7 +49,7 @@ SYMBOLS = {
     "ec_add": "ec_add_kernel", "fix_var": "fix_var_kernel",
     "mont_mul_limbs_first": "mont_mul_limbs_first_kernel", "mont_mul_tiled": "mont_mul_tiled_kernel",
     "msm_level": "msm_level_kernel", "mont_pow": "mont_pow_kernel", "prefix_products": "scan_kernel",
-    "eq_xy": "eq_xy_kernel",
+    "eq_xy": "eq_xy_kernel", "sum_reduce": "sum_reduce_kernel",
 }
 build_seconds = None  # wall time of the nvcc call, when this process built
 ptxas_info = ""  # what -Xptxas -v printed, when this process built
@@ -60,9 +60,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "h2l_mont_mul": [_I, _P, _P, _I, _P, _LL, _P],
+    "h2l_mont_mul": [_I, _I, _P, _P, _P, _P, _LL, _LL, _P],
+    "h2l_sum_reduce": [_I, _P, _LL, _I, _LL, _LL, _I, _P, _P, _P, _P],
     "h2l_fold_all": [_P, _P, _I, _LL, _LL, _P, _P, _P],
-    "h2l_fix_var": [_P, _P, _LL, _P, _LL, _P, _P],
+    "h2l_fix_var": [_I, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "h2l_sumcheck_round": [_P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "h2l_ec_add": [_P] * 9 + [_LL, _P],
     "h2l_msm_level": [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
@@ -78,6 +79,18 @@ _SIGNATURES = {
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+_tickets = {}
+
+
+def ticket(name: str, device: torch.device) -> torch.Tensor:
+    """The block counter of kernel `name` on this device and stream: at 0
+    between launches (the kernel's last block resets it)."""
+    key = (name, device.index, stream())
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[key]
 
 
 def sources():
@@ -134,7 +147,9 @@ def check(rc: int, name: str) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream as a raw pointer (without
+    building a torch.cuda.Stream: a few microseconds less a launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -63,10 +63,8 @@ def additive_batch_open(
     ell = (len(evals) - 1).bit_length() if len(evals) > 1 else 0
     eq_xt = _eq_xt(transcript.squeeze_challenges(ell), device)
 
-    def scaled(arr, c):
-        return F.mont_mul(spec, arr, spec.encode([c], device)[0])
-
-    # merge polys per point (scalar bookkeeping mirrors the reference fold)
+    # merge polys per point (scalar bookkeeping mirrors the reference fold);
+    # the scalars are host ints, by value in the product kernel
     merged: List = [None] * len(points)  # (scalar, tensor) | None
     for ev, eq_i in zip(evals, eq_xt):
         j = ev.point
@@ -75,8 +73,8 @@ def additive_batch_open(
         else:
             coeff, arr = merged[j]
             if coeff != 1:
-                arr = scaled(arr, coeff)
-            merged[j] = (1, F.add(spec, arr, scaled(polys[ev.poly], eq_i)))
+                arr = F.mont_mul(spec, arr, coeff)
+            merged[j] = (1, F.mul_add(spec, polys[ev.poly], eq_i, arr))
 
     terms = []
     for j, m in enumerate(merged):
@@ -93,8 +91,8 @@ def additive_batch_open(
     # g' = sum_j (scalar_j * eq_xy_eval(challenges, point_j)) * merged_j
     g_prime = None
     for scalar, _, arr, j in terms:
-        contrib = scaled(arr, scalar * mle.eq_xy_eval_host(p, challenges, list(points[j])) % p)
-        g_prime = contrib if g_prime is None else F.add(spec, g_prime, contrib)
+        c = scalar * mle.eq_xy_eval_host(p, challenges, list(points[j])) % p
+        g_prime = F.mont_mul(spec, arr, c) if g_prime is None else F.mul_add(spec, arr, c, g_prime)
 
     with timed.scope("batch_open_pcs_open"):
         pcs.open(pp, g_prime, challenges, None, transcript)

@@ -6,8 +6,9 @@ halo2_lasso_tpu/pcs/multilinear_kzg.py (kzg.rs semantics).
     packages; G1 tables eqs[j] = { eq(b; s_1..s_j) * G1 } for j <= k;
     G2 points s_i * G2.
   * commit = MSM(evals, eqs[num_vars]).
-  * open at x: the k quotients of f - f(x) against (X_i - x_i), a chain
-    of fix_last_var folds, each committed with the size-matched eq table.
+  * open at x: the k quotients of f - f(x) against (X_i - x_i), one
+    fix_var_chain launch binding the highest variable first, each quotient
+    committed with the size-matched eq table.
   * verify: e(C - eval*G1, -G2) * prod_i e(Q_i, (s_i - x_i) G2) == 1, on
     the host.
 """
@@ -142,15 +143,8 @@ class MultilinearKzg:
         (pcs/multilinear.rs:72-107)."""
         k = evals.shape[0].bit_length() - 1
         assert len(point) == k
-        xd = Fr.encode(list(point), evals.device)
-        rem = evals
-        quotients = []
-        for i in range(k - 1, -1, -1):
-            n = 1 << i
-            quotients.append((i, F.sub(Fr, rem[n:], rem[:n])))
-            rem = mle.fix_last_var(Fr, rem, xd[i])
-        quotients.reverse()
-        return quotients, rem[0]
+        rem, quot = mle.fix_var_chain(Fr, evals, list(point), last=True, quotients=True)
+        return list(enumerate(mle.chain_quotients(quot))), rem[0]
 
     @staticmethod
     def open(

@@ -97,7 +97,7 @@ def _layer_up(layer: Tuple[torch.Tensor, ...], pure: bool):
         ql, qr = layer
         return _halves(F.mont_mul(Fr, ql, qr))
     pl, pr, ql, qr = layer
-    p_new = F.add(Fr, F.mont_mul(Fr, pl, qr), F.mont_mul(Fr, pr, ql))
+    p_new = F.mul_add(Fr, pl, qr, F.mont_mul(Fr, pr, ql))
     return (*_halves(p_new), *_halves(F.mont_mul(Fr, ql, qr)))
 
 

@@ -115,7 +115,6 @@ MAX_CONSTS = 32
 ROUND_THREADS = 128  # threads a block, at most (csrc/sumcheck_round.cu gives the times)
 _MAX_BLOCKS = 2048
 _SMEM_MAX = 226 * 1024  # the card's shared memory a block, less the kernel's own
-_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 @dataclasses.dataclass
@@ -282,7 +281,7 @@ def round_message(
     rc = native.lib().h2l_sumcheck_round(
         ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops), consts.ctypes.data,
         len(program.consts), None if challenges is None else challenges.data_ptr(), h, degree,
-        program.max_stack, threads, blocks, partials.data_ptr(), _ticket(device).data_ptr(),
+        program.max_stack, threads, blocks, partials.data_ptr(), native.ticket("sumcheck_round", device).data_ptr(),
         out.data_ptr(), native.stream(),
     )
     native.check(rc, "sumcheck_round")
@@ -296,15 +295,6 @@ def round_threads(max_stack: int, degree: int) -> int:
     while threads > 32 and max_stack * degree * 32 * threads > _SMEM_MAX:
         threads //= 2
     return threads
-
-
-def _ticket(device) -> torch.Tensor:
-    """The round kernel's block counter for this device and stream, at 0
-    between launches (the kernel's last block resets it)."""
-    key = (device.index, native.stream())
-    if key not in _tickets:
-        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _tickets[key]
 
 
 # ---------------------------------------------------------------------------
@@ -419,14 +409,12 @@ def prove_coeff_products(
     challenges: List[int] = []
     current_sum = sum_ % p
     for _ in range(num_vars):
-        st = torch.stack(tables)  # (2T, n, 8)
-        e0, e1 = st[:T, 0::2], st[:T, 1::2]
-        p0, p1 = st[T:, 0::2], st[T:, 1::2]
-        prods = F.mont_mul(
-            spec,
-            torch.cat([e0, F.sub(spec, e1, e0)]),
-            torch.cat([p0, F.sub(spec, p1, p0)]),
-        )  # (2T, h, 8): c0 terms then c2 terms
+        st = torch.stack(tables)  # (2T, n, 8): eq tables, then polys
+        lo = st[:, 0::2]
+        diff = F.sub(spec, st[:, 1::2], lo)  # (2T, h, 8), the strided halves read in place
+        prods = torch.empty((2 * T,) + lo.shape[1:], dtype=torch.int32, device=st.device)
+        F.mont_mul(spec, lo[:T], lo[T:], out=prods[:T])  # c0 terms: e0 * p0
+        F.mont_mul(spec, diff[:T], diff[T:], out=prods[T:])  # c2 terms: (e1 - e0)(p1 - p0)
         sums = spec.decode_ints(F.sum_reduce(spec, prods.transpose(0, 1)))
         c0 = sum(s * v for s, v in zip(scalars, sums[:T])) % p
         c2 = sum(s * v for s, v in zip(scalars, sums[T:])) % p

@@ -7,13 +7,14 @@ X_0 as its least-significant bit, as in the JAX package.
 Three kernels live here. ``fold_all`` is the port of make_fold_all
 (ops/pallas_field.py:293): one launch of csrc/fold.cu binds one variable of
 every table of a list (the sumcheck state), its pointers and an int
-challenge by value. ``fix_var`` / ``fix_last_var`` are the port of
-make_fix_var (ops/pallas_field.py:250): one launch of csrc/fix_var.cu binds
-one variable of one table (MLE evaluation, the KZG quotient chain, rotated
-evaluations). ``eq_xy`` writes the eq table in one launch of
-csrc/mont_chain.cu. On a CUDA tensor each launches its kernel or raises;
-only CPU tensors take ``fold_all_plain`` / ``fix_var_plain`` /
-``eq_xy_plain``.
+challenge by value. ``fix_var_chain`` is the port of make_fix_var
+(ops/pallas_field.py:250) redesigned: one launch of csrc/fix_var.cu binds
+any number of variables of one table, highest or lowest first, optionally
+keeping every step's quotient (MLE evaluation, the KZG quotient chain,
+rotated evaluations; ``fix_var`` / ``fix_last_var`` are its one-variable
+case). ``eq_xy`` writes the eq table in one launch of csrc/mont_chain.cu.
+On a CUDA tensor each launches its kernel or raises; only CPU tensors take
+``fold_all_plain`` / ``fix_var_chain_plain`` / ``eq_xy_plain``.
 
 Rotations (halo2 ``Rotation`` over the bh cyclic order) are materialised by
 an index gather (``rotate_evals``) or evaluated at the 2^distance rotated
@@ -98,37 +99,85 @@ def fix_var_plain(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor, last: b
     return F.add(spec, F.mont_mul(spec, F.sub(spec, hi, lo), x), lo)
 
 
-def _fix_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor, last: bool) -> torch.Tensor:
-    """One variable of one (2h, 8) table bound to x (8,). Kernel:
-    csrc/fix_var.cu, with two direct pointers into the table and a pair step."""
-    if evals.device.type == "cpu":
-        return fix_var_plain(spec, evals, x, last)
-    if spec.kernel_id != 0:
-        raise ValueError("fix_var: the kernel is compiled for Fr only")
+def fix_var_chain_plain(spec: FieldSpec, evals: torch.Tensor, point: torch.Tensor, last: bool,
+                        quotients: bool = False):
+    """``fix_var_chain`` one variable a step: point (j, 8)."""
+    j = point.shape[0]
+    quots = []
+    for s in range(j):
+        lo, hi = _pairs(evals, last)
+        if quotients:
+            quots.append(F.sub(spec, hi, lo))
+        evals = fix_var_plain(spec, evals, point[j - 1 - s] if last else point[s], last)
+    return evals, (torch.cat(quots[::-1] or [spec.zeros(0, evals.device)]) if quotients else None)
+
+
+MAX_CHAIN_VARS = 32  # csrc/fix_var.cu's coordinates by value
+TAIL_BITS = 10  # csrc/fix_var.cu: the tail's rows in one block's shared memory
+
+
+def fix_var_chain(spec: FieldSpec, evals: torch.Tensor, point, last: bool, quotients: bool = False):
+    """Bind j = len(point) variables of an (n, 8) table, n a multiple of 2^j:
+    highest first (``last``, the KZG order; point[i] is variable k - j + i)
+    or lowest first (point[i] is variable i). The point is j host ints (at
+    most MAX_CHAIN_VARS, by value) or a (j, 8) tensor on the table's
+    device. Returns (the (n / 2^j, 8) bound table, the quotients or None):
+    with ``quotients`` (n = 2^j), each step's hi - lo packed in one
+    (n - 1, 8) buffer, the 2^i quotients against variable i at rows
+    [2^i - 1, 2^(i+1) - 1). Kernel: csrc/fix_var.cu, one launch, no host
+    sync."""
+    by_value = not isinstance(point, torch.Tensor)
+    j = len(point)
     n = evals.shape[0]
-    if evals.dim() != 2 or evals.shape[1] != F.LIMBS or n % 2:
-        raise ValueError("fix_var: the table must be (2h, 8) with an even length")
-    native.require_cuda("fix_var", evals, x)
-    h = n // 2
-    out = torch.empty((h, F.LIMBS), dtype=torch.int32, device=evals.device)
-    lo, hi = evals[0], evals[h if last else 1]
+    if evals.dim() != 2 or evals.shape[1] != F.LIMBS or evals.dtype != torch.int32:
+        raise ValueError(f"fix_var_chain: the table must be int32 (n, {F.LIMBS}) rows")
+    if j > MAX_CHAIN_VARS:
+        raise ValueError(f"fix_var_chain: the kernel binds at most {MAX_CHAIN_VARS} variables")
+    if n < 1 or n % (1 << j):
+        raise ValueError(f"fix_var_chain: {n} rows do not split into 2^{j} (an odd length)")
+    if quotients and n != 1 << j:
+        raise ValueError("fix_var_chain: quotients need every variable bound")
+    if not by_value and point.shape != (j, F.LIMBS):
+        raise ValueError(f"fix_var_chain: the point must be ({j}, {F.LIMBS})")
+    if evals.device.type == "cpu":
+        return fix_var_chain_plain(spec, evals, spec.encode(list(point)) if by_value else point, last, quotients)
+    if j == 0:
+        return evals.clone(), (spec.zeros(0, evals.device) if quotients else None)
+    native.require_cuda("fix_var", evals, *([] if by_value else [point]))
+    if evals.data_ptr() % 16:
+        raise ValueError("fix_var_chain: the table must start on a 16-byte boundary")
+    if by_value:
+        x_host, x_dev = b"".join(spec.to_mont_int(int(v) % spec.modulus).to_bytes(32, "little") for v in point), None
+    else:
+        x_host, x_dev = None, point.data_ptr()
+    device = evals.device
+    out = torch.empty((n >> j, F.LIMBS), dtype=torch.int32, device=device)
+    mid = torch.empty((min(n, 1 << TAIL_BITS), F.LIMBS), dtype=torch.int32, device=device)
+    quot = torch.empty((n - 1, F.LIMBS), dtype=torch.int32, device=device) if quotients else None
     rc = native.lib().h2l_fix_var(
-        lo.data_ptr(), hi.data_ptr(), 1 if last else 2, out.data_ptr(), h, x.data_ptr(),
+        spec.kernel_id, evals.data_ptr(), n, j, int(last), x_host, x_dev, mid.data_ptr(),
+        None if quot is None else quot.data_ptr(), out.data_ptr(), native.ticket("fix_var", device).data_ptr(),
         native.stream(),
     )
     native.check(rc, "fix_var")
     native.counts["fix_var"] += 1
-    return out
+    return out, quot
 
 
-def fix_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Fix X_0 := x: (n, 8) -> (n/2, 8)."""
-    return _fix_var(spec, evals, x, last=False)
+def chain_quotients(quot: torch.Tensor) -> List[torch.Tensor]:
+    """The packed quotients of ``fix_var_chain`` as views, by variable."""
+    k = (quot.shape[0] + 1).bit_length() - 1
+    return [quot[(1 << i) - 1 : (1 << (i + 1)) - 1] for i in range(k)]
 
 
-def fix_last_var(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def fix_var(spec: FieldSpec, evals: torch.Tensor, x) -> torch.Tensor:
+    """Fix X_0 := x (an (8,) tensor or a host int): (n, 8) -> (n/2, 8)."""
+    return fix_var_chain(spec, evals, x[None] if isinstance(x, torch.Tensor) else [x], last=False)[0]
+
+
+def fix_last_var(spec: FieldSpec, evals: torch.Tensor, x) -> torch.Tensor:
     """Fix the highest variable := x: (n, 8) -> (n/2, 8)."""
-    return _fix_var(spec, evals, x, last=True)
+    return fix_var_chain(spec, evals, x[None] if isinstance(x, torch.Tensor) else [x], last=True)[0]
 
 
 def eq_xy_plain(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
@@ -174,12 +223,11 @@ def eq_xy(spec: FieldSpec, y, device=None) -> torch.Tensor:
     return out
 
 
-def evaluate(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Evaluate the MLE at x (k, 8) -> (8,)."""
-    assert evals.shape[0] == 1 << x.shape[0]
-    for i in range(x.shape[0]):
-        evals = fix_var(spec, evals, x[i])
-    return evals[0]
+def evaluate(spec: FieldSpec, evals: torch.Tensor, x) -> torch.Tensor:
+    """Evaluate the MLE at x, a (k, 8) tensor or k host ints -> (8,): one
+    fix_var_chain launch."""
+    assert evals.shape[0] == 1 << len(x)
+    return fix_var_chain(spec, evals, x, last=False)[0][0]
 
 
 def evaluate_stacked_ints(spec: FieldSpec, polys: Sequence[torch.Tensor], x: Sequence[int]) -> list:
@@ -193,8 +241,9 @@ def evaluate_stacked_ints(spec: FieldSpec, polys: Sequence[torch.Tensor], x: Seq
     return spec.decode_ints(torch.cat(cur))
 
 
-def evaluate_many(spec: FieldSpec, evals: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """Evaluate one MLE at many points xs (m, k, 8) -> (m, 8)."""
+def evaluate_many(spec: FieldSpec, evals: torch.Tensor, xs) -> torch.Tensor:
+    """Evaluate one MLE at many points, xs (m, k, 8) or m lists of k host
+    ints -> (m, 8): one launch a point."""
     return torch.stack([evaluate(spec, evals, x) for x in xs])
 
 
@@ -336,9 +385,10 @@ def evaluate_for_rotation(
     spec: FieldSpec, evals: torch.Tensor, x: Sequence[int], rotation: int
 ) -> List[int]:
     """Evaluations of the MLE at the 2^distance rotated points, as host ints
-    (multilinear.rs:191-263 semantics), each a chain of fix_var launches."""
+    (multilinear.rs:191-263 semantics), one chain launch a point, its
+    coordinates by value."""
     pts = rotation_eval_points(spec.modulus, list(x), rotation)
-    return spec.decode_ints(evaluate_many(spec, evals, spec.encode(pts, evals.device)))
+    return spec.decode_ints(evaluate_many(spec, evals, pts))
 
 
 def rotate_evals(spec: FieldSpec, evals: torch.Tensor, rotation: int) -> torch.Tensor:

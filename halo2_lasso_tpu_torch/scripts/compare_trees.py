@@ -25,7 +25,14 @@ inputs drawn from fixed seeds, measures
   - ``batch_inv`` of 2^17 rows (Fr) and ``eq_xy`` at k = 16 with the point
     as the tree's callers pass it: CUDA events, host wall time (each call
     followed by a synchronize) and the profiler's device time per call, and
-    the host-to-device copies.
+    the host-to-device copies;
+  - a KZG open of a 2^16 polynomial (``MultilinearKzg.open``: the quotient
+    chain and its 16 MSMs, SRS from ``RandomState(3)``) and one round of
+    the coefficient prover (``sum_check.prove_coeff_products`` with one
+    variable over 3 terms of 2^16, the batch open's shape): host wall time
+    per call, the profiler's device time, and the device-to-host and
+    host-to-device copies per call; the proof bytes and folded tables
+    hashed.
 
 Trees from the one whose ``eq_xy`` takes a ``device`` on take the fold's
 challenge and the eq point as host ints; older trees take card tensors,
@@ -151,6 +158,38 @@ def measure(root: str) -> dict:
         out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS_CHAIN
         dev = bench.device_ms(fn, REPS_CHAIN)
         out.update({f"{name}_device_ms": dev["all"], f"{name}_htod": dev["HtoD"]})
+
+    from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS
+    from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
+    from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+    def transcript():
+        return Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, curve_b=3)
+
+    pp, _ = MultilinearKzg.trim(MultilinearKzg.setup(N, np.random.RandomState(3), device="cuda"), N)
+    poly, point = rand_fr(N), Fr.decode_ints(rand_fr(16))
+    terms = [(Fr.decode_ints(rand_fr(1))[0], mle.eq_xy(Fr, Fr.decode_ints(rand_fr(16)), "cuda") if by_value
+              else mle.eq_xy(Fr, rand_fr(16)), rand_fr(N)) for _ in range(3)]
+
+    def kzg_open():
+        t = transcript()
+        MultilinearKzg.open(pp, poly, point, None, t)
+        return t.into_proof()
+
+    def coeff_round():
+        t = transcript()
+        _, tables = SC.prove_coeff_products(Fr, 1, terms, 0, t)
+        return t.into_proof() + b"".join(x.cpu().numpy().tobytes() for x in tables)
+
+    for name, fn in (("kzg_open", kzg_open), ("coeff_round", coeff_round)):
+        out[f"{name}_sha"] = hashlib.sha256(fn()).hexdigest()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS_MSM):
+            fn()  # reads its result back, so each call ends synchronized
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS_MSM
+        dev = bench.device_ms(fn, REPS_MSM)
+        out.update({f"{name}_device_ms": dev["all"], f"{name}_dtoh": dev["DtoH"], f"{name}_htod": dev["HtoD"]})
     return out
 
 
@@ -175,7 +214,7 @@ def main(argv) -> int:
         rec = {"tree": tree, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(rec), flush=True)
         recs.append(rec)
-    for key in ("k1_sha", "msm_sha", "fold_sha", "batch_inv_sha", "eq_xy_sha"):
+    for key in ("k1_sha", "msm_sha", "fold_sha", "batch_inv_sha", "eq_xy_sha", "kzg_open_sha", "coeff_round_sha"):
         if len({r[key] for r in recs}) != 1:
             raise SystemExit(f"the trees disagree on {key}")
     return 0

@@ -3,9 +3,11 @@
 csrc/field.cuh and csrc/ec.cuh build with g++ under FIELD_HOST_TEST, so the
 Montgomery product, add, sub, neg and the complete EC add that the kernels
 run can be held against the plain PyTorch versions on the CPU, bit for bit,
-without a GPU, and so are the fold of csrc/fix_var.cu and the power and eq
-table entries of csrc/mont_chain.cu. (The kernels' launch and reduction code runs only on the
-card: tests/test_torch_kernels.py.)
+without a GPU, and so are csrc/mont_mul.cu's elementwise op (every op code,
+strided, broadcast and by-value operands), csrc/fix_var.cu's chain (its
+column phase and its tail's steps, emulated in order, with the quotients)
+and the power and eq table entries of csrc/mont_chain.cu. (The kernels'
+launch and reduction code runs only on the card: tests/test_torch_kernels.py.)
 """
 
 import pathlib
@@ -31,6 +33,7 @@ HARNESS = r"""
 #include <cstdlib>
 #include "ec.cuh"
 #include "fix_var.cu"
+#include "mont_mul.cu"
 #include "mont_chain.cu"
 #include "msm_level.cu"
 #include "sumcheck_round.cu"
@@ -65,21 +68,76 @@ static void round_sum(const RoundParams& p, int stack) {  // one line: the D sum
   }
   for (int t = 0; t < D; ++t) wr(acc[t]);
 }
+template <class P>
+static void chain(ChainParams& p) {  // one line: the bound table, then the quotients
+  const long long cols = p.n >> p.m;
+  std::vector<uint32_t> mid(8 * cols), out(8 * (p.n >> p.j) + 8), sm(8 * cols);
+  const int g = chain_lane_bits(p.m), d = p.m - g;
+  for (long long i = 0; p.m > 0 && i < cols; ++i) {  // a column: its lanes, then their combination
+    std::vector<Fe> v(1 << g);
+    for (int l = 0; l < (1 << g); ++l) v[l] = chain_rows<P>(p, i, (long long)l << d, d);
+    for (int q = 0; q < g; ++q)
+      for (int l = 0; l < (1 << g); l += 2 << q)
+        v[l] = chain_step<P>(p, d + q, chain_qi(p, i, d + q, l >> (q + 1)), v[l], v[l + (1 << q)]);
+    fe_store(p.m == p.j ? out.data() : mid.data(), i, v[0]);
+  }
+  if (p.m < p.j) {  // the tail, one step at a time over every element
+    for (long long e = 0; e < cols; ++e) tput(sm.data(), cols, e, fe_load(p.m > 0 ? mid.data() : p.evals, e));
+    long long h = cols;
+    for (int s = p.m; s < p.j; ++s) {
+      h >>= 1;
+      std::vector<Fe> r(h);
+      for (long long e = 0; e < h; ++e) r[e] = tail_elem<P>(p, sm.data(), cols, s, h, e);
+      for (long long e = 0; e < h; ++e) tput(sm.data(), cols, e, r[e]);
+    }
+    for (long long e = 0; e < h; ++e) fe_store(out.data(), e, tget(sm.data(), cols, e));
+  }
+  for (long long i = 0; i < (p.n >> p.j); ++i) wr(fe_load(out.data(), i));
+  for (long long i = 0; p.quot && i < p.n - 1; ++i) wr(fe_load(p.quot, i));
+}
+static EwOperand operand(std::vector<uint32_t>& keep) {  // 0 value | 1 rows offset s0 s1 row...
+  EwOperand x;
+  x.p = nullptr;
+  x.s0 = x.s1 = 0;
+  if (rdi() == 0) {
+    x.v = rd();
+    return x;
+  }
+  long long rows_n = rdi(), off = rdi();
+  x.s0 = rdi();
+  x.s1 = rdi();
+  keep = rows(rows_n);
+  x.p = keep.data() + 8 * off;
+  x.v = fe_zero();
+  return x;
+}
 int main() {
   char op[8];
   while (scanf("%7s", op) == 1) {
-    if (op[0] == 'v') {  // v <n> <step>: a table of n, then x; one fold per line
-      long long n, step;
-      if (scanf("%lld %lld", &n, &step) != 2) exit(1);
-      std::vector<Fe> t(n);
-      for (auto& e : t) e = rd();
-      Fe x = rd();
-      const uint32_t* lo = t[0].v;
-      const uint32_t* hi = step == 2 ? t[1].v : t[n / 2].v;
-      for (long long i = 0; i < n / 2; ++i) {
-        wr(fix_var_elem(lo, hi, step, i, x));
-        if (i + 1 < n / 2) printf("\n");
-      }
+    if (op[0] == 'c') {  // c<field> n j m last quot, the j point rows, the n table rows
+      static ChainParams p;
+      p.n = rdi();
+      p.j = (int)rdi();
+      p.m = (int)rdi();
+      p.last = (int)rdi();
+      const bool quot = rdi();
+      for (int i = 0; i < p.j; ++i) p.x[i] = rd();
+      p.x_dev = nullptr;
+      std::vector<uint32_t> t = rows(p.n), q(8 * p.n);
+      p.evals = t.data();
+      p.quot = quot ? q.data() : nullptr;
+      if (op[1] == '1') chain<Fq>(p); else chain<Fr>(p);
+    } else if (op[0] == 'w') {  // w<field> op outer inner, then the operands a, b, c
+      EwParams p;
+      int ewop = (int)rdi();
+      p.outer = rdi();
+      p.inner = rdi();
+      std::vector<uint32_t> ka, kb, kc;
+      p.a = operand(ka);
+      p.b = operand(kb);
+      p.c = operand(kc);
+      for (long long g = 0; g < p.outer * p.inner; ++g)
+        wr(op[1] == '1' ? ew_elem_op<Fq>(ewop, p, g) : ew_elem_op<Fr>(ewop, p, g));
     } else if (op[0] == 'l') {  // l W B m n first: one MSM level, every lane in order
       long long W = rdi(), B = rdi(), m = rdi(), n = rdi(), first = rdi();
       std::vector<uint32_t> x = rows(n), y = rows(n), z = rows(n);
@@ -204,15 +262,89 @@ def test_ec_add_lane_matches_plain(harness):
 
 @pytest.mark.parametrize("last", [False, True], ids=["fix_var", "fix_last_var"])
 def test_fix_var_elem_matches_plain(harness, last):
+    """csrc/fix_var.cu's one-variable case (a column a pair, as fix_var
+    launches it at a wide table) and its tail step (one block over a
+    narrow one), at a ragged half-length, against the plain fold."""
     from halo2_lasso_tpu_torch.poly import multilinear as mle
 
     rng = random.Random(5)
     p = Fr.modulus
     vals = [0, 1, p - 1, Fr.R, p - 1, 0] + [rng.randrange(p) for _ in range(58)]
     t, x = Fr.encode(vals), Fr.encode([rng.randrange(p)])
-    line = f"v {t.shape[0]} {1 if last else 2} " + " ".join(rows(t) + rows(x))
-    want = mle.fix_var_plain(Fr, t, x[0], last)
-    assert np.array_equal(run(harness, [line]), F.to_numpy_u32(want))
+    want = F.to_numpy_u32(mle.fix_var_plain(Fr, t, x[0], last))
+    for m in (0, 1):
+        line = f"c0 {t.shape[0]} 1 {m} {int(last)} 0 " + " ".join(rows(x) + rows(t))
+        assert np.array_equal(run(harness, [line]).reshape(-1, 8), want), m
+
+
+def ew_operand(spec, x):
+    """The harness's operand: 0 and the value (Montgomery, as the wrapper
+    passes a host int), or 1, the rows of x's storage, x's first row in it
+    and its two row strides as the wrapper computes them."""
+    if isinstance(x, int):
+        return "0 " + " ".join(rows(spec.encode([x])))
+    store = torch.empty(0, dtype=torch.int32).set_(x.untyped_storage()).reshape(-1, 8)
+    s0, s1 = F._grid_strides(x)
+    return f"1 {store.shape[0]} {x.storage_offset() // 8} {s0} {s1} " + " ".join(rows(store))
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+def test_ew_elem_matches_plain(harness, spec):
+    """csrc/mont_mul.cu's element op for every op code, with operands read
+    as the wrapper passes them: full rows, a table's even and odd rows
+    (pair stride 2), one broadcast row (stride 0), a 2-D grid of halves, and
+    host ints by value; against the plain versions."""
+    rng = random.Random(17)
+    p = spec.modulus
+    table = spec.encode([0, 1, p - 1, spec.R] + [rng.randrange(p) for _ in range(3 * 40 - 4)]).reshape(3, 40, 8)
+    flat = table.reshape(-1, 8)
+    one = spec.encode([rng.randrange(p)])[0]
+    cases = [  # (a, b, c), each a (..., 8) view of the shape of a
+        (flat[:40], flat[40:80], flat[80:]),
+        (table[:, 1::2], table[:, 0::2], one.expand(3, 20, 8)),
+        (flat[0::2], one.expand(60, 8), flat[1::2]),
+        (table[:2, :20], table[1:, 20:], table[:2, 20:]),
+    ]
+    consts = [0, 1, p - 1, rng.randrange(p)]
+    for op in range(6):
+        nargs = F._EW_ARGS[op]
+        for ci, (a, b, c) in enumerate(cases):
+            for by_value in ((False, False), (True, False), (False, True)):
+                args = [a, consts[ci] if by_value[0] else b, consts[-1 - ci] if by_value[1] else c][:nargs]
+                shape = a.shape
+                lead = shape[:-1]
+                outer, inner = (int(np.prod(lead[:-1])), lead[-1])
+                text = " ".join([ew_operand(spec, x if isinstance(x, int) else x.expand(shape)) for x in args]
+                                + [ew_operand(spec, 0)] * (3 - nargs))
+                got = run(harness, [f"w{spec.kernel_id} {op} {outer} {inner} {text}"]).reshape(-1, 8)
+                vals = [x if isinstance(x, torch.Tensor) else spec.encode([x])[0] for x in args]
+                want = F.to_numpy_u32(F._ew_plain(spec, op, *vals).expand(shape).reshape(-1, 8))
+                assert np.array_equal(got, want), (op, ci, by_value)
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+def test_fix_var_chain_matches_plain(harness, spec):
+    """csrc/fix_var.cu's chain, its column phase (each lane's rows, then
+    the lanes' combination as the warp shuffles do it) and tail emulated in
+    order, at every split m of the steps between the columns and the tail,
+    both directions, with its packed quotients, on a 2^5 table with 0, 1,
+    p - 1 and R mod p among the rows and the point; binding 4 of the 6
+    variables of a 3 * 2^4 table; and a 2^7 table at m = 6 and 7 (lanes
+    that fold two and four rows before the shuffles)."""
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    rng = random.Random(23)
+    p = spec.modulus
+    for n, j, splits in ((32, 5, range(6)), (48, 4, range(5)), (128, 7, (6, 7))):
+        t = spec.encode([0, 1, p - 1, spec.R] + [rng.randrange(p) for _ in range(n - 4)])
+        pt = spec.encode(([0, 1, p - 1] + [rng.randrange(p) for _ in range(j)])[:j])
+        for last in (False, True):
+            quot = n == 1 << j
+            want_t, want_q = mle.fix_var_chain_plain(spec, t, pt, last, quotients=quot)
+            want = F.to_numpy_u32(torch.cat([want_t] + ([want_q] if quot else [])))
+            for m in splits:
+                line = f"c{spec.kernel_id} {n} {j} {m} {int(last)} {int(quot)} " + " ".join(rows(pt) + rows(t))
+                assert np.array_equal(run(harness, [line]).reshape(-1, 8), want), (n, j, last, m)
 
 
 def words(t):
@@ -345,3 +477,18 @@ def test_chain_and_fold_limits_match_wrappers():
     tile = int(chain["SCAN_THREADS"]) * int(chain["SCAN_ITEMS"])
     assert (int(chain["MAX_POW_WORDS"]), tile, int(chain["MAX_EQ_VARS"]), int(fold["FOLD_MAX_TABLES"])) == (
         F.MAX_POW_WORDS, F.SCAN_TILE, mle.MAX_EQ_VARS, mle.FOLD_MAX_TABLES)
+
+
+def test_mont_mul_and_fix_var_limits_match_wrappers():
+    """The op codes and limits compiled into csrc/mont_mul.cu and
+    csrc/fix_var.cu are the ones their wrappers use."""
+    import re
+
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    ew = dict(re.findall(r"#define (\w+) (\d+)", (CSRC / "mont_mul.cu").read_text()))
+    chain = dict(re.findall(r"#define (\w+) (\d+)", (CSRC / "fix_var.cu").read_text()))
+    codes = [int(ew[k]) for k in ("EW_MUL", "EW_MUL_ADD", "EW_MUL_SUB", "EW_ADD", "EW_SUB", "EW_NEG")]
+    assert codes == [F.EW_MUL, F.EW_MUL_ADD, F.EW_MUL_SUB, F.EW_ADD, F.EW_SUB, F.EW_NEG]
+    assert (int(ew["SUM_THREADS"]), int(ew["SUM_MAX_BLOCKS"])) == (F.SUM_THREADS, F.SUM_MAX_BLOCKS)
+    assert (int(chain["MAX_CHAIN_VARS"]), int(chain["TAIL_BITS"])) == (mle.MAX_CHAIN_VARS, mle.TAIL_BITS)

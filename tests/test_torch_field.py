@@ -80,6 +80,71 @@ def test_reductions_match_jax(op):
     assert np.array_equal(F.to_jax_limbs(got), np.asarray(getattr(JF, op)(JFr, ja)))
 
 
+@pytest.mark.parametrize("sub", [False, True], ids=["mul_add", "mul_sub"])
+@pytest.mark.parametrize("spec,jspec", SPECS)
+def test_mul_add_matches_jax(spec, jspec, sub):
+    """a * b +- c against the JAX package's mont_mul and add / sub, with b
+    and c as tensors, as one broadcast row and as host ints (by value on
+    the card)."""
+    a, b = operands(spec)
+    c = rand_ints(spec.modulus, N)
+    ja, jb, jc = (jnp.asarray(jspec.encode(v)) for v in (a, b, c))
+    want = np.asarray((JF.sub if sub else JF.add)(jspec, JF.mont_mul(jspec, ja, jb), jc))
+    ta, tb, tc = (F.from_jax_limbs(np.asarray(v)) for v in (ja, jb, jc))
+    assert np.array_equal(F.to_jax_limbs(F.mul_add(spec, ta, tb, tc, sub=sub)), want)
+    want_int = np.asarray((JF.sub if sub else JF.add)(jspec, JF.mont_mul(jspec, ja, jb[3:4]), jc[:1]))
+    for b_, c_ in ((tb[3], tc[0]), (b[3], c[0]), (tb[3], c[0])):
+        assert np.array_equal(F.to_jax_limbs(F.mul_add(spec, ta, b_, c_, sub=sub)), want_int)
+
+
+def test_fix_var_chain_matches_jax():
+    """The chain's plain path against the JAX package: KZG's quotient
+    polys (highest variable first, every quotient) and the evaluation
+    (lowest first), with 0, 1 and p - 1 among the coordinates."""
+    from halo2_lasso_tpu.pcs.multilinear_kzg import MultilinearKzg as JKzg
+    from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
+
+    p = Fr.modulus
+    point = [0, 1, p - 1] + rand_ints(p, 3)
+    jp = jnp.asarray(JFr.encode(rand_ints(p, N)))
+    tp = F.from_jax_limbs(np.asarray(jp))
+    jq, jrem = JKzg.quotient_polys(jp, point)
+    tq, trem = MultilinearKzg.quotient_polys(tp, point)
+    assert [i for i, _ in tq] == [i for i, _ in jq] == list(range(6))
+    for (_, q), (_, want) in zip(tq, jq):
+        assert np.array_equal(F.to_jax_limbs(q), np.asarray(want))
+    assert np.array_equal(F.to_jax_limbs(trem), np.asarray(jrem))
+    got = mle.evaluate(Fr, tp, point)
+    assert np.array_equal(F.to_jax_limbs(got), np.asarray(jmle.evaluate(JFr, jp, jnp.asarray(JFr.encode(point)))))
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["dtype", "limbs", "out_shape", "first_int", "sum_dim", "sum_empty", "chain_vars", "chain_odd",
+     "chain_quotients", "chain_point"],
+)
+def test_wrapper_argument_checks(case):
+    """The field and chain wrappers check their arguments on either device,
+    before the plain path or a launch: int32 (..., 8) rows, an out tensor of
+    the result's shape, a tensor first operand, (n, ..., 8) sums with
+    n >= 1, at most 32 chain variables, a table that splits into 2^j, and
+    quotients only for a whole chain."""
+    t = Fr.encode(rand_ints(Fr.modulus, 8))
+    with pytest.raises(ValueError):
+        {
+            "dtype": lambda: F.mont_mul(Fr, t.long(), t),
+            "limbs": lambda: F.add(Fr, t, t[:, :7]),
+            "out_shape": lambda: F.mul_add(Fr, t, t, 5, out=torch.empty_like(t[:4])),
+            "first_int": lambda: F.sub(Fr, 5, t),
+            "sum_dim": lambda: F.sum_reduce(Fr, t[0]),
+            "sum_empty": lambda: F.sum_reduce(Fr, t[:0]),
+            "chain_vars": lambda: mle.fix_var_chain(Fr, t, [1] * (mle.MAX_CHAIN_VARS + 1), last=True),
+            "chain_odd": lambda: mle.fix_var(Fr, t[:5], 3),
+            "chain_quotients": lambda: mle.fix_var_chain(Fr, t, [1, 2], last=True, quotients=True),
+            "chain_point": lambda: mle.fix_var_chain(Fr, t, t[:2, :4], last=False),
+        }[case]()
+
+
 @pytest.mark.parametrize("op", ["pow_fixed", "prefix_products", "prefix_products_reverse"])
 def test_chains_match_jax(op):
     """The chains that csrc/mont_chain.cu runs in one launch each, through

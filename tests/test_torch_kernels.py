@@ -54,6 +54,65 @@ def test_mont_mul_kernel_matches_plain(cuda, spec):
     assert torch.equal(F.mont_mul(spec, a, b[5]), F.mont_mul_plain(spec, a, b[5]))
 
 
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 257, 1037, 1 << 16])
+def test_ew_kernel_matches_plain(cuda, spec, n):
+    """Every op code of csrc/mont_mul.cu against the plain versions on the
+    same card operands (strided, broadcast, by value): one launch each, no
+    host sync, no carry pass on the card."""
+    p = spec.modulus
+    rows = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, 4 * n), cuda)[: 4 * n].contiguous()
+    for a, b, c in chip_smoke.ew_cases(rows, rand_ints(p, 1)[0], p - 1):
+        for op in range(6):
+            args = [a, b, c][: F._EW_ARGS[op]]
+            norm = F.norm_on_card
+            got, k = launches(lambda: no_sync(lambda: F._ew(spec, op, *args)), "mont_mul")
+            assert k == (1,) and F.norm_on_card == norm
+            vals = [x if isinstance(x, torch.Tensor) else spec.encode([x], cuda)[0] for x in args]
+            want = F._ew_plain(spec, op, *vals)
+            assert torch.equal(got, want.expand(got.shape)), (op, n)
+    a, b, c = chip_smoke.ew_cases(rows, 0, 0)[0]
+    out = torch.empty_like(a)
+    assert F.mul_add(spec, a, b, c, sub=True, out=out) is out
+    assert torch.equal(out, F.sub_plain(spec, F.mont_mul_plain(spec, a, b), c))
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 257, (1 << 15) + 3])
+def test_sum_reduce_kernel_matches_plain(cuda, spec, n):
+    """One launch, no host sync: (n, 8) rows, a batch of 2 x 6 columns, and
+    the coefficient prover's transposed (h, 2T) view read in place."""
+    p = spec.modulus
+    a = spec.encode([p - 1] * 3 + rand_ints(p, 12 * n), cuda)[: 12 * n].contiguous()
+    for x in (a[:n], a.view(n, 2, 6, 8), a.view(12, n, 8).transpose(0, 1)):
+        got, k = launches(lambda: no_sync(lambda: F.sum_reduce(spec, x)), "sum_reduce")
+        assert k == (1,) and torch.equal(got, F.sum_reduce_plain(spec, x)), x.shape
+
+
+@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("k", [0, 1, 5, 12, 13, 16])
+def test_fix_var_chain_kernel_matches_plain(cuda, spec, k):
+    """Both directions, with and without the packed quotients, the point
+    as host ints (no sync, no copy) and on the card: one launch (none at
+    k = 0); and binding 3 of the variables of a 3 * 2^k table."""
+    p = spec.modulus
+    t = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, 3 << k), cuda)[: 3 << k].contiguous()
+    y = ([0, 1, p - 1] + rand_ints(p, k))[:k]
+    ty = spec.encode(y, cuda) if k else spec.zeros(0, cuda)
+    for last in (False, True):
+        for quot in (False, True):
+            want = mle.fix_var_chain_plain(spec, t[: 1 << k], ty, last, quot)
+            for point in (y, ty):
+                got, n = launches(lambda: mle.fix_var_chain(spec, t[: 1 << k], point, last, quot), "fix_var")
+                assert n == (int(k > 0),) and torch.equal(got[0], want[0])
+                assert not quot or torch.equal(got[1], want[1])
+            no_sync(lambda: mle.fix_var_chain(spec, t[: 1 << k], y, last, quot))
+        if k >= 3:
+            pt = rand_ints(p, 3)
+            got = mle.fix_var_chain(spec, t, pt, last)[0]
+            assert torch.equal(got, mle.fix_var_chain_plain(spec, t, spec.encode(pt, cuda), last)[0])
+
+
 @pytest.mark.parametrize("size", [1 << 12, 9 * 128, 1037], ids=["pow2", "partial_tile", "ragged"])
 def test_layout_kernels_match_plain_and_mont_mul(cuda, size):
     """K6 and K7 against their plain versions and K4 (transposed); each
@@ -257,6 +316,9 @@ def test_msm_level_kernel_matches_plain(cuda):
 
 
 def test_small_lasso_proof_on_card_matches_jax(cuda):
+    """Byte-equal to the JAX package's proof, with no plain carry pass
+    (ops/field.py's _norm) run on the card."""
+    norm = F.norm_on_card
     cfg = chip_smoke.SMALL
     rng = np.random.RandomState(cfg["index_seed"])
     indices = [int(rng.randint(1 << cfg["index_bits"])) for _ in range(cfg["lookups"])]
@@ -266,13 +328,18 @@ def test_small_lasso_proof_on_card_matches_jax(cuda):
     t = Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, curve_b=3)
     lasso.prove(pp, range_table(cfg["index_bits"], cfg["chunk_bits"]), indices, t, device=cuda)
     assert hashlib.sha256(t.into_proof()).hexdigest() == chip_smoke.SMALL_PROOF_SHA256
+    assert F.norm_on_card == norm
 
 
 def test_small_hyperplonk_proof_on_card_is_golden(cuda):
+    norm = F.norm_on_card
     proof, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.PLONK_SMALL, cuda)
     assert hashlib.sha256(proof).hexdigest() == chip_smoke.GOLDEN_SHA256
+    assert F.norm_on_card == norm
 
 
 def test_small_lasso_hyperplonk_proof_on_card_matches_jax(cuda):
+    norm = F.norm_on_card
     proof, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.LASSO_PLONK_SMALL, cuda)
     assert hashlib.sha256(proof).hexdigest() == chip_smoke.LASSO_PLONK_SHA256
+    assert F.norm_on_card == norm
