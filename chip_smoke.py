@@ -784,7 +784,7 @@ def check_kernels(torch, np, dev):
     # directions, with and without quotients, Fr and Fq, the point as host
     # ints and on the card, with 0, 1 and p - 1 among its coordinates and 0,
     # 1, p - 1, R mod p among the rows; each one launch with no host sync;
-    # the one-variable case (fix_var / fix_last_var) at 2^16 and 2 * 1037
+    # the one-variable chain against fix_var_plain at 2^16 and 2 * 1037
     # rows with the challenge's edge values. Timed at k = 16: a KZG open's
     # quotient chain (highest first, the quotients written) and an
     # evaluation (lowest first); the bound counts 2^k - 1 products and the
@@ -808,8 +808,7 @@ def check_kernels(torch, np, dev):
         for xv in ([0], [1], [p - 1], [Fr.R], []):
             x = rand_field(Fr, 1, xv)[0]
             for last in (False, True):
-                fold = mle.fix_last_var if last else mle.fix_var
-                err = max(err, same("fix_var", lambda: [fold(Fr, tab, x)],
+                err = max(err, same("fix_var", lambda: [mle.fix_var_chain(Fr, tab, x[None], last)[0]],
                                     lambda: [mle.fix_var_plain(Fr, tab, x, last)]))
     tab = rand_field(Fr, n)
     y = Fr.decode_ints(rand_field(Fr, 16))

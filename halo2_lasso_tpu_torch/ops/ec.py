@@ -60,9 +60,9 @@ def ec_add_plain(p: Points, q: Points) -> Points:
     selection as the kernel (ops/pallas_ec.py:85-141). As the kernel's warp
     vote does, the doubling is computed only when some lane needs it."""
     s = Fq
-    mul = functools.partial(F.mont_mul, s)
-    add = functools.partial(F.add, s)
-    sub = functools.partial(F.sub, s)
+    mul = functools.partial(F.mont_mul_plain, s)
+    add = functools.partial(F.add_plain, s)
+    sub = functools.partial(F.sub_plain, s)
     x1, y1, z1, x2, y2, z2 = p["x"], p["y"], p["z"], q["x"], q["y"], q["z"]
     z1z1, z2z2 = mul(z1, z1), mul(z2, z2)
     u1, u2 = mul(x1, z2z2), mul(x2, z1z1)

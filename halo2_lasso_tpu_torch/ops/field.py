@@ -317,25 +317,24 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: Operand, out: Optional[torch.T
     return _ew(spec, EW_MUL, a, b, out=out)
 
 
-def mul_add(spec: FieldSpec, a: torch.Tensor, b: Operand, c: Operand, sub: bool = False,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def mul_add(spec: FieldSpec, a: torch.Tensor, b: Operand, c: Operand, sub: bool = False) -> torch.Tensor:
     """a * b + c (a * b - c with ``sub``) in one launch of csrc/mont_mul.cu."""
-    return _ew(spec, EW_MUL_SUB if sub else EW_MUL_ADD, a, b, c, out=out)
+    return _ew(spec, EW_MUL_SUB if sub else EW_MUL_ADD, a, b, c)
 
 
-def add(spec: FieldSpec, a: torch.Tensor, b: Operand, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def add(spec: FieldSpec, a: torch.Tensor, b: Operand) -> torch.Tensor:
     """a + b in one launch of csrc/mont_mul.cu (field.cuh's carry chain)."""
-    return _ew(spec, EW_ADD, a, b, out=out)
+    return _ew(spec, EW_ADD, a, b)
 
 
-def sub(spec: FieldSpec, a: torch.Tensor, b: Operand, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def sub(spec: FieldSpec, a: torch.Tensor, b: Operand) -> torch.Tensor:
     """a - b in one launch of csrc/mont_mul.cu."""
-    return _ew(spec, EW_SUB, a, b, out=out)
+    return _ew(spec, EW_SUB, a, b)
 
 
-def neg(spec: FieldSpec, a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """-a in one launch of csrc/mont_mul.cu."""
-    return _ew(spec, EW_NEG, a, out=out)
+    return _ew(spec, EW_NEG, a)
 
 
 def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -364,22 +363,22 @@ def pow_fixed_plain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Te
     base = a
     while exponent:
         if exponent & 1:
-            result = mont_mul(spec, result, base)
+            result = mont_mul_plain(spec, result, base)
         exponent >>= 1
         if exponent:
-            base = mont_mul(spec, base, base)
+            base = mont_mul_plain(spec, base, base)
     return result
 
 
 def prefix_products_plain(spec: FieldSpec, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive prefix products of the rows of (n, 8) (from the last row
-    when ``reverse``): a log-depth Hillis-Steele scan, one mont_mul launch
+    when ``reverse``): a log-depth Hillis-Steele scan, one plain product
     per level."""
     if reverse:
         return prefix_products_plain(spec, x.flip(0)).flip(0)
     k = 1
     while k < x.shape[0]:
-        x = torch.cat([x[:k], mont_mul(spec, x[k:], x[:-k])])
+        x = torch.cat([x[:k], mont_mul_plain(spec, x[k:], x[:-k])])
         k *= 2
     return x
 
@@ -393,7 +392,7 @@ def batch_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     total_inv = pow_fixed_plain(spec, pre[-1:], spec.modulus - 2)
     pre_ex = torch.cat([one[None], pre[:-1]])
     suf_ex = torch.cat([suf[1:], one[None]])
-    out = mont_mul(spec, mont_mul(spec, pre_ex, suf_ex), total_inv.expand_as(pre_ex))
+    out = mont_mul_plain(spec, mont_mul_plain(spec, pre_ex, suf_ex), total_inv.expand_as(pre_ex))
     return torch.where(zero[:, None], torch.zeros_like(out), out)
 
 

@@ -216,12 +216,12 @@ def round_message_plain(
     h = tables[0].shape[0] // 2
     lo = [t[0::2] for t in tables]
     vals = [t[1::2] for t in tables]
-    steps = [F.sub(spec, v, l) for v, l in zip(vals, lo)] if degree > 1 else None
+    steps = [F.sub_plain(spec, v, l) for v, l in zip(vals, lo)] if degree > 1 else None
     consts = spec.encode(list(program.consts) or [0], device)
     out = []
     for t in range(1, degree + 1):
         if t > 1:
-            vals = [F.add(spec, v, s) for v, s in zip(vals, steps)]
+            vals = [F.add_plain(spec, v, s) for v, s in zip(vals, steps)]
         st: List[torch.Tensor] = []
         for op, arg in program.ops:
             if op == OP_LEAF:
@@ -231,14 +231,14 @@ def round_message_plain(
             elif op == OP_CHAL:
                 st.append(challenges[arg])
             elif op == OP_NEG:
-                st.append(F.neg(spec, st.pop()))
+                st.append(F.neg_plain(spec, st.pop()))
             elif op == OP_ADD:
                 b = st.pop()
-                st.append(F.add(spec, st.pop(), b))
+                st.append(F.add_plain(spec, st.pop(), b))
             else:
                 b = st.pop() if op == OP_MUL else consts[arg]
-                st.append(F.mont_mul(spec, st.pop(), b))
-        out.append(F.sum_reduce(spec, st[0].expand(h, F.LIMBS)))
+                st.append(F.mont_mul_plain(spec, st.pop(), b))
+        out.append(F.sum_reduce_plain(spec, st[0].expand(h, F.LIMBS)))
     return torch.stack(out)
 
 

@@ -11,8 +11,7 @@ challenge by value. ``fix_var_chain`` is the port of make_fix_var
 (ops/pallas_field.py:250) redesigned: one launch of csrc/fix_var.cu binds
 any number of variables of one table, highest or lowest first, optionally
 keeping every step's quotient (MLE evaluation, the KZG quotient chain,
-rotated evaluations; ``fix_var`` / ``fix_last_var`` are its one-variable
-case). ``eq_xy`` writes the eq table in one launch of csrc/mont_chain.cu.
+rotated evaluations). ``eq_xy`` writes the eq table in one launch of csrc/mont_chain.cu.
 On a CUDA tensor each launches its kernel or raises; only CPU tensors take
 ``fold_all_plain`` / ``fix_var_chain_plain`` / ``eq_xy_plain``.
 
@@ -48,7 +47,7 @@ def fold_all_plain(
     h = tables[0].shape[0] // 2
     lo = torch.cat([_pairs(t, last)[0] for t in tables])
     hi = torch.cat([_pairs(t, last)[1] for t in tables])
-    out = F.add(spec, F.mont_mul(spec, F.sub(spec, hi, lo), x), lo)
+    out = F.add_plain(spec, F.mont_mul_plain(spec, F.sub_plain(spec, hi, lo), x), lo)
     return list(out.split(h))
 
 
@@ -96,7 +95,7 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
 
 def fix_var_plain(spec: FieldSpec, evals: torch.Tensor, x: torch.Tensor, last: bool = False) -> torch.Tensor:
     lo, hi = _pairs(evals, last)
-    return F.add(spec, F.mont_mul(spec, F.sub(spec, hi, lo), x), lo)
+    return F.add_plain(spec, F.mont_mul_plain(spec, F.sub_plain(spec, hi, lo), x), lo)
 
 
 def fix_var_chain_plain(spec: FieldSpec, evals: torch.Tensor, point: torch.Tensor, last: bool,
@@ -107,7 +106,7 @@ def fix_var_chain_plain(spec: FieldSpec, evals: torch.Tensor, point: torch.Tenso
     for s in range(j):
         lo, hi = _pairs(evals, last)
         if quotients:
-            quots.append(F.sub(spec, hi, lo))
+            quots.append(F.sub_plain(spec, hi, lo))
         evals = fix_var_plain(spec, evals, point[j - 1 - s] if last else point[s], last)
     return evals, (torch.cat(quots[::-1] or [spec.zeros(0, evals.device)]) if quotients else None)
 
@@ -170,21 +169,11 @@ def chain_quotients(quot: torch.Tensor) -> List[torch.Tensor]:
     return [quot[(1 << i) - 1 : (1 << (i + 1)) - 1] for i in range(k)]
 
 
-def fix_var(spec: FieldSpec, evals: torch.Tensor, x) -> torch.Tensor:
-    """Fix X_0 := x (an (8,) tensor or a host int): (n, 8) -> (n/2, 8)."""
-    return fix_var_chain(spec, evals, x[None] if isinstance(x, torch.Tensor) else [x], last=False)[0]
-
-
-def fix_last_var(spec: FieldSpec, evals: torch.Tensor, x) -> torch.Tensor:
-    """Fix the highest variable := x: (n, 8) -> (n/2, 8)."""
-    return fix_var_chain(spec, evals, x[None] if isinstance(x, torch.Tensor) else [x], last=True)[0]
-
-
 def eq_xy_plain(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
     evals = spec.one(y.device)[None]
     for i in range(y.shape[0] - 1, -1, -1):
-        hi = F.mont_mul(spec, evals, y[i])
-        lo = F.sub(spec, evals, hi)
+        hi = F.mont_mul_plain(spec, evals, y[i])
+        lo = F.sub_plain(spec, evals, hi)
         evals = torch.stack([lo, hi], dim=1).reshape(-1, F.LIMBS)
     return evals
 

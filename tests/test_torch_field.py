@@ -134,12 +134,12 @@ def test_wrapper_argument_checks(case):
         {
             "dtype": lambda: F.mont_mul(Fr, t.long(), t),
             "limbs": lambda: F.add(Fr, t, t[:, :7]),
-            "out_shape": lambda: F.mul_add(Fr, t, t, 5, out=torch.empty_like(t[:4])),
+            "out_shape": lambda: F.mont_mul(Fr, t, 5, out=torch.empty_like(t[:4])),
             "first_int": lambda: F.sub(Fr, 5, t),
             "sum_dim": lambda: F.sum_reduce(Fr, t[0]),
             "sum_empty": lambda: F.sum_reduce(Fr, t[:0]),
             "chain_vars": lambda: mle.fix_var_chain(Fr, t, [1] * (mle.MAX_CHAIN_VARS + 1), last=True),
-            "chain_odd": lambda: mle.fix_var(Fr, t[:5], 3),
+            "chain_odd": lambda: mle.fix_var_chain(Fr, t[:5], [3], last=False),
             "chain_quotients": lambda: mle.fix_var_chain(Fr, t, [1, 2], last=True, quotients=True),
             "chain_point": lambda: mle.fix_var_chain(Fr, t, t[:2, :4], last=False),
         }[case]()
@@ -177,8 +177,7 @@ def test_fold_all_matches_jax(last):
     jfold = jmle.fix_last_var if last else jmle.fix_var
     for got, j in zip(mle.fold_all(Fr, tt, tx, last=last), jt):
         assert np.array_equal(F.to_jax_limbs(got), np.asarray(jfold(JFr, j, jx)))
-    fold_one = mle.fix_last_var if last else mle.fix_var
-    assert torch.equal(fold_one(Fr, tt[0], tx), mle.fold_all(Fr, tt, tx, last=last)[0])
+    assert torch.equal(mle.fix_var_chain(Fr, tt[0], tx[None], last)[0], mle.fold_all(Fr, tt, tx, last=last)[0])
     x = Fr.decode_ints(tx[None])[0]  # the challenge as the sumchecks pass it, a host int
     assert all(torch.equal(a, b) for a, b in zip(mle.fold_all(Fr, tt, x, last=last), mle.fold_all(Fr, tt, tx, last=last)))
 
@@ -192,10 +191,10 @@ def test_fix_var_matches_jax(last):
     vals = [0, 1, p - 1, Fr.R, p - 1, 0, 1, p - 1] + rand_ints(p, 66)
     jt = jnp.asarray(JFr.encode(vals))
     tt = F.from_jax_limbs(np.asarray(jt))
-    jfold, fold = (jmle.fix_last_var, mle.fix_last_var) if last else (jmle.fix_var, mle.fix_var)
+    jfold = jmle.fix_last_var if last else jmle.fix_var
     for x in [0, 1, p - 1, Fr.R] + rand_ints(p, 1):
         jx = jnp.asarray(JFr.encode([x]))[0]
-        got = fold(Fr, tt, F.from_jax_limbs(np.asarray(jx)))
+        got = mle.fix_var_chain(Fr, tt, F.from_jax_limbs(np.asarray(jx))[None], last)[0]
         assert np.array_equal(F.to_jax_limbs(got), np.asarray(jfold(JFr, jt, jx)))
 
 
