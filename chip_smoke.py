@@ -15,11 +15,14 @@ Phases, each printing one line with its wall time:
      2^15 + 3, batched over 2 x 6 columns and the coefficient prover's
      transposed view; timed at 2^16 and at that view), K5's fix_var chain
      (k = 0, 1, 5, 12, 13, 16, both directions, with and without quotients,
-     Fr and Fq; timed at k = 16 as a KZG open's quotient chain and as an
-     evaluation), each of them one launch with no host sync; sumcheck_round at
+     Fr and Fq, and k = 19 in Fr; timed at k = 16 and k = 19 as a KZG
+     open's quotient chain and as an evaluation), each of them one launch with no host sync; sumcheck_round at
      the Lasso-in-HyperPlonk zero check's first round (37 leaves, degree 3,
-     2^16) and the Lasso primary sumcheck's, msm_level over every level of
-     a 2^16 MSM (17 launches, no host sync; the profiler's device time),
+     2^16) and the Lasso primary sumcheck's, and at the ARX chain's zero
+     check (48 leaves, 2^19) and its largest GKR layer (73 leaves, 2^18),
+     msm_level over every level of a 2^16 MSM (17 launches, no host sync;
+     the profiler's device time) and of a 2^19 MSM (the ARX chain's
+     commits),
      ec_add at the first level of that MSM's bit-plane tree and over PR 6's
      878,592 lanes of the five cases; fold_all (1, 37, 64, 65 tables, the
      challenge as a host int and on the card) at 6 tables of 2^16; the
@@ -55,11 +58,27 @@ Phases, each printing one line with its wall time:
      then at nv = 16 with 32-bit AND in 8-bit chunks and a 16-bit range
      (seeds 16, 516, setup seed 0): setup, preprocess, prove and verify with
      per-stage times, the prove's launches, tamper, one profiled prove;
- 10. the layout microbench (halo2_lasso_tpu_torch/scripts/layout_bench.py):
+ 10. the circuit-builder frontend and multi-phase witnesses: three small
+     proofs on the card and through the plain path on the CPU, each hashing
+     to the JAX package's proof (ARX_SMALL_SHA256: arx_chain_circuit(4)
+     with 8-bit words, 4-bit chunks, rot 3; TWO_PHASE_SHA256:
+     rand_two_phase_circuit(3, RandomState(103)), whose cheating witness
+     must be rejected; BUILDER_SHA256: the builder's copy circuit of
+     tests/test_frontend.py::test_builder_e2e; setup seed 0 each); then the
+     ARX chain at full width, arx_chain_circuit(ARX["num_vars"]) with 32-bit
+     words, 8-bit XOR chunks and rot 7 (BASELINE config 4's scale), its
+     shape checked, build, setup, preprocess, prove and verify with
+     per-stage times, the prove's launches, tamper, one profiled prove and
+     one with its host syncs counted by site; then rand_two_phase_circuit at
+     nv = 16 (RandomState(116), setup seed 0): prove, verify, stage times,
+     launches, tamper, its cheating witness rejected (outside the path's
+     launch count), one profiled prove and one with its host syncs counted;
+ 11. the layout microbench (halo2_lasso_tpu_torch/scripts/layout_bench.py):
      K4, K6 and K7 bit-exact against each other and the plain version at
      2^16, 2^20 and 2^22, and timed.
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
-the nv = 16 part of 9, and 10) and read just after it; each path must
+the nv = 16 part of 9, the two full-width paths of 10, and 11) and read just
+after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
@@ -99,6 +118,18 @@ LASSO_PLONK = {
     "circuit": "rand_lasso_circuit", "num_vars": 16, "seeds": (16, 516), "setup_seed": 0,
     "kwargs": {"operand_bits": 32, "chunk_bits": 8, "range_bits": 16},
 }
+ARX_SMALL_SHA256 = "5e13a062db9b3a9f7dba437342477fd28c7f02a69f9ec60711528d227263ed2e"
+ARX_SMALL = {"circuit": "arx_chain_circuit", "num_vars": 4, "setup_seed": 0,
+             "kwargs": {"word_bits": 8, "chunk_bits": 4, "rot": 3}}
+TWO_PHASE_SHA256 = "a36e9f29744a6f6938cca92eb53bd1e7408899781a8c2c81499c1bbb21eccddb"
+TWO_PHASE_SMALL = {"circuit": "rand_two_phase_circuit", "num_vars": 3, "seeds": (103,), "setup_seed": 0}
+BUILDER_SHA256 = "5cb45859c055786dedda8a7d06b89282ec5ccd4632e73b3e58a03bed75bb4249"
+BUILDER_SMALL = {"circuit": "builder_copy_circuit", "num_vars": 3, "setup_seed": 0}
+# the ARX chain at BASELINE config 4's scale: 32-bit words, 8-bit XOR
+# chunks, rot 7 (arx_chain_circuit's defaults), 2^19 rows
+ARX = {"circuit": "arx_chain_circuit", "num_vars": 19, "setup_seed": 0}
+ARX_SHAPE = {"selectors": 1, "advice": [8], "gates": 6, "lasso_tables": ["xor_32", "range_25", "range_7"]}
+TWO_PHASE = {"circuit": "rand_two_phase_circuit", "num_vars": 16, "seeds": (116,), "setup_seed": 0}
 PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy", "sum_reduce")
 # the HyperPlonk paths' batch inversions and permutation scan
 HYPERPLONK_KERNELS = PROOF_KERNELS + ("mont_pow", "prefix_products")
@@ -107,6 +138,9 @@ PATH_KERNELS = {
     "hyperplonk": HYPERPLONK_KERNELS,
     "lasso_and": PROOF_KERNELS,
     "lasso_hyperplonk": HYPERPLONK_KERNELS,
+    # no copy constraint and no logup lookup: no batch inversion or scan
+    "arx": PROOF_KERNELS,
+    "two_phase": PROOF_KERNELS,
     "layout": ("mont_mul", "mont_mul_limbs_first", "mont_mul_tiled"),
 }
 # K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
@@ -153,7 +187,7 @@ def main() -> int:
     stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
     print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
     by_name = {k["name"]: k for k in kernels}
-    for name in ("mont_mul", "sum_reduce", "fix_var"):
+    for name in ("mont_mul", "sum_reduce", "fix_var", "sumcheck_round"):
         for shape, r in by_name[name]["timed"].items():
             print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r['device_ms']:.4f}ms (bound "
                   f"{r['bound_ms']:.5f}ms, {r['bound_by']}; plain {r['plain_ms']:.3f}ms)", flush=True)
@@ -166,6 +200,9 @@ def main() -> int:
           f"of the five cases {k3['five_case_ms']:.4f}ms (bound {k3['five_case_bound_ms']:.4f}ms)", flush=True)
     print(f"msm_level: {lv['shape']}: device {lv['ms']:.4f}ms, events {lv['event_ms']:.4f}ms (bound "
           f"{lv['bound_ms']:.4f}ms over {lv['adds']} adds; plain {lv['plain_ms']:.2f}ms)", flush=True)
+    for shape, r in lv["timed"].items():
+        print(f"msm_level: {shape}: device {r['device_ms']:.4f}ms, events {r['ms']:.4f}ms (bound "
+              f"{r['bound_ms']:.4f}ms over {r['adds']} adds)", flush=True)
     for name in ("fold_all", "mont_pow", "prefix_products", "eq_xy"):
         k = by_name[name]
         print(f"{name}: {k['shape']}: events {k['ms']:.4f}ms, device {k['device_ms']:.4f}ms (bound "
@@ -199,7 +236,20 @@ def main() -> int:
     run_hyperplonk_path(torch, np, launches, "lasso_hyperplonk", "lasso_plonk",
                         "nv=16 32-bit AND + 16-bit range Lasso lookups", LASSO_PLONK)
 
-    # 10. the layout microbench
+    # 10. the circuit-builder frontend and multi-phase witnesses: the small
+    # proofs against the JAX package's bytes, then the ARX chain and the
+    # two-phase circuit at full width
+    proof_gate(np, hyperplonk_proof, ARX_SMALL, ARX_SMALL_SHA256, "arx_small", "ARX chain k=4, 8-bit words")
+    proof_gate(np, lambda np, cfg, device: hyperplonk_proof(np, cfg, device, cheat=True), TWO_PHASE_SMALL,
+               TWO_PHASE_SHA256, "two_phase_small", "nv=3 two phases, cheating witness rejected")
+    proof_gate(np, hyperplonk_proof, BUILDER_SMALL, BUILDER_SHA256, "builder_small", "builder copy circuit k=3")
+    check_arx_shape(np, ARX)
+    run_hyperplonk_path(torch, np, launches, "arx", "arx",
+                        f"ARX chain k={ARX['num_vars']}, 32-bit words, 8-bit XOR chunks, rot 7", ARX)
+    run_hyperplonk_path(torch, np, launches, "two_phase", "two_phase",
+                        f"nv={TWO_PHASE['num_vars']} two phases", TWO_PHASE, cheat=True)
+
+    # 11. the layout microbench
     from halo2_lasso_tpu_torch.scripts import layout_bench
 
     t0 = time.perf_counter()
@@ -259,12 +309,17 @@ def run_path(launches, path, name, label, run):
     print_stages(records)
 
 
-def run_hyperplonk_path(torch, np, launches, path, name, label, cfg):
-    """A full-size HyperPlonk main path, then the prove's own launches and a
-    second, profiled prove."""
+def run_hyperplonk_path(torch, np, launches, path, name, label, cfg, cheat=False):
+    """A full-size HyperPlonk main path, then the prove's own launches, with
+    `cheat` a proof of the circuit's cheating witness rejected (after the
+    path's launches are read), a second, profiled prove and a third with its
+    host syncs counted by site."""
     extra = {}
     run_path(launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
     print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
+    if cheat:
+        rejects_cheat(np, cfg, extra["pp"], extra["vp"])
+        print("  a proof of the cheating witness was rejected", flush=True)
     prof = profile_prove(torch, extra["pp"], extra["circuit"])
     print("  second prove under torch.profiler: " + json.dumps(prof), flush=True)
     sites = sync_sites(torch, extra["pp"], extra["circuit"])
@@ -381,19 +436,105 @@ def rejects_flipped_byte(verify_fn, proof):
     raise SystemExit("a proof with a flipped byte was accepted")
 
 
-def hyperplonk_proof(np, cfg, device, tamper=False, extra=None):
-    """Setup, preprocess, prove and verify one HyperPlonk proof of a fixture
-    circuit; returns (proof bytes, stage records). `extra`, a dict, receives
-    the prover's kernel launches and what a second prove needs."""
-    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, fixtures, new_transcript
+def make_circuit(np, cfg, **kwargs):
+    """(circuit info, circuit) of a config: a fixture of
+    backend/hyperplonk/fixtures.py with its seeds' RandomStates, the ARX
+    chain of frontend/arx.py, or the builder's copy circuit."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures
+    from halo2_lasso_tpu_torch.frontend import arx, builder
+
+    name = cfg["circuit"]
+    if name == "builder_copy_circuit":
+        return builder_copy_circuit(builder.CircuitBuilder, builder.P)
+    fn = arx.arx_chain_circuit if name == "arx_chain_circuit" else getattr(fixtures, name)
+    return fn(cfg["num_vars"], *(np.random.RandomState(s) for s in cfg.get("seeds", ())),
+              **cfg.get("kwargs", {}), **kwargs)
+
+
+def builder_copy_circuit(CircuitBuilder, P):
+    """The copy circuit of tests/test_frontend.py::test_builder_e2e, through
+    either package's CircuitBuilder: k = 3, an instance column with no
+    values, a selector, advice columns a, b, c, the gate q * (a + b - c) on
+    rows 0..4, and four copies c_i = a_(i+1)."""
+    k, rows = 3, 5
+    b = CircuitBuilder(k)
+    b.instance_column()
+    q = b.selector()
+    a, bcol, c = (b.advice_column() for _ in range(3))
+    b.max_degree = 4
+    b.gate("add", lambda ctx: ctx.expr(q) * (ctx.expr(a) + ctx.expr(bcol) - ctx.expr(c)))
+    a_vals, b_vals, c_vals = [3] + [0] * (rows - 1), [4, 5, 6, 7, 8], []
+    for i in range(rows):
+        c_vals.append((a_vals[i] + b_vals[i]) % P)
+        if i + 1 < rows:
+            a_vals[i + 1] = c_vals[i]
+            b.copy(c, i, a, i + 1)
+    pad = [0] * ((1 << k) - rows)
+    fixed = {(q.index, r): 1 for r in range(rows)}
+    return b.build(fixed, lambda phase, challenges: [a_vals + pad, b_vals + pad, c_vals + pad], [[]])
+
+
+def arx_programs(np):
+    """The round programs of the full-width ARX chain (built at k = 5, the
+    same gates and tables): its zero check, and its largest GKR batch, which
+    batches the read and write grand products of every memory of its Lasso
+    layouts, one pure grand product each. Returns {name: (expression, leaf
+    keys, program, challenges)}, with the number of challenges each round
+    reads (beta, gamma, alpha; the batch's gamma)."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import preprocessor
+    from halo2_lasso_tpu_torch.lasso.integration import LassoLayout
+    from halo2_lasso_tpu_torch.piop import gkr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+
+    ci, _ = make_circuit(np, {**ARX, "num_vars": 5})
+    nz, expr = preprocessor.compose(ci)
+    n_polys = ci.num_poly() + preprocessor.num_lasso_polys(ci) + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz
+    keys = SC._leaf_keys(expr, n_polys)
+    nb = 2 * sum(len(LassoLayout(lk).mems) for lk in ci.lasso_lookups)
+    gexpr = gkr.sum_check_expression_pure(nb)
+    gkeys = SC._leaf_keys(gexpr, 2 * nb)
+    return {"zero check": (expr, keys, SC.lower_expression(expr, keys), 3),
+            "GKR batch": (gexpr, gkeys, SC.lower_expression(gexpr, gkeys), 1)}
+
+
+def check_arx_shape(np, cfg):
+    """The full-width ARX chain's circuit info (built at a small k, the same
+    gates and tables) against ARX_SHAPE, and the round programs of its zero
+    check and its largest GKR batch within K1's compiled limits."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import preprocessor
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+
+    t0 = time.perf_counter()
+    ci, _ = make_circuit(np, {**cfg, "num_vars": 5})
+    shape = {"selectors": len(ci.preprocess_polys), "advice": ci.num_witness_polys, "gates": len(ci.constraints),
+             "lasso_tables": [lk.table.name for lk in ci.lasso_lookups]}
+    if shape != ARX_SHAPE:
+        raise SystemExit(f"the ARX chain's shape is {shape}, not {ARX_SHAPE}")
+    progs = arx_programs(np)
+    for what, (_, keys, prog, _) in progs.items():
+        if len(keys) > SC.MAX_LEAVES or len(prog.ops) > SC.MAX_OPS or len(prog.consts) > SC.MAX_CONSTS:
+            raise SystemExit(f"the ARX chain's {what} exceeds K1's compiled limits")
+    expr, keys, prog, _ = progs["zero check"]
+    _, gkeys, gprog, _ = progs["GKR batch"]
+    mems = sum(len(lk.table.memories) for lk in ci.lasso_lookups)
+    stage("arx_shape", t0, f"{json.dumps(shape)}, {mems} Lasso memories, {preprocessor.num_lasso_polys(ci)} Lasso "
+          f"polys; zero check {len(keys)} leaves, {len(prog.ops)} ops, {len(prog.consts)} constants, stack "
+          f"{prog.max_stack}, degree {expr.degree}; largest GKR batch {len(gkeys)} leaves, {len(gprog.ops)} ops")
+
+
+def hyperplonk_proof(np, cfg, device, tamper=False, cheat=False, extra=None):
+    """Setup, preprocess, prove and verify one HyperPlonk proof of a config's
+    circuit; returns (proof bytes, stage records). With `cheat`, a proof of
+    the circuit's cheating witness (its `cheat=True`) must be rejected.
+    `extra`, a dict, receives the prover's kernel launches and what a second
+    prove needs."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
     from halo2_lasso_tpu_torch.ops import native
     from halo2_lasso_tpu_torch.utils.timer import timed
 
     timed.clear()
-    with timed.scope("fixture"):
-        ci, circuit = getattr(fixtures, cfg["circuit"])(
-            cfg["num_vars"], *(np.random.RandomState(s) for s in cfg["seeds"]), **cfg.get("kwargs", {})
-        )
+    with timed.scope("fixture" if "seeds" in cfg else "build"):
+        ci, circuit = make_circuit(np, cfg)
     with timed.scope("setup"):
         param = HyperPlonk.setup(ci, np.random.RandomState(cfg["setup_seed"]), device=device)
     pp, vp = HyperPlonk.preprocess(param, ci)
@@ -401,12 +542,32 @@ def hyperplonk_proof(np, cfg, device, tamper=False, extra=None):
     before = dict(native.counts)
     HyperPlonk.prove(pp, circuit, tw)
     if extra is not None:
-        extra.update(pp=pp, circuit=circuit, prove_launches={k: native.counts[k] - before[k] for k in before})
+        extra.update(pp=pp, vp=vp, circuit=circuit,
+                     prove_launches={k: native.counts[k] - before[k] for k in before})
     proof = tw.into_proof()
     HyperPlonk.verify(vp, circuit.instances(), new_transcript(proof))
     if tamper:
         rejects_flipped_byte(lambda bad: HyperPlonk.verify(vp, circuit.instances(), new_transcript(bad)), proof)
-    return proof, timed.records()
+    records = timed.records()
+    if cheat:
+        rejects_cheat(np, cfg, pp, vp)
+    return proof, records
+
+
+def rejects_cheat(np, cfg, pp, vp):
+    """A proof of the config's cheating witness (its circuit's `cheat=True`)
+    must be rejected."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
+    from halo2_lasso_tpu_torch.errors import Halo2LassoError
+
+    _, liar = make_circuit(np, cfg, cheat=True)
+    tw = new_transcript()
+    HyperPlonk.prove(pp, liar, tw)
+    try:
+        HyperPlonk.verify(vp, liar.instances(), new_transcript(tw.into_proof()))
+    except Halo2LassoError:
+        return
+    raise SystemExit("a proof of the cheating witness was accepted")
 
 
 def lasso_indices(np, cfg):
@@ -764,6 +925,25 @@ def check_kernels(torch, np, dev):
     lv["ms"] = device_ms(levels(MJ.msm_level), 5, ["msm_level_kernel"])["msm_level_kernel"]
     lv.update(shape="a 2^16 MSM's 17 launches (c = 10, W = 26)", adds=adds)
 
+    # msm_level over one 2^19 MSM (the ARX chain's commits): bit-exact at
+    # every level; its device time over the MSM's launches and its events'
+    # time, the bound counting the adds its data needs
+    big = 1 << 19
+    points19 = ec.fixed_base_msm(G1_GEN, rand_field(Fr, big))
+    lv["max_abs_err"] = max(lv["max_abs_err"], check_msm_levels(torch, np, rng, dev, points19, big, Fr))
+    scal19 = rand_field(Fr, big)
+    no_sync(torch, lambda: MJ.msm_planes(points19, scal19))
+    c19 = MJ.best_c(big)
+    B19, W19 = 1 << c19, -(-Fr.num_bits // c19)
+    dig19 = MJ.digits_all(F.from_mont(Fr, scal19), c19, W19).to(torch.int32)
+    adds19 = msm_level_adds(torch, torch.sort(dig19, dim=1, descending=True, stable=True).values, B19)
+    b_ms, b_by = bound_ms(big * 96 + W19 * big * 12 + W19 * B19 * 96, adds19 * 16 * IMAD_PER_MONT_MUL)
+    lv["timed"] = {f"a 2^19 MSM (c = {c19}, W = {W19})": {
+        "ms": cuda_ms(lambda: MJ.msm_planes(points19, scal19), 3),
+        "device_ms": device_ms(lambda: MJ.msm_planes(points19, scal19), 3, ["msm_level_kernel"])["msm_level_kernel"],
+        "bound_ms": b_ms, "bound_by": b_by, "adds": adds19}}
+    del points19, scal19, dig19
+
     # K3 at the first level of that MSM's bit-plane tree (c W 2^(c-1) lanes;
     # random buckets, so no lane meets P = Q or P = -Q)
     half = c * W * B // 2
@@ -810,6 +990,17 @@ def check_kernels(torch, np, dev):
             for last in (False, True):
                 err = max(err, same("fix_var", lambda: [mle.fix_var_chain(Fr, tab, x[None], last)[0]],
                                     lambda: [mle.fix_var_plain(Fr, tab, x, last)]))
+    # and at k = 19 in Fr (the ARX chain's opens and evaluations), both
+    # directions, with and without quotients, the point as host ints
+    k19 = 1 << 19
+    tab19 = rand_field(Fr, k19, [0, 1, p - 1, Fr.R])
+    y19 = [0, 1, p - 1] + Fr.decode_ints(rand_field(Fr, 16))
+    ty19 = Fr.encode(y19, dev)
+    for last in (False, True):
+        for quot in (False, True):
+            err = max(err, same("fix_var", lambda: no_sync(torch, lambda: [
+                t for t in mle.fix_var_chain(Fr, tab19, y19, last, quot) if t is not None]),
+                lambda: [t for t in mle.fix_var_chain_plain(Fr, tab19, ty19, last, quot) if t is not None]))
     tab = rand_field(Fr, n)
     y = Fr.decode_ints(rand_field(Fr, 16))
     ty = Fr.encode(y, dev)
@@ -824,8 +1015,15 @@ def check_kernels(torch, np, dev):
                                             32 * (2 * n), (n - 1) * IMAD_PER_MONT_MUL),
         "k = 16 evaluation": timing(lambda: mle.evaluate(Fr, tab, y), lambda: mle.fix_var_chain_plain(Fr, tab, ty, False),
                                     sym, 32 * (n + 1), (n - 1) * IMAD_PER_MONT_MUL),
+        "k = 19 KZG quotient chain": timing(lambda: mle.fix_var_chain(Fr, tab19, y19, True, True),
+                                            lambda: mle.fix_var_chain_plain(Fr, tab19, ty19, True, True), sym,
+                                            32 * (2 * k19), (k19 - 1) * IMAD_PER_MONT_MUL),
+        "k = 19 evaluation": timing(lambda: mle.evaluate(Fr, tab19, y19),
+                                    lambda: mle.fix_var_chain_plain(Fr, tab19, ty19, False), sym,
+                                    32 * (k19 + 1), (k19 - 1) * IMAD_PER_MONT_MUL),
     }
-    print("K5's chain: bit-exact in Fr and Fq, both directions, with quotients, one launch, no host sync", flush=True)
+    print("K5's chain: bit-exact in Fr and Fq (and at k = 19 in Fr), both directions, with quotients, one launch, "
+          "no host sync", flush=True)
 
     # K1 on the HyperPlonk zero check: the composed expression of the
     # nv = 16 with-lookup circuit (23 leaf tables, degree 5) at 2^14
@@ -853,6 +1051,31 @@ def check_kernels(torch, np, dev):
         leaves = [rand_field(Fr, size) for _ in keys]
         k1_err = max(k1_err, same("sumcheck_round", lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)],
                                   lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]))
+    # K1 at the ARX chain's shapes: its zero check (48 leaves, three
+    # challenges) at 2^14, 2 * 1037 and its first round (2^19), and the GKR
+    # layer batching the read and write grand products of its memories (73
+    # leaves, one challenge) at 2^14, 2 * 1037 and its largest layer (2^18);
+    # timed at the two large shapes, with no host sync or copy in the call
+    arx_timed = {}
+    progs = arx_programs(np)
+    for what, big in (("zero check", 1 << 19), ("GKR batch", 1 << 18)):
+        aexpr, akeys, aprog, nchal = progs[what]
+        achal = rand_field(Fr, nchal)
+        for size in (1 << 14, 2 * 1037, big):
+            aleaves = [rand_field(Fr, size) for _ in akeys]
+            k1_err = max(k1_err, same("sumcheck_round",
+                                      lambda: [SC.round_message(Fr, aleaves, aprog, achal, aexpr.degree)],
+                                      lambda: [SC.round_message_plain(Fr, aleaves, aprog, achal, aexpr.degree)]))
+        muls = program_muls(SC, aprog)
+        arx_timed[f"ARX {what}: {len(akeys)} leaves, degree {aexpr.degree}, {muls} products a point, "
+                  f"2^{big.bit_length() - 1}"] = timing(
+            lambda: SC.round_message(Fr, aleaves, aprog, achal, aexpr.degree),
+            lambda: SC.round_message_plain(Fr, aleaves, aprog, achal, aexpr.degree), ["round_kernel"],
+            len(aleaves) * big * 32, aexpr.degree * muls * (big // 2) * IMAD_PER_MONT_MUL)
+        del aleaves
+    print("K1 at the ARX chain's zero check (2^14, 2 * 1037, 2^19) and GKR batch (2^14, 2 * 1037, 2^18): "
+          "bit-exact, no host sync", flush=True)
+
     # timed at its first round (2^16), with no host sync or copy in the call
     leaves = [rand_field(Fr, n) for _ in keys]
     no_sync(torch, lambda: SC.round_message(Fr, leaves, prog, chal, expr.degree))
@@ -866,6 +1089,7 @@ def check_kernels(torch, np, dev):
                                      f"stack {prog.max_stack}, {muls} products a point, 2^16")
     results["sumcheck_round"]["device_ms"] = device_ms(
         lambda: SC.round_message(Fr, leaves, prog, chal, expr.degree), 20, ["round_kernel"])["round_kernel"]
+    results["sumcheck_round"]["timed"] = arx_timed
     print(f"K1 on the Lasso-in-HyperPlonk zero check: {len(keys)} leaves, degree {expr.degree}, "
           f"stack {prog.max_stack}, bit-exact at 2^14 and 2 * 1037, no host sync", flush=True)
 

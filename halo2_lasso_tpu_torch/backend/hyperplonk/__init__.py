@@ -164,14 +164,14 @@ class HyperPlonk:
         pcs_pp, pcs_vp = cls.Pcs.trim(param, 1 << _max_num_vars(circuit_info))
         device = param.eqs[0]["x"].device
 
-        preprocess_polys = [spec.encode(vals, device) for vals in circuit_info.preprocess_polys]
+        preprocess_polys = [F.encode_dev(spec, vals, device) for vals in circuit_info.preprocess_polys]
         preprocess_comms = cls.Pcs.batch_commit(pcs_pp, preprocess_polys)
 
         perm_poly_indices = circuit_info.permutation_polys()
         perm_values = preprocessor.permutation_polys_values(
             num_vars, perm_poly_indices, circuit_info.permutations
         )
-        permutation_polys = [prover.encode_small(spec, v, device) for v in perm_values]
+        permutation_polys = [F.encode_dev(spec, v, device) for v in perm_values]
         permutation_comms = cls.Pcs.batch_commit(pcs_pp, permutation_polys)
 
         num_permutation_z_polys, expression = preprocessor.compose(circuit_info)
@@ -220,7 +220,7 @@ class HyperPlonk:
             for v in inst:
                 transcript.common_field_element(v)
         instance_polys = [
-            spec.encode(prover.instance_poly_values(num_vars, inst, spec), device)
+            F.encode_dev(spec, prover.instance_poly_values(num_vars, inst, spec), device)
             for inst in instances
         ]
 
@@ -232,7 +232,7 @@ class HyperPlonk:
             with timed.scope(f"witness_collector-{round_}"):
                 cols = circuit.synthesize(round_, challenges)
                 assert len(cols) == num_w
-                polys_r = [spec.encode(c, device) for c in cols]
+                polys_r = [F.encode_dev(spec, c, device) for c in cols]
             comms = cls.Pcs.batch_commit(pp.pcs, polys_r)
             cls.Pcs.write_commitments(comms, transcript)
             witness_comms.extend(comms)

@@ -1,6 +1,7 @@
 """Test and bench circuits: vanilla plonk with and without a logup lookup,
-and circuits with Lasso lookups (the port of halo2_lasso_tpu/backend/hyperplonk/fixtures.py; util.rs of the
-Rust reference).
+circuits with Lasso lookups, and a two-phase circuit with a challenge (the
+port of halo2_lasso_tpu/backend/hyperplonk/fixtures.py; util.rs of the Rust
+reference).
 
 The same column layouts and constraint shapes, and the same draws from the
 caller's np.random.RandomState streams in the same order, so one pair of
@@ -282,3 +283,47 @@ def rand_full_feature_circuit(num_vars: int, preprocess_rng, witness_rng, operan
         ],
     )
     return circuit_info, MockCircuit([], [w_x, w_y, w_and, w_s, w_r, w_t])
+
+
+class TwoPhaseCircuit(MockCircuit):
+    """Two witness phases with a phase-0 challenge used in a gate (the port
+    of fixtures.py:171).
+
+    Phase 0 commits w0; the prover squeezes theta; phase 1 synthesizes
+    w1 = theta*w0 + w0^2 against the squeezed theta (frontend/halo2.rs:
+    222-244 semantics). `cheat=True` synthesizes w1 against theta + 1: the
+    prover completes, and the verifier's zero check fails."""
+
+    def __init__(self, w0: List[int], cheat: bool = False):
+        super().__init__([], [w0])
+        self.w0 = w0
+        self.cheat = cheat
+
+    def synthesize(self, round_, challenges):
+        P = Fr.modulus
+        if round_ == 0:
+            return [self.w0]
+        theta = (challenges[0] + (1 if self.cheat else 0)) % P
+        return [[(theta * v + v * v) % P for v in self.w0]]
+
+
+def rand_two_phase_circuit(num_vars: int, witness_rng, cheat: bool = False):
+    """Circuit info and witness of the two-phase, one-challenge shape (the
+    port of fixtures.py:192): columns [w0 (phase 0), w1 (phase 1)], gate
+    w1 - theta*w0 - w0^2 = 0."""
+    size = 1 << num_vars
+    w0_e, w1_e = Expression.poly(0), Expression.poly(1)
+    theta = Expression.challenge(0)
+    circuit_info = PlonkishCircuitInfo(
+        k=num_vars,
+        num_instances=[],
+        preprocess_polys=[],
+        num_witness_polys=[1, 1],
+        num_challenges=[1, 0],
+        constraints=[theta * w0_e + w0_e * w0_e - w1_e],
+        lookups=[],
+        permutations=[],
+        max_degree=4,
+    )
+    w0 = [_rand_fe(witness_rng) for _ in range(size)]
+    return circuit_info, TwoPhaseCircuit(w0, cheat=cheat)

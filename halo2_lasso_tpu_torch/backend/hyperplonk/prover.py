@@ -51,14 +51,6 @@ def instance_poly_values(num_vars: int, instances: Sequence[int], spec: FieldSpe
     return out
 
 
-def encode_small(spec: FieldSpec, values: np.ndarray, device) -> torch.Tensor:
-    """Non-negative integers below 2^32 (numpy) -> Montgomery tensor on the
-    device, converted there."""
-    values = np.asarray(values, dtype=np.int64)
-    assert values.size == 0 or (values.min() >= 0 and values.max() < 1 << 32)
-    return F.u32_to_mont(spec, torch.from_numpy(values).to(device))
-
-
 def lookup_compressed_polys(
     lookups: Sequence[Sequence[Tuple[Expression, Expression]]],
     polys: Sequence[torch.Tensor],

@@ -49,11 +49,14 @@
 
 #define MAX_STACK 8
 #define MAX_DEGREE 8
-#define MAX_LEAVES 64
-#define MAX_OPS 384
+// 128 leaves and 640 ops take a GKR layer batching 63 pure grand products
+// (2 leaves and 10 ops each, and the eq table): the 32-bit ARX chain's
+// memory check batches 36.
+#define MAX_LEAVES 128
+#define MAX_OPS 640
 #define MAX_CONSTS 32
 
-// 2.3 KB, under the 4 KB of kernel parameters every CUDA version takes.
+// 3.3 KB, under the 4 KB of kernel parameters every CUDA version takes.
 struct RoundParams {
   const uint32_t* leaves[MAX_LEAVES];
   Fe consts[MAX_CONSTS];
@@ -62,6 +65,7 @@ struct RoundParams {
   long long h;
   int nops;
 };
+static_assert(sizeof(RoundParams) <= 4096, "kernel parameters above 4 KB");
 
 // One thread's stack: value t of slot s, limb j at base[((s * D + t) * 8 + j) * T].
 template <int D>

@@ -129,8 +129,9 @@ def _read_ts_and_final_dev(addr: torch.Tensor, n_sub: int):
 @functools.lru_cache(maxsize=None)
 def _subtable_dev(subtable: Subtable, device: str) -> torch.Tensor:
     """Subtable values as Montgomery elements on the device (the port of
-    lasso/integration.py:381)."""
-    return Fr.encode(subtable.values(), device)
+    lasso/integration.py:381): limbs cut on the host, one product on the
+    device."""
+    return F.encode_dev(Fr, subtable.values(), device)
 
 
 def _fingerprint(addr_tau, val, ts, gamma: int) -> torch.Tensor:

@@ -104,6 +104,25 @@ class FieldSpec:
         out = from_numpy_u32(ints_to_u32(flat), device)
         return out.reshape(arr.shape + (LIMBS,))
 
+    def canonical_limbs(self, values) -> np.ndarray:
+        """Ints (any shape) -> uint32 (..., 8) canonical limbs, vectorised
+        (the port of halo2_lasso_tpu/ops/field.py:116; pair it with
+        ``encode_dev`` for the Montgomery conversion on the device). A
+        non-negative machine-integer array takes a pure numpy path; any other
+        column (Python ints, object arrays, negative values) is reduced mod p
+        and cut into limbs through one byte buffer."""
+        arr = np.asarray(values)
+        if arr.dtype != object and np.issubdtype(arr.dtype, np.integer) and (arr.size == 0 or arr.min() >= 0):
+            v = arr.astype(np.uint64)
+            out = np.zeros(arr.shape + (LIMBS,), np.uint32)
+            out[..., 0] = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            out[..., 1] = (v >> np.uint64(32)).astype(np.uint32)
+            return out
+        flat = np.asarray(values, dtype=object).reshape(-1)
+        p = self.modulus
+        buf = b"".join(int(v % p).to_bytes(4 * LIMBS, "little") for v in flat)
+        return np.frombuffer(buf, dtype="<u4").astype(np.uint32).reshape(arr.shape + (LIMBS,))
+
     def decode(self, t: torch.Tensor) -> np.ndarray:
         """Montgomery tensor (..., 8) -> object array of canonical ints."""
         ints = u32_to_ints(to_numpy_u32(t).reshape(-1, LIMBS))
@@ -343,6 +362,15 @@ def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul(spec, a, _const(spec, "canon_one", str(a.device)))
+
+
+def encode_dev(spec: FieldSpec, values, device="cpu") -> torch.Tensor:
+    """Ints (any shape) -> Montgomery tensor (..., 8) on `device`: canonical
+    limbs cut on the host (``FieldSpec.canonical_limbs``), then one product
+    by R^2 on the device, one launch of csrc/mont_mul.cu on a CUDA tensor
+    (the port of halo2_lasso_tpu/ops/field.py:362). The same limbs as
+    ``spec.encode``, without its per-element loop."""
+    return to_mont(spec, from_numpy_u32(spec.canonical_limbs(values), device))
 
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:

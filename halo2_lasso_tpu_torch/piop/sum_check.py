@@ -109,8 +109,8 @@ OP_LEAF, OP_CONST, OP_CHAL, OP_NEG, OP_ADD, OP_MUL, OP_SCALED = range(7)
 # them equal); round_message raises before a launch that would exceed one
 MAX_STACK = 8
 MAX_DEGREE = 8
-MAX_LEAVES = 64
-MAX_OPS = 384
+MAX_LEAVES = 128
+MAX_OPS = 640
 MAX_CONSTS = 32
 ROUND_THREADS = 128  # threads a block, at most (csrc/sumcheck_round.cu gives the times)
 _MAX_BLOCKS = 2048
@@ -150,11 +150,10 @@ def lower_expression(expression: Expression, keys: Sequence[Tuple]) -> RoundProg
         return prog
     leaf_index = {k: i for i, k in enumerate(keys)}
     ops: List[Tuple[int, int]] = []
-    consts: List[int] = []
+    consts: Dict[int, int] = {}  # value -> its slot, so a repeated constant takes one of MAX_CONSTS
 
     def const(v: int) -> int:
-        consts.append(int(v))
-        return len(consts) - 1
+        return consts.setdefault(int(v), len(consts))
 
     def emit(e: Expression):
         k = e.kind

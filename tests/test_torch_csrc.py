@@ -421,6 +421,31 @@ def test_round_eval_pair_matches_plain(harness, name):
     assert np.array_equal(run(harness, [line]).reshape(-1, 8), F.to_numpy_u32(want))
 
 
+def test_round_eval_pair_matches_plain_at_arx_gkr_batch(harness):
+    """The same one-pass evaluation on the largest program of the 32-bit ARX
+    chain's memory check: a GKR layer batching 36 pure grand products, 73
+    leaves and 359 ops, beyond the 64 leaves and 384 ops the kernel took
+    before."""
+    from halo2_lasso_tpu_torch.piop import gkr
+    from halo2_lasso_tpu_torch.piop import sum_check as sc
+
+    expr = gkr.sum_check_expression_pure(36)
+    keys = sc._leaf_keys(expr, 72)
+    prog = sc.lower_expression(expr, keys)
+    assert (len(keys), len(prog.ops)) == (73, 359)
+    rng = random.Random(36)
+    p = Fr.modulus
+    h = 5
+    tables = [Fr.encode([rng.randrange(p) for _ in range(2 * h)]) for _ in keys]
+    chals = Fr.encode([rng.randrange(p)])
+    ops, consts = prog.kernel_args(Fr)
+    line = " ".join([f"r {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 1 {prog.max_stack}"]
+                    + [words(t) for t in tables] + [" ".join(map(str, ops.tolist()))]
+                    + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
+    want = sc.round_message_plain(Fr, tables, prog, chals, expr.degree)
+    assert np.array_equal(run(harness, [line]).reshape(-1, 8), F.to_numpy_u32(want))
+
+
 def test_round_kernel_limits_match_wrapper():
     """The limits compiled into csrc/sumcheck_round.cu are the ones the
     wrapper checks before a launch."""
