@@ -75,16 +75,30 @@ Phases, each printing one line with its wall time:
      launch count), one profiled prove and one with its host syncs counted;
  11. the layout microbench (halo2_lasso_tpu_torch/scripts/layout_bench.py):
      K4, K6 and K7 bit-exact against each other and the plain version at
-     2^16, 2^20 and 2^22, and timed.
+     2^16, 2^20 and 2^22, and timed;
+ 12. HyperPlonk and Lasso over the secondary BN254 PCS: the nv = 3 vanilla
+     plonk proof (seeds 3, 103, setup seed 0) under Gemini, Zeromorph,
+     MultilinearIpa and MultilinearHyrax, and a Lasso proof over Gemini
+     (range_table(16, 8), 8 lookups, SRS seed 3), each on the card and
+     through the plain path on the CPU, hashing to the JAX package's proof
+     (PCS_PLONK_SHA256, LASSO_GEMINI_SHA256); then phase 7's circuit at
+     nv = 16 under each of the four PCS (setup with IPA's hash_to_curve
+     timed apart, preprocess, prove, verify, stage times, the prove's
+     launches, tamper, one profiled and one sync-counted prove), and
+     phase 5's slice over Gemini (setup, prove, verify, tamper, the same
+     launches, profiled and sync-counted proves).
+The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
+nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
+the point, with identity lanes).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
-the nv = 16 part of 9, the two full-width paths of 10, and 11) and read just
-after it; each path must
+the nv = 16 part of 9, the two full-width paths of 10, 11, and the five
+full-size paths of 12) and read just after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
-tensor fails the run. The profiled HyperPlonk proves also count their host
-syncs by the port function that made them (a third prove, under
-torch.cuda.set_sync_debug_mode("warn")).
+tensor fails the run. The profiled proves (the full-size HyperPlonk paths
+and Lasso over Gemini) also count their host syncs by the port function
+that made them (a third prove, under torch.cuda.set_sync_debug_mode("warn")).
 
 The last lines are a JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -128,6 +142,23 @@ BUILDER_SMALL = {"circuit": "builder_copy_circuit", "num_vars": 3, "setup_seed":
 # the ARX chain at BASELINE config 4's scale: 32-bit words, 8-bit XOR
 # chunks, rot 7 (arx_chain_circuit's defaults), 2^19 rows
 ARX = {"circuit": "arx_chain_circuit", "num_vars": 19, "setup_seed": 0}
+# HyperPlonk and Lasso over the secondary BN254 PCS: the nv = 3 vanilla
+# plonk proofs of tests/test_hyperplonk_pcs.py's seeds under each PCS and
+# the Lasso-over-Gemini proof of tests/test_lasso.py's shape, each hashing
+# to the JAX package's proof on the CPU (tests/test_torch_hyperplonk_pcs.py,
+# tests/test_torch_hyperplonk_ipa.py, tests/test_torch_lasso_gemini.py hold
+# the two packages to them); then PLONK's circuit and the Lasso slice over them
+SECONDARY_PCS = ("Gemini", "Zeromorph", "MultilinearIpa", "MultilinearHyrax")
+PCS_PLONK_SMALL = {"circuit": "rand_vanilla_plonk_circuit", "num_vars": 3, "seeds": (3, 103), "setup_seed": 0}
+PCS_PLONK_SHA256 = {
+    "Gemini": "7cb8ccdce443cd36147e7c8b0eb2a151bc749bbd7b7851396ae5658daae7085e",
+    "Zeromorph": "481129c602ce29493f70c20af9f1374a7c389f835136741afb270669dcb1a67f",
+    "MultilinearIpa": "6ed95c494c683ae59985869aa2cc6aed428773f03ff2aa6ee83b895cb9c6ba6f",
+    "MultilinearHyrax": "3777c0d2f4663ae16cef31c4ce779f51b564ec939177f9f74170009399617560",
+}
+LASSO_GEMINI_SMALL = {"index_bits": 16, "chunk_bits": 8, "lookups": 8, "srs_seed": 3, "index_seed": 123, "pcs": "Gemini"}
+LASSO_GEMINI_SHA256 = "ec43db505fd50634294dc7df94bdc4e5cad5a7ed08286a824b966e70d16e632b"
+LASSO_GEMINI = {**SLICE, "pcs": "Gemini"}
 ARX_SHAPE = {"selectors": 1, "advice": [8], "gates": 6, "lasso_tables": ["xor_32", "range_25", "range_7"]}
 TWO_PHASE = {"circuit": "rand_two_phase_circuit", "num_vars": 16, "seeds": (116,), "setup_seed": 0}
 PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy", "sum_reduce")
@@ -142,6 +173,11 @@ PATH_KERNELS = {
     "arx": PROOF_KERNELS,
     "two_phase": PROOF_KERNELS,
     "layout": ("mont_mul", "mont_mul_limbs_first", "mont_mul_tiled"),
+    # phase 7's circuit under each secondary PCS (HyperPlonk's batch
+    # inversions and scan, as there); Lasso over Gemini adds the scan of the
+    # univariate evaluations' powers
+    **{f"plonk_{name}": HYPERPLONK_KERNELS for name in SECONDARY_PCS},
+    "lasso_gemini": PROOF_KERNELS + ("prefix_products",),
 }
 # K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
 # entries that replaced its caller loops (csrc/mont_chain.cu)
@@ -197,7 +233,9 @@ def main() -> int:
           f"Lasso primary 2^16: {k1['primary_ms']:.4f}ms (bound {k1['primary_bound_ms']:.4f}ms, "
           f"{k1['primary_bound_by']})", flush=True)
     print(f"ec_add: {k3['shape']}: {k3['ms']:.4f}ms (bound {k3['bound_ms']:.4f}ms); PR 6's 878,592 lanes "
-          f"of the five cases {k3['five_case_ms']:.4f}ms (bound {k3['five_case_bound_ms']:.4f}ms)", flush=True)
+          f"of the five cases {k3['five_case_ms']:.4f}ms (bound {k3['five_case_bound_ms']:.4f}ms); "
+          f"{k3['ladder_shape']}: {k3['ladder_ms']:.4f}ms (bound {k3['ladder_bound_ms']:.4f}ms, "
+          f"{k3['ladder_bound_by']}; plain {k3['ladder_plain_ms']:.3f}ms)", flush=True)
     print(f"msm_level: {lv['shape']}: device {lv['ms']:.4f}ms, events {lv['event_ms']:.4f}ms (bound "
           f"{lv['bound_ms']:.4f}ms over {lv['adds']} adds; plain {lv['plain_ms']:.2f}ms)", flush=True)
     for shape, r in lv["timed"].items():
@@ -260,6 +298,22 @@ def main() -> int:
     for r in layouts:
         print("  " + json.dumps(r), flush=True)
 
+    # 12. HyperPlonk and Lasso over the secondary BN254 PCS: the small proofs
+    # against the JAX package's bytes, then phase 7's circuit under each PCS
+    # and the Lasso slice over Gemini
+    for name in SECONDARY_PCS:
+        proof_gate(np, hyperplonk_proof, {**PCS_PLONK_SMALL, "pcs": name}, PCS_PLONK_SHA256[name],
+                   f"plonk_small_{name}", f"nv=3 vanilla over {name}")
+    proof_gate(np, lasso_proof, LASSO_GEMINI_SMALL, LASSO_GEMINI_SHA256, "lasso_gemini_small",
+               "range_table(16,8), 8 lookups over Gemini")
+    for name in SECONDARY_PCS:
+        run_hyperplonk_path(torch, np, launches, f"plonk_{name}", f"plonk_{name}",
+                            f"nv=16 vanilla plonk with lookup over {name}", {**PLONK, "pcs": name})
+    extra = {}
+    run_path(launches, "lasso_gemini", "lasso_gemini", "2^16 lookups range_table(16,16) over Gemini",
+             lambda: lasso_proof(np, LASSO_GEMINI, "cuda", tamper=True, extra=extra))
+    profile_path(torch, extra)
+
     for path, counts in launches.items():
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         if missing:
@@ -310,31 +364,47 @@ def run_path(launches, path, name, label, run):
 
 
 def run_hyperplonk_path(torch, np, launches, path, name, label, cfg, cheat=False):
-    """A full-size HyperPlonk main path, then the prove's own launches, with
-    `cheat` a proof of the circuit's cheating witness rejected (after the
-    path's launches are read), a second, profiled prove and a third with its
-    host syncs counted by site."""
+    """A full-size HyperPlonk main path, with `cheat` a proof of the
+    circuit's cheating witness rejected (after the path's launches are
+    read), then ``profile_path``."""
     extra = {}
     run_path(launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
-    print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
     if cheat:
         rejects_cheat(np, cfg, extra["pp"], extra["vp"])
         print("  a proof of the cheating witness was rejected", flush=True)
-    prof = profile_prove(torch, extra["pp"], extra["circuit"])
+    profile_path(torch, extra)
+
+
+def profile_path(torch, extra):
+    """After a main path: the launches of its prove alone, then a second,
+    profiled prove and a third with its host syncs counted by site (the
+    prove `extra["prove"]` runs)."""
+    print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
+    prof = profile_prove(torch, extra["prove"])
     print("  second prove under torch.profiler: " + json.dumps(prof), flush=True)
-    sites = sync_sites(torch, extra["pp"], extra["circuit"])
+    sites = sync_sites(torch, extra["prove"])
     print(f"  third prove, host syncs by site ({sum(sites.values())}): " + json.dumps(sites), flush=True)
 
 
-def sync_sites(torch, pp, circuit):
+def pcs_class(cfg):
+    """The port's PCS class a config names (multilinear KZG by default)."""
+    from halo2_lasso_tpu_torch.pcs.gemini import Gemini
+    from halo2_lasso_tpu_torch.pcs.hyrax import MultilinearHyrax
+    from halo2_lasso_tpu_torch.pcs.ipa import MultilinearIpa
+    from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
+    from halo2_lasso_tpu_torch.pcs.zeromorph import Zeromorph
+
+    classes = (MultilinearKzg, Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax)
+    return {c.__name__: c for c in classes}[cfg.get("pcs", "MultilinearKzg")]
+
+
+def sync_sites(torch, prove):
     """One more prove with every host sync counted by the innermost port
     function outside ops/field.py that made it (the syncs' kinds: round
     messages, MSM results, witness reads)."""
     import collections
     import traceback
     import warnings
-
-    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
 
     pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "halo2_lasso_tpu_torch", "")
     sites = collections.Counter()
@@ -351,18 +421,17 @@ def sync_sites(torch, pp, circuit):
         warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            HyperPlonk.prove(pp, circuit, new_transcript())
+            prove()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return dict(sites.most_common())
 
 
-def profile_prove(torch, pp, circuit):
+def profile_prove(torch, prove):
     """One more prove under torch.profiler: its wall time, the card's busy
     time, each hand kernel's device time and launches, the device-to-host
     and host-to-device copies, and the heaviest other device rows. A failure
     of the prove or of the profiler fails the run."""
-    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
     from halo2_lasso_tpu_torch.ops import native
 
     from halo2_lasso_tpu_torch.utils.bench import PROFILER_SESSIONS
@@ -372,7 +441,7 @@ def profile_prove(torch, pp, circuit):
         with torch.profiler.profile(activities=acts) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            HyperPlonk.prove(pp, circuit, new_transcript())
+            prove()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device-side rows only (kernels, copies, memsets): one stream, so
@@ -524,30 +593,31 @@ def check_arx_shape(np, cfg):
 
 def hyperplonk_proof(np, cfg, device, tamper=False, cheat=False, extra=None):
     """Setup, preprocess, prove and verify one HyperPlonk proof of a config's
-    circuit; returns (proof bytes, stage records). With `cheat`, a proof of
-    the circuit's cheating witness (its `cheat=True`) must be rejected.
-    `extra`, a dict, receives the prover's kernel launches and what a second
-    prove needs."""
-    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
+    circuit under the PCS it names; returns (proof bytes, stage records).
+    With `cheat`, a proof of the circuit's cheating witness (its
+    `cheat=True`) must be rejected. `extra`, a dict, receives the prover's
+    kernel launches and what a second prove needs."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import hyperplonk
     from halo2_lasso_tpu_torch.ops import native
     from halo2_lasso_tpu_torch.utils.timer import timed
 
     timed.clear()
     with timed.scope("fixture" if "seeds" in cfg else "build"):
         ci, circuit = make_circuit(np, cfg)
+    backend = hyperplonk(pcs_class(cfg))
     with timed.scope("setup"):
-        param = HyperPlonk.setup(ci, np.random.RandomState(cfg["setup_seed"]), device=device)
-    pp, vp = HyperPlonk.preprocess(param, ci)
-    tw = new_transcript()
+        param = backend.setup(ci, np.random.RandomState(cfg["setup_seed"]), device=device)
+    pp, vp = backend.preprocess(param, ci)
+    tw = backend.transcript()
     before = dict(native.counts)
-    HyperPlonk.prove(pp, circuit, tw)
+    backend.prove(pp, circuit, tw)
     if extra is not None:
-        extra.update(pp=pp, vp=vp, circuit=circuit,
+        extra.update(pp=pp, vp=vp, prove=lambda: backend.prove(pp, circuit, backend.transcript()),
                      prove_launches={k: native.counts[k] - before[k] for k in before})
     proof = tw.into_proof()
-    HyperPlonk.verify(vp, circuit.instances(), new_transcript(proof))
+    backend.verify(vp, circuit.instances(), backend.transcript(proof))
     if tamper:
-        rejects_flipped_byte(lambda bad: HyperPlonk.verify(vp, circuit.instances(), new_transcript(bad)), proof)
+        rejects_flipped_byte(lambda bad: backend.verify(vp, circuit.instances(), backend.transcript(bad)), proof)
     records = timed.records()
     if cheat:
         rejects_cheat(np, cfg, pp, vp)
@@ -592,13 +662,14 @@ def lasso_table(cfg):
     return tables.range_table(cfg["index_bits"], cfg["chunk_bits"])
 
 
-def lasso_proof(np, cfg, device, tamper=False):
-    """Setup, prove and verify one standalone Lasso proof; returns (proof
-    bytes, stage records). With `tamper`, a proof with one flipped byte
-    must fail."""
+def lasso_proof(np, cfg, device, tamper=False, extra=None):
+    """Setup, prove and verify one standalone Lasso proof over the PCS the
+    config names; returns (proof bytes, stage records). With `tamper`, a
+    proof with one flipped byte must fail. `extra`, a dict, receives the
+    prover's kernel launches and a second prove."""
     from halo2_lasso_tpu_torch.lasso import prove, verify
+    from halo2_lasso_tpu_torch.ops import native
     from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
-    from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
     from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
     from halo2_lasso_tpu_torch.utils.timer import timed
 
@@ -609,16 +680,21 @@ def lasso_proof(np, cfg, device, tamper=False):
     nv_m = cfg["lookups"].bit_length() - 1
     nv = max(nv_m, table.memories[0].subtable.index_bits)
     indices = lasso_indices(np, cfg)
+    pcs = pcs_class(cfg)
     timed.clear()
     with timed.scope("lasso_setup"):
-        param = MultilinearKzg.setup(1 << nv, np.random.RandomState(cfg["srs_seed"]), device=device)
-        pp, vp = MultilinearKzg.trim(param, 1 << nv)
+        param = pcs.setup(1 << nv, np.random.RandomState(cfg["srs_seed"]), device=device)
+        pp, vp = pcs.trim(param, 1 << nv)
     tw = transcript()
-    prove(pp, table, indices, tw, device=device)
+    before = dict(native.counts)
+    prove(pp, table, indices, tw, pcs=pcs, device=device)
+    if extra is not None:
+        extra.update(prove=lambda: prove(pp, table, indices, transcript(), pcs=pcs, device=device),
+                     prove_launches={k: native.counts[k] - before[k] for k in before})
     proof = tw.into_proof()
-    verify(vp, table, nv_m, transcript(proof))
+    verify(vp, table, nv_m, transcript(proof), pcs=pcs)
     if tamper:
-        rejects_flipped_byte(lambda bad: verify(vp, table, nv_m, transcript(bad)), proof)
+        rejects_flipped_byte(lambda bad: verify(vp, table, nv_m, transcript(bad), pcs=pcs), proof)
     return proof, timed.records()
 
 
@@ -957,6 +1033,36 @@ def check_kernels(torch, np, dev):
            lambda: list(ec.ec_add(lo, hi).values()), lambda: list(ec.ec_add_plain(lo, hi).values()),
            half * 9 * 32, live * 16 * IMAD_PER_MONT_MUL, k3_err)
     results["ec_add"].update(five, shape=f"bit-plane tree level 1 of a 2^16 MSM, {half} lanes")
+
+    # K3 at the IPA ladder's shapes at nv = 16 (MultilinearIpa._scale_points
+    # over the first round's 2^15 right-hand bases), every 9th lane the
+    # identity: six steps of a per-lane random scalar's top bits, each the
+    # doubling of the accumulator (O + O while it is the identity, then
+    # P + P) and the add of the point (O + P, O + O, generic), and the point
+    # added to itself, each against the plain version; the doubling step
+    # timed, its bound counting the doubling lanes' 15 products
+    lanes = n // 2
+    base = ec.fixed_base_msm(G1_GEN, rand_field(Fr, lanes))
+    base["z"][::9] = 0
+    acc = ec.identity_point(lanes, dev)
+    k3_err = same("ec_add", lambda: list(ec.ec_add(base, base).values()),
+                  lambda: list(ec.ec_add_plain(base, base).values()))
+    for _ in range(6):
+        k3_err = max(k3_err, same("ec_add", lambda: list(ec.ec_add(acc, acc).values()),
+                                  lambda: list(ec.ec_add_plain(acc, acc).values())))
+        dbl = ec.ec_add(acc, acc)
+        k3_err = max(k3_err, same("ec_add", lambda: list(ec.ec_add(dbl, base).values()),
+                                  lambda: list(ec.ec_add_plain(dbl, base).values())))
+        bit = torch.from_numpy(rng.randint(0, 2, size=lanes).astype(bool)).to(dev)
+        acc = ec.ec_select(bit, ec.ec_add(dbl, base), dbl)
+    live = int((~F.is_zero(acc["z"])).sum())
+    b_ms, b_by = bound_ms(lanes * 9 * 32, live * 15 * IMAD_PER_MONT_MUL)
+    results["ec_add"].update(
+        max_abs_err=max(results["ec_add"]["max_abs_err"], k3_err),
+        ladder_shape=f"IPA ladder doubling step, {lanes} lanes ({live} not the identity)",
+        ladder_ms=cuda_ms(lambda: ec.ec_add(acc, acc), 20), ladder_plain_ms=cuda_ms(lambda: ec.ec_add_plain(acc, acc), 2),
+        ladder_bound_ms=b_ms, ladder_bound_by=b_by)
+    del base, acc, dbl
     if planes["x"].shape[0] != c * W:
         raise SystemExit("msm_planes returned the wrong number of plane sums")
 

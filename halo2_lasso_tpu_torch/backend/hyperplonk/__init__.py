@@ -1,6 +1,10 @@
-"""HyperPlonk backend over multilinear KZG: setup / preprocess / prove /
-verify (the port of halo2_lasso_tpu/backend/hyperplonk/__init__.py;
-plonkish_backend/src/backend/hyperplonk.rs:85-369 semantics).
+"""HyperPlonk backend, generic over the polynomial commitment scheme: setup /
+preprocess / prove / verify (the port of
+halo2_lasso_tpu/backend/hyperplonk/__init__.py;
+plonkish_backend/src/backend/hyperplonk.rs:85-369 semantics). ``HyperPlonk``
+runs over multilinear KZG; ``hyperplonk(pcs_cls)`` instantiates it over
+another BN254 PCS (Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax), the
+reference's ``HyperPlonk<Pcs>`` (hyperplonk.rs:398-427).
 
 Witness tables, lookup and permutation polys, the zero check and the MSMs
 run on the device that holds the prover parameters (``setup`` defaults to
@@ -28,7 +32,8 @@ from halo2_lasso_tpu_torch.lasso import tables
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
 from halo2_lasso_tpu_torch.pcs import Evaluation
-from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg, from_jax_kzg_params
+from halo2_lasso_tpu_torch.ops import curves
+from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
 from halo2_lasso_tpu_torch.poly import multilinear as mle
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 from halo2_lasso_tpu_torch.utils.timer import timed
@@ -36,6 +41,14 @@ from halo2_lasso_tpu_torch.utils.timer import timed
 
 def new_transcript(proof: Optional[bytes] = None) -> Keccak256Transcript:
     return Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, proof=proof, curve_b=3)
+
+
+def transcript_for(pcs_cls, proof: Optional[bytes] = None) -> Keccak256Transcript:
+    """A transcript for a PCS's curve and field: challenges in its FIELD,
+    points checked on its CURVE (BN254 G1 and Fr unless it says)."""
+    curve = getattr(pcs_cls, "CURVE", curves.BN254_G1)
+    field = getattr(pcs_cls, "FIELD", Fr)
+    return Keccak256Transcript(field.modulus, base_modulus=curve.base.modulus, proof=proof, curve_b=curve.b)
 
 
 def _max_num_vars(circuit_info_or_pp) -> int:
@@ -102,17 +115,19 @@ class HyperPlonkVerifierParam:
     lasso_lookups: list = dataclasses.field(default_factory=list)
 
 
-def from_jax_hyperplonk_params(jpp, jvp, device="cuda") -> Tuple[HyperPlonkProverParam, HyperPlonkVerifierParam]:
+def from_jax_hyperplonk_params(jpp, jvp, device="cuda", pcs=MultilinearKzg) -> Tuple[HyperPlonkProverParam, HyperPlonkVerifierParam]:
     """The JAX package's HyperPlonkProverParam / HyperPlonkVerifierParam
     (limb arrays convertible to numpy, Python ints, its Expression trees)
-    -> the port's, with the preprocessed polys on `device`. Each Lasso
-    lookup's table is rebuilt by the port's constructor of the same name."""
+    -> the port's, with the preprocessed polys on `device` and the PCS
+    params converted by the port's `pcs` class (``from_jax_params``). Each
+    Lasso lookup's table is rebuilt by the port's constructor of the same
+    name."""
 
     def poly(a):
         return F.from_jax_limbs(np.asarray(a), device)
 
     pp = HyperPlonkProverParam(
-        pcs=from_jax_kzg_params(jpp.pcs, device),
+        pcs=pcs.from_jax_params(jpp.pcs, device),
         num_instances=list(jpp.num_instances),
         num_witness_polys=list(jpp.num_witness_polys),
         num_challenges=list(jpp.num_challenges),
@@ -127,7 +142,7 @@ def from_jax_hyperplonk_params(jpp, jvp, device="cuda") -> Tuple[HyperPlonkProve
         lasso_lookups=_lasso_from_foreign(jpp.lasso_lookups),
     )
     vp = HyperPlonkVerifierParam(
-        pcs=from_jax_kzg_params(jvp.pcs, device),
+        pcs=pcs.from_jax_params(jvp.pcs, device),
         num_instances=list(jvp.num_instances),
         num_witness_polys=list(jvp.num_witness_polys),
         num_challenges=list(jvp.num_challenges),
@@ -147,6 +162,10 @@ class HyperPlonk:
     field = Fr
 
     @classmethod
+    def transcript(cls, proof: Optional[bytes] = None) -> Keccak256Transcript:
+        return transcript_for(cls.Pcs, proof)
+
+    @classmethod
     def setup(cls, circuit_info: PlonkishCircuitInfo, rng: np.random.RandomState, device="cuda"):
         assert circuit_info.is_well_formed()
         return cls.Pcs.setup(1 << _max_num_vars(circuit_info), rng=rng, device=device)
@@ -162,7 +181,7 @@ class HyperPlonk:
         # the PCS params must also cover the Lasso final_cts polys, whose
         # subtables may be larger than the circuit's hypercube
         pcs_pp, pcs_vp = cls.Pcs.trim(param, 1 << _max_num_vars(circuit_info))
-        device = param.eqs[0]["x"].device
+        device = param.device
 
         preprocess_polys = [F.encode_dev(spec, vals, device) for vals in circuit_info.preprocess_polys]
         preprocess_comms = cls.Pcs.batch_commit(pcs_pp, preprocess_polys)
@@ -191,6 +210,7 @@ class HyperPlonk:
             permutation_comms=permutation_comms,
             lasso_lookups=list(circuit_info.lasso_lookups),
         )
+        vc = cls.Pcs.verifier_commitment
         vp = HyperPlonkVerifierParam(
             pcs=pcs_vp,
             num_instances=list(circuit_info.num_instances),
@@ -200,8 +220,8 @@ class HyperPlonk:
             num_permutation_z_polys=num_permutation_z_polys,
             num_vars=num_vars,
             expression=expression,
-            preprocess_comms=list(preprocess_comms),
-            permutation_comms=list(zip(perm_poly_indices, permutation_comms)),
+            preprocess_comms=[vc(c) for c in preprocess_comms],
+            permutation_comms=list(zip(perm_poly_indices, [vc(c) for c in permutation_comms])),
             lasso_lookups=list(circuit_info.lasso_lookups),
         )
         return pp, vp
@@ -212,7 +232,7 @@ class HyperPlonk:
         spec = cls.field
         p = spec.modulus
         num_vars = pp.num_vars
-        device = pp.pcs.eqs[0]["x"].device
+        device = pp.pcs.device
 
         instances = circuit.instances()
         for num, inst in zip(pp.num_instances, instances):
@@ -407,3 +427,10 @@ class HyperPlonk:
                 )
                 n_evals = [Evaluation(j, 0, v) for j, v in enumerate(fc_evals)]
                 cls.Pcs.batch_verify(vp.pcs, [fc_comms[fc_pos[key]] for key in members], [x_n], n_evals, transcript)
+
+
+def hyperplonk(pcs_cls) -> type:
+    """HyperPlonk over `pcs_cls` (the reference's HyperPlonk<Pcs>)."""
+    if pcs_cls is MultilinearKzg:
+        return HyperPlonk
+    return type(f"HyperPlonk_{pcs_cls.__name__}", (HyperPlonk,), {"Pcs": pcs_cls})

@@ -11,9 +11,10 @@ indices, as the halo2 adapter does (halo2.rs:100-244).
 
 The column index layout, the challenge numbering, the copy cycles and their
 order are those of the JAX package's builder, so one circuit description
-gives the same circuit info, witnesses and proof bytes in both packages, with
-one exception: a negative value in an int64 witness column is reduced mod p
-here, where the JAX package's encoder wraps it to 2^64 - x.
+gives the same circuit info, witnesses and proof bytes in both packages. A
+machine-integer witness column is encoded as the JAX package encodes it:
+a negative int64 value x becomes 2^64 + x (ops/field.py canonical_limbs),
+not x mod p.
 """
 
 from __future__ import annotations

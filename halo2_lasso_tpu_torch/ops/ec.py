@@ -55,10 +55,53 @@ def jacobian_to_affine(pts: Points) -> List[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
+def _ec_add_host(p: Points, q: Points) -> Points:
+    """``ec_add_plain`` in host ints, lane by lane, for a small CPU batch
+    (see ops/field.py HOST_PLAIN_ROWS): the same formulas on the same
+    Montgomery-form numbers, so the same coordinates bit for bit."""
+    m, rinv, one = Fq.modulus, Fq.Rinv, Fq.R
+    cols = [F.u32_to_ints(F.to_numpy_u32(t)) for t in (p["x"], p["y"], p["z"], q["x"], q["y"], q["z"])]
+    out = []
+    for x1, y1, z1, x2, y2, z2 in zip(*cols):
+        if z1 == 0:
+            out.append((one, one, 0) if z2 == 0 else (x2, y2, z2))
+            continue
+        if z2 == 0:
+            out.append((x1, y1, z1))
+            continue
+        z1z1, z2z2 = z1 * z1 * rinv % m, z2 * z2 * rinv % m
+        u1, u2 = x1 * z2z2 * rinv % m, x2 * z1z1 * rinv % m
+        s1 = y1 * z2 * rinv % m * z2z2 * rinv % m
+        s2 = y2 * z1 * rinv % m * z1z1 * rinv % m
+        h, r = (u2 - u1) % m, (s2 - s1) % m
+        if h == 0:
+            if r:
+                out.append((one, one, 0))
+                continue
+            a, b = x1 * x1 * rinv % m, y1 * y1 * rinv % m
+            c = b * b * rinv % m
+            xb = (x1 + b) % m
+            d = 2 * ((xb * xb * rinv - a - c) % m) % m
+            e = 3 * a % m
+            xd = (e * e * rinv - 2 * d) % m
+            out.append((xd, (e * ((d - xd) % m) * rinv - 8 * c) % m, 2 * y1 % m * z1 * rinv % m))
+            continue
+        hh = h * h * rinv % m
+        hhh, v = hh * h * rinv % m, u1 * hh * rinv % m
+        x3 = (r * r * rinv - hhh - 2 * v) % m
+        y3 = (r * ((v - x3) % m) * rinv - s1 * hhh * rinv) % m
+        out.append((x3, y3, z1 * z2 * rinv % m * h * rinv % m))
+    return {k: F.from_numpy_u32(F.ints_to_u32([pt[i] for pt in out])).reshape(-1, F.LIMBS)
+            for i, k in enumerate(COORDS)}
+
+
 def ec_add_plain(p: Points, q: Points) -> Points:
     """add-2007-bl with the dbl-2009-l doubling for P = Q and the same lane
     selection as the kernel (ops/pallas_ec.py:85-141). As the kernel's warp
-    vote does, the doubling is computed only when some lane needs it."""
+    vote does, the doubling is computed only when some lane needs it. A
+    small CPU batch takes the same formulas in host ints."""
+    if p["x"].device.type == "cpu" and p["x"].shape[0] <= F.HOST_PLAIN_ROWS:
+        return _ec_add_host(p, q)
     s = Fq
     mul = functools.partial(F.mont_mul_plain, s)
     add = functools.partial(F.add_plain, s)
@@ -126,6 +169,44 @@ def ec_add(p: Points, q: Points) -> Points:
     native.check(rc, "ec_add")
     native.counts["ec_add"] += 1
     return dict(zip(COORDS, outs))
+
+
+def ec_neg(p: Points) -> Points:
+    """-P lane-wise: y negated in one launch of csrc/mont_mul.cu."""
+    return {"x": p["x"], "y": F.neg(Fq, p["y"]), "z": p["z"]}
+
+
+def ec_select(cond: torch.Tensor, p: Points, q: Points) -> Points:
+    """where(cond, p, q) lane-wise, cond a bool (n,) or (1,) tensor."""
+    return {k: torch.where(cond[:, None], p[k], q[k]) for k in COORDS}
+
+
+def scalar_mul_bits(p: Points, bits) -> Points:
+    """Lane-wise scalar multiple of an (n,) batch by double-and-add from the
+    top bit (the port of ops/ec.py:216): each step doubles (a complete add
+    of the accumulator to itself) and adds the point, two ``ec_add``
+    launches, then keeps the sum where the bit is set. ``bits`` is an
+    (n, nbits) 0/1 tensor on the points' device, little-endian, or one
+    host sequence of nbits bits shared by every lane, whose choice is then
+    made on the host."""
+    n = p["x"].shape[0]
+    shared = not isinstance(bits, torch.Tensor)
+    nbits = len(bits) if shared else bits.shape[-1]
+    acc = identity_point(n, p["x"].device)
+    for i in range(nbits):
+        acc = ec_add(acc, acc)
+        added = ec_add(acc, p)
+        bit = bits[nbits - 1 - i] if shared else bits[:, nbits - 1 - i] == 1
+        acc = (added if bit else acc) if shared else ec_select(bit, added, acc)
+    return acc
+
+
+def curve_generator(curve, device="cuda") -> Points:
+    """The generator of a catalogued curve (ops/curves.py) as a one-point
+    batch on `device`; BN254 G1 only, the one curve with device group ops."""
+    if curve.name != "bn254_g1":
+        raise ValueError(f"ec: no device group ops for {curve.name}")
+    return affine_to_jacobian([curve.generator], device)
 
 
 def cat_points(*batches: Points) -> Points:

@@ -76,11 +76,13 @@ def to_jax_limbs(t: torch.Tensor) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class FieldSpec:
     """A prime field in the port's Montgomery layout. ``kernel_id`` selects
-    the modulus compiled into the CUDA kernels (0 = Fr, 1 = Fq)."""
+    the modulus compiled into the CUDA kernels (0 = Fr, 1 = Fq); None for a
+    field that has no kernel (host arithmetic and CPU tensors only: a kernel
+    wrapper given such a field on a CUDA tensor raises)."""
 
     name: str
     modulus: int
-    kernel_id: int
+    kernel_id: Optional[int]
 
     def __post_init__(self):
         p = self.modulus
@@ -108,11 +110,12 @@ class FieldSpec:
         """Ints (any shape) -> uint32 (..., 8) canonical limbs, vectorised
         (the port of halo2_lasso_tpu/ops/field.py:116; pair it with
         ``encode_dev`` for the Montgomery conversion on the device). A
-        non-negative machine-integer array takes a pure numpy path; any other
-        column (Python ints, object arrays, negative values) is reduced mod p
-        and cut into limbs through one byte buffer."""
+        machine-integer array takes a pure numpy path through uint64, as the
+        JAX package's does, so a negative int64 x becomes 2^64 + x, not
+        x mod p; Python ints and object arrays are reduced mod p and cut
+        into limbs through one byte buffer."""
         arr = np.asarray(values)
-        if arr.dtype != object and np.issubdtype(arr.dtype, np.integer) and (arr.size == 0 or arr.min() >= 0):
+        if arr.dtype != object and np.issubdtype(arr.dtype, np.integer):
             v = arr.astype(np.uint64)
             out = np.zeros(arr.shape + (LIMBS,), np.uint32)
             out[..., 0] = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
@@ -196,19 +199,50 @@ def _p16(spec: FieldSpec, device) -> torch.Tensor:
     return _const(spec, "p16", str(device))
 
 
+# CPU tensors of at most this many elements take the plain ops in host
+# ints: the limb programs below cost a fixed ~1 ms a product in torch op
+# overhead, which the scalar ladders and small proofs of the CPU path pay
+# hundreds of thousands of times; a CUDA tensor always takes the limb
+# program (the kernels' oracle)
+HOST_PLAIN_ROWS = 64
+
+
+def _host_plain(spec: FieldSpec, fn, *ts: torch.Tensor) -> Optional[torch.Tensor]:
+    """fn over the canonical ints of each element of the broadcast CPU
+    tensors, when they are small enough (else None)."""
+    if any(t.device.type != "cpu" for t in ts):
+        return None
+    ts = torch.broadcast_tensors(*ts)
+    shape = ts[0].shape
+    if math.prod(shape[:-1]) > HOST_PLAIN_ROWS:
+        return None
+    cols = [u32_to_ints(to_numpy_u32(t).reshape(-1, LIMBS)) for t in ts]
+    p = spec.modulus
+    return from_numpy_u32(ints_to_u32([fn(p, *xs) for xs in zip(*cols)])).reshape(shape)
+
+
 def add_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    r = _host_plain(spec, lambda p, x, y: (x + y) % p, a, b)
+    if r is not None:
+        return r
     p16 = _p16(spec, a.device)
     s = _norm(_split(a) + _split(b))
     return _join(_norm(s - _geq(s, p16)[..., None] * p16))
 
 
 def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    r = _host_plain(spec, lambda p, x, y: (x - y) % p, a, b)
+    if r is not None:
+        return r
     A, B = torch.broadcast_tensors(_split(a), _split(b))
     lt = ~_geq(A, B)
     return _join(_norm(A - B + lt[..., None] * _p16(spec, a.device)))
 
 
 def neg_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    r = _host_plain(spec, lambda p, x: -x % p, a)
+    if r is not None:
+        return r
     A = _split(a)
     nz = A.any(-1, keepdim=True)
     return _join(_norm(nz * _p16(spec, a.device) - A))
@@ -219,6 +253,9 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     limb-by-limb Montgomery reduction with -p^-1 mod 2^16. Columns stay
     below 2^38, exact in int64. Limb-major (16, n) so every row update is
     one contiguous slice."""
+    r = _host_plain(spec, lambda p, x, y: x * y * spec.Rinv % p, a, b)
+    if r is not None:
+        return r
     A, B = torch.broadcast_tensors(_split(a), _split(b))
     shape = A.shape[:-1]
     A = A.reshape(-1, 16).T.contiguous()

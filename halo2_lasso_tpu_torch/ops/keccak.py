@@ -9,6 +9,10 @@ Fiat-Shamir transcript needs original Keccak (pad byte 0x01), not NIST SHA3
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
+import numpy as np
+
 _ROUND_CONSTANTS = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
     0x000000000000808B, 0x0000000080000001, 0x8000000080008081, 0x8000000000008009,
@@ -112,3 +116,44 @@ class Keccak256:
 
 def keccak256(data: bytes) -> bytes:
     return Keccak256().update(data).digest()
+
+
+def _keccak_f_many(state: np.ndarray) -> np.ndarray:
+    """``_keccak_f`` over many states at once: state (5, 5, N) uint64 lanes
+    [x][y], every step one numpy operation across the N states."""
+    def rotl(v, n):
+        n %= 64
+        return v if n == 0 else (v << np.uint64(n)) | (v >> np.uint64(64 - n))
+
+    for rc in _ROUND_CONSTANTS:
+        c = state[:, 0] ^ state[:, 1] ^ state[:, 2] ^ state[:, 3] ^ state[:, 4]
+        d = np.roll(c, 1, axis=0) ^ rotl(np.roll(c, -1, axis=0), 1)
+        state = state ^ d[:, None]
+        b = np.empty_like(state)
+        for x in range(5):
+            for y in range(5):
+                b[y, (2 * x + 3 * y) % 5] = rotl(state[x, y], _ROTATIONS[x][y])
+        state = b ^ (~np.roll(b, -1, axis=0) & np.roll(b, -2, axis=0))
+        state[0, 0] ^= np.uint64(rc)
+    return state
+
+
+def keccak256_many(messages: Sequence[bytes]) -> List[bytes]:
+    """``keccak256`` of many messages of one length below the rate (one
+    block each), vectorised across them with numpy: the same digests."""
+    n = len(messages)
+    if n == 0:
+        return []
+    size = len(messages[0])
+    if size >= Keccak256.RATE or any(len(m) != size for m in messages):
+        raise ValueError("keccak256_many: messages of one length below the rate")
+    pad_len = Keccak256.RATE - size
+    padding = b"\x81" if pad_len == 1 else b"\x01" + b"\x00" * (pad_len - 2) + b"\x80"
+    blocks = np.frombuffer(b"".join(m + padding for m in messages), dtype="<u8").reshape(n, 17)
+    state = np.zeros((5, 5, n), dtype=np.uint64)
+    for i in range(Keccak256.RATE // 8):
+        state[i % 5, i // 5] = blocks[:, i]
+    state = _keccak_f_many(state)
+    lanes = np.stack([state[i % 5, i // 5] for i in range(4)], axis=1).astype("<u8")
+    out = lanes.tobytes()
+    return [out[32 * j : 32 * j + 32] for j in range(n)]

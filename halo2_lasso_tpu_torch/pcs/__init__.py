@@ -31,6 +31,26 @@ class Evaluation:
     value: int
 
 
+class PointCommitmentIO:
+    """Transcript IO of a PCS whose commitments are single affine points
+    (KZG, Gemini, Zeromorph, IPA; pcs.rs:93-101). Hyrax, whose commitment
+    is a list of row points, defines its own."""
+
+    @staticmethod
+    def write_commitments(comms, transcript) -> None:
+        transcript.write_commitments(comms)
+
+    @staticmethod
+    def read_commitments(vp, n: int, transcript):
+        return transcript.read_commitments(n)
+
+    @staticmethod
+    def verifier_commitment(comm):
+        """A prover-side commitment in its verifier-side form (the same for
+        point commitments)."""
+        return comm
+
+
 def g1_sum_with_scalar(scalars: Sequence[int], bases: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
     """Host small MSM over commitment points (pcs.rs:157-177)."""
     acc = None
@@ -107,7 +127,8 @@ def additive_batch_verify(
     evals: Sequence[Evaluation],
     transcript: Keccak256Transcript,
 ) -> None:
-    """pcs/multilinear.rs:237-275 semantics."""
+    """pcs/multilinear.rs:237-275 semantics. A PCS whose commitments are
+    not single points combines them with its own ``sum_commitments``."""
     p = Fr.modulus
     ell = (len(evals) - 1).bit_length() if len(evals) > 1 else 0
     t = transcript.squeeze_challenges(ell)
@@ -117,4 +138,5 @@ def additive_batch_verify(
     eq_xy_evals = [mle.eq_xy_eval_host(p, challenges, list(pt)) for pt in points]
     scalars = [eq_xy_evals[ev.point] * eq_i % p for ev, eq_i in zip(evals, eq_xt)]
     bases = [comms[ev.poly] for ev in evals]
-    pcs.verify(vp, g1_sum_with_scalar(scalars, bases), challenges, g_prime_eval, transcript)
+    combine = getattr(pcs, "sum_commitments", g1_sum_with_scalar)
+    pcs.verify(vp, combine(scalars, bases), challenges, g_prime_eval, transcript)

@@ -26,7 +26,7 @@ from halo2_lasso_tpu_torch.ops import ec
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import pairing as hostec
 from halo2_lasso_tpu_torch.ops.bn254 import G1_GEN, G2_GEN_X, G2_GEN_Y, Fr
-from halo2_lasso_tpu_torch.pcs import Evaluation, additive_batch_open, additive_batch_verify
+from halo2_lasso_tpu_torch.pcs import Evaluation, PointCommitmentIO, additive_batch_open, additive_batch_verify
 from halo2_lasso_tpu_torch.poly import multilinear as mle
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 from halo2_lasso_tpu_torch.utils.timer import timed
@@ -45,6 +45,10 @@ class KzgParams:
     g2: Tuple
     ss: List[Tuple]  # s_i * G2 affine (Fq2 coeff tuples)
 
+    @property
+    def device(self):
+        return self.eqs[0]["x"].device
+
 
 @dataclasses.dataclass
 class KzgProverParams:
@@ -54,6 +58,10 @@ class KzgProverParams:
     @property
     def num_vars(self):
         return len(self.eqs) - 1
+
+    @property
+    def device(self):
+        return self.eqs[0]["x"].device
 
 
 @dataclasses.dataclass
@@ -84,8 +92,10 @@ def from_jax_kzg_params(params, device="cuda"):
     raise TypeError(f"not a KZG parameter set: {name}")
 
 
-class MultilinearKzg:
+class MultilinearKzg(PointCommitmentIO):
     """Namespace-style PCS implementation (stateless staticmethods)."""
+
+    from_jax_params = staticmethod(from_jax_kzg_params)
 
     @staticmethod
     def setup(poly_size: int, rng: np.random.RandomState, device="cuda") -> KzgParams:
@@ -127,14 +137,6 @@ class MultilinearKzg:
                 raise PcsError("poly has too many variates for params")
             jobs.append((pp.eqs[k], poly))
         return ec.msm_list_to_affine_int(jobs)
-
-    @staticmethod
-    def write_commitments(comms, transcript) -> None:
-        transcript.write_commitments(comms)
-
-    @staticmethod
-    def read_commitments(vp, n: int, transcript):
-        return transcript.read_commitments(n)
 
     @staticmethod
     def quotient_polys(evals: torch.Tensor, point: Sequence[int]):

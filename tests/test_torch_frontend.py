@@ -18,7 +18,9 @@ encode_dev against the JAX package on the CPU.
   rejected.
 * encode_dev and canonical_limbs give the limbs of spec.encode and of the
   JAX package's canonical_limbs / encode_dev on an int64 column, Python ints
-  up to p - 1 and an empty column.
+  up to p - 1 and an empty column; a negative int64 column wraps to
+  2^64 + x as in the JAX package, and a builder circuit with negative int64
+  advice cells proves the same bytes in both packages.
 * The ARX chain's zero check lowers to a round program with 11 constant
   slots, within K1's compiled limits.
 All comparisons are exact. One JAX setup / preprocess / prove per circuit
@@ -267,16 +269,51 @@ def test_encode_dev_matches_encode_and_jax(kind):
     assert F.u32_to_ints(limbs) == [int(v) % P for v in col]
 
 
-def test_encode_dev_negative_int64_is_mod_p():
-    """A negative int64 column is reduced mod p, as spec.encode does; the
-    JAX package's canonical_limbs wraps it to 2^64 - x instead (ROADMAP C8),
-    so the two packages differ on such a column."""
+def test_encode_dev_negative_int64_wraps_as_jax():
+    """A negative int64 column wraps to 2^64 + x (uint64), as the JAX
+    package's canonical_limbs / encode_dev do; an object array of Python
+    ints is still reduced mod p."""
     col = np.array([-1, -2, -(2**32), -(2**63), 5], np.int64)
     got = F.encode_dev(Fr, col, "cpu")
-    assert torch.equal(got, Fr.encode(col, "cpu"))
-    assert F.u32_to_ints(Fr.canonical_limbs(col)) == [int(v) % P for v in col]
+    assert torch.equal(got, F.from_jax_limbs(np.asarray(JF.encode_dev(JFr, col)).reshape(-1, 16)))
+    assert torch.equal(got, Fr.encode([int(v) % 2**64 for v in col], "cpu"))
     jlimbs = np.asarray(JFr.canonical_limbs(col), np.uint32).reshape(-1, 16)
-    assert F.u32_to_ints(jlimbs[:, 0::2] | (jlimbs[:, 1::2] << np.uint32(16))) == [int(v) % 2**64 for v in col]
+    assert np.array_equal(Fr.canonical_limbs(col), jlimbs[:, 0::2] | (jlimbs[:, 1::2] << np.uint32(16)))
+    assert F.u32_to_ints(Fr.canonical_limbs(col.astype(object))) == [int(v) % P for v in col]
+
+
+def negative_copy_circuit(pkg):
+    """The copy circuit's gate and copies with int64 advice columns whose a
+    and c cells are negative: a + b = c holds both mod p and for the wrapped
+    2^64 + x, so the witness is valid either way and only the encoding
+    decides the proof bytes."""
+    b = pkg[0].CircuitBuilder(3)
+    b.instance_column()
+    q = b.selector()
+    a, bcol, c = (b.advice_column() for _ in range(3))
+    b.max_degree = 4
+    b.gate("add", lambda ctx: ctx.expr(q) * (ctx.expr(a) + ctx.expr(bcol) - ctx.expr(c)))
+    a_vals, b_vals, c_vals = [-100], [4, 5, 6, 7, 8], []
+    for i in range(5):
+        c_vals.append(a_vals[i] + b_vals[i])
+        if i < 4:
+            a_vals.append(c_vals[i])
+            b.copy(c, i, a, i + 1)
+    cols = [np.array(v, np.int64) for v in (a_vals, b_vals, c_vals)]
+    return b.build({(q.index, r): 1 for r in range(5)}, lambda phase, challenges: cols, [[]])
+
+
+def test_negative_int64_column_proof_matches_jax():
+    """A builder circuit with negative int64 advice cells proves the same
+    bytes in both packages (the port's own setup and preprocess), and the
+    JAX package verifies the port's proof."""
+    jax = prove_jax(*negative_copy_circuit(JAX))
+    ci, circ = negative_copy_circuit(PORT)
+    pp, vp = HyperPlonk.preprocess(HyperPlonk.setup(ci, np.random.RandomState(0), device="cpu"), ci)
+    proof = prove_port(pp, circ)
+    assert proof == jax["proof"]
+    HyperPlonk.verify(vp, circ.instances(), new_transcript(proof))
+    JHyperPlonk.verify(jax["vp"], jax["instances"], j_new_transcript(proof))
 
 
 def test_frontend_imports_neither_jax_nor_the_jax_package():
