@@ -5,8 +5,9 @@
 
 Phases, each printing one line with its wall time:
   1. environment: torch / CUDA versions, the card, its power limit;
-  2. build: one nvcc call for every kernel source (csrc/*.cu), and the
-     registers, shared memory and spills of each kernel;
+  2. build: one nvcc -c job a kernel source (csrc/*.cu), all started
+     together, and one link, its seconds, and the registers, shared memory
+     and spills of each kernel (each field instance apart);
   3. kernels: every kernel against its plain PyTorch version on the card,
      bit for bit, then timed at a shape of a main path: K4's elementwise
      kernel (every op code at Fr and Fq, n = 1, 257, 1037, 2^16, full,
@@ -82,17 +83,36 @@ Phases, each printing one line with its wall time:
      (range_table(16, 8), 8 lookups, SRS seed 3), each on the card and
      through the plain path on the CPU, hashing to the JAX package's proof
      (PCS_PLONK_SHA256, LASSO_GEMINI_SHA256); then phase 7's circuit at
-     nv = 16 under each of the four PCS (setup with IPA's hash_to_curve
+     nv = 16 under each of the four PCS, MultilinearHyrax at nv = 14 for the
+     smoke's time (SECONDARY_NUM_VARS; setup with IPA's hash_to_curve
      timed apart, preprocess, prove, verify, stage times, the prove's
      launches, tamper, one profiled and one sync-counted prove), and
      phase 5's slice over Gemini (setup, prove, verify, tamper, the same
      launches, profiled and sync-counted proves).
+ 13. the grumpkin half of the BN254 2-cycle: the nv = 3 vanilla plonk proof
+     over BN254 Fq (seeds 3, 103, setup seed 0) under MultilinearIpaGrumpkin
+     and MultilinearHyraxGrumpkin on the card and the CPU, hashing to the
+     JAX package's proofs (PCS_PLONK_SHA256), then phase 7's circuit over
+     BN254 Fq at nv = 16 under each (setup with grumpkin's hash_to_curve
+     timed apart, preprocess, prove, verify, stage times, launches, tamper,
+     one profiled and one sync-counted prove); each path must launch the
+     Fq instances of sumcheck_round and fold_all and the grumpkin instances
+     of ec_add and msm_level (native.counts counts them apart).
 The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
 nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
-the point, with identity lanes).
+the point, with identity lanes), and the field instances that phase 13 runs
+at its shapes, each recorded under its own name: sumcheck_round.fq at the
+grumpkin SNARK's zero check over Fq (23 leaves, degree 5; 2^14, 2 * 1037 and
+2^16, timed there), fold_all.fq (1, 37, 64, 65 tables, both strides, both
+challenge forms; timed at the zero check's 23 tables of 2^16),
+ec_add.grumpkin (the five cases at 2^15 lanes, also against host
+arithmetic, and six steps of the IPA ladder over 2^15 grumpkin points;
+timed at its doubling step) and msm_level.grumpkin (every level of a
+64-point edge-case MSM and of a 2^16 grumpkin MSM, 17 launches of the
+instance with no host sync; timed over them).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
-the nv = 16 part of 9, the two full-width paths of 10, 11, and the five
-full-size paths of 12) and read just after it; each path must
+the nv = 16 part of 9, the two full-width paths of 10, 11, the five
+full-size paths of 12 and the two of 13) and read just after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
@@ -100,7 +120,7 @@ tensor fails the run. The profiled proves (the full-size HyperPlonk paths
 and Lasso over Gemini) also count their host syncs by the port function
 that made them (a third prove, under torch.cuda.set_sync_debug_mode("warn")).
 
-The last lines are a JSON object with every kernel's numbers, the
+The last lines are a JSON object with every kernel's and instance's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 Any failure exits non-zero; a watchdog turns a hang into a traceback and a
 non-zero exit. Without a CUDA device, or without the package beside it, the
@@ -149,13 +169,23 @@ ARX = {"circuit": "arx_chain_circuit", "num_vars": 19, "setup_seed": 0}
 # tests/test_torch_hyperplonk_ipa.py, tests/test_torch_lasso_gemini.py hold
 # the two packages to them); then PLONK's circuit and the Lasso slice over them
 SECONDARY_PCS = ("Gemini", "Zeromorph", "MultilinearIpa", "MultilinearHyrax")
+# the smoke's time budget: phase 12's BN254 Hyrax path runs at a smaller nv
+# since phase 13 (its grumpkin twin keeps nv = 16 and the same launch pattern)
+SECONDARY_NUM_VARS = {"MultilinearHyrax": 14}
 PCS_PLONK_SMALL = {"circuit": "rand_vanilla_plonk_circuit", "num_vars": 3, "seeds": (3, 103), "setup_seed": 0}
 PCS_PLONK_SHA256 = {
     "Gemini": "7cb8ccdce443cd36147e7c8b0eb2a151bc749bbd7b7851396ae5658daae7085e",
     "Zeromorph": "481129c602ce29493f70c20af9f1374a7c389f835136741afb270669dcb1a67f",
     "MultilinearIpa": "6ed95c494c683ae59985869aa2cc6aed428773f03ff2aa6ee83b895cb9c6ba6f",
     "MultilinearHyrax": "3777c0d2f4663ae16cef31c4ce779f51b564ec939177f9f74170009399617560",
+    "MultilinearIpaGrumpkin": "8950de0c769dc8902064b75ab32120c3d45c4acb7220186207a4fc9831e50677",
+    "MultilinearHyraxGrumpkin": "bd50367754dda639ad9a4c00b7d2bb03031c1e114a553f392cb361400dba0cf1",
 }
+# the grumpkin half of the BN254 2-cycle (hyperplonk.rs:422-423): the same
+# circuits over BN254 Fq under the grumpkin-backed IPA and Hyrax, their nv = 3
+# proofs hashing to the JAX package's (tests/test_torch_grumpkin_hyperplonk_ipa.py,
+# tests/test_torch_grumpkin_hyperplonk_hyrax.py hold the two packages to them)
+GRUMPKIN_PCS = ("MultilinearIpaGrumpkin", "MultilinearHyraxGrumpkin")
 LASSO_GEMINI_SMALL = {"index_bits": 16, "chunk_bits": 8, "lookups": 8, "srs_seed": 3, "index_seed": 123, "pcs": "Gemini"}
 LASSO_GEMINI_SHA256 = "ec43db505fd50634294dc7df94bdc4e5cad5a7ed08286a824b966e70d16e632b"
 LASSO_GEMINI = {**SLICE, "pcs": "Gemini"}
@@ -164,6 +194,9 @@ TWO_PHASE = {"circuit": "rand_two_phase_circuit", "num_vars": 16, "seeds": (116,
 PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy", "sum_reduce")
 # the HyperPlonk paths' batch inversions and permutation scan
 HYPERPLONK_KERNELS = PROOF_KERNELS + ("mont_pow", "prefix_products")
+# the kernels' field instances that the grumpkin SNARK runs (ops/native.py
+# INSTANCES, counted apart from their kernel's first instance)
+GRUMPKIN_INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin")
 PATH_KERNELS = {
     "lasso": PROOF_KERNELS,
     "hyperplonk": HYPERPLONK_KERNELS,
@@ -177,6 +210,9 @@ PATH_KERNELS = {
     # inversions and scan, as there); Lasso over Gemini adds the scan of the
     # univariate evaluations' powers
     **{f"plonk_{name}": HYPERPLONK_KERNELS for name in SECONDARY_PCS},
+    # the grumpkin SNARK: the same kernels, and the Fq instances of K1 and K2
+    # and the grumpkin instances of K3's add and level among their launches
+    **{f"plonk_{name}": HYPERPLONK_KERNELS + GRUMPKIN_INSTANCES for name in GRUMPKIN_PCS},
     "lasso_gemini": PROOF_KERNELS + ("prefix_products",),
 }
 # K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
@@ -213,7 +249,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     native.lib()
-    stage("build", t0, f"nvcc {native.build_seconds:.1f}s" if native.build_seconds else "cached")
+    stage("build", t0, f"parallel nvcc and link {native.build_seconds:.1f}s" if native.build_seconds else "cached")
     for line in ptxas_lines(native.ptxas_info):
         print("  ptxas " + line, flush=True)
 
@@ -245,6 +281,13 @@ def main() -> int:
         k = by_name[name]
         print(f"{name}: {k['shape']}: events {k['ms']:.4f}ms, device {k['device_ms']:.4f}ms (bound "
               f"{k['bound_ms']:.5f}ms, {k['bound_by']}; plain {k['plain_ms']:.3f}ms)", flush=True)
+    for name in GRUMPKIN_INSTANCES:
+        k = by_name[name]
+        extra_ms = f", device {k['device_ms']:.4f}ms" if "device_ms" in k else ""
+        if "event_ms" in k:
+            extra_ms = f" (device), events {k['event_ms']:.4f}ms"
+        print(f"{name}: {k['shape']}: {k['ms']:.4f}ms{extra_ms} (bound {k['bound_ms']:.5f}ms, {k['bound_by']}; "
+              f"plain {k['plain_ms']:.3f}ms)", flush=True)
     bi = by_name["prefix_products"]
     print(f"batch_inv: 2^17 Fr: events {bi['batch_inv_ms']:.4f}ms, device {bi['batch_inv_device_ms']:.4f}ms "
           f"(bound {bi['batch_inv_bound_ms']:.5f}ms, {bi['batch_inv_bound_by']}; plain "
@@ -307,12 +350,23 @@ def main() -> int:
     proof_gate(np, lasso_proof, LASSO_GEMINI_SMALL, LASSO_GEMINI_SHA256, "lasso_gemini_small",
                "range_table(16,8), 8 lookups over Gemini")
     for name in SECONDARY_PCS:
+        nv = SECONDARY_NUM_VARS.get(name, PLONK["num_vars"])
         run_hyperplonk_path(torch, np, launches, f"plonk_{name}", f"plonk_{name}",
-                            f"nv=16 vanilla plonk with lookup over {name}", {**PLONK, "pcs": name})
+                            f"nv={nv} vanilla plonk with lookup over {name}", {**PLONK, "pcs": name, "num_vars": nv})
     extra = {}
     run_path(launches, "lasso_gemini", "lasso_gemini", "2^16 lookups range_table(16,16) over Gemini",
              lambda: lasso_proof(np, LASSO_GEMINI, "cuda", tamper=True, extra=extra))
     profile_path(torch, extra)
+
+    # 13. the grumpkin half of the BN254 2-cycle: the nv = 3 proofs over
+    # BN254 Fq against the JAX package's bytes, then phase 7's circuit over
+    # BN254 Fq under the grumpkin-backed IPA and Hyrax
+    for name in GRUMPKIN_PCS:
+        proof_gate(np, hyperplonk_proof, {**PCS_PLONK_SMALL, "pcs": name}, PCS_PLONK_SHA256[name],
+                   f"plonk_small_{name}", f"nv=3 vanilla over BN254 Fq, {name}")
+    for name in GRUMPKIN_PCS:
+        run_hyperplonk_path(torch, np, launches, f"plonk_{name}", f"plonk_{name}",
+                            f"nv=16 vanilla plonk with lookup over BN254 Fq, {name}", {**PLONK, "pcs": name})
 
     for path, counts in launches.items():
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
@@ -389,12 +443,13 @@ def profile_path(torch, extra):
 def pcs_class(cfg):
     """The port's PCS class a config names (multilinear KZG by default)."""
     from halo2_lasso_tpu_torch.pcs.gemini import Gemini
-    from halo2_lasso_tpu_torch.pcs.hyrax import MultilinearHyrax
-    from halo2_lasso_tpu_torch.pcs.ipa import MultilinearIpa
+    from halo2_lasso_tpu_torch.pcs.hyrax import MultilinearHyrax, MultilinearHyraxGrumpkin
+    from halo2_lasso_tpu_torch.pcs.ipa import MultilinearIpa, MultilinearIpaGrumpkin
     from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
     from halo2_lasso_tpu_torch.pcs.zeromorph import Zeromorph
 
-    classes = (MultilinearKzg, Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax)
+    classes = (MultilinearKzg, Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax, MultilinearIpaGrumpkin,
+               MultilinearHyraxGrumpkin)
     return {c.__name__: c for c in classes}[cfg.get("pcs", "MultilinearKzg")]
 
 
@@ -593,18 +648,21 @@ def check_arx_shape(np, cfg):
 
 def hyperplonk_proof(np, cfg, device, tamper=False, cheat=False, extra=None):
     """Setup, preprocess, prove and verify one HyperPlonk proof of a config's
-    circuit under the PCS it names; returns (proof bytes, stage records).
+    circuit under the PCS it names, over that PCS's field (the fixture's
+    `field`, BN254 Fq for the grumpkin-backed PCS); returns (proof bytes,
+    stage records).
     With `cheat`, a proof of the circuit's cheating witness (its
     `cheat=True`) must be rejected. `extra`, a dict, receives the prover's
     kernel launches and what a second prove needs."""
     from halo2_lasso_tpu_torch.backend.hyperplonk import hyperplonk
     from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import Fr
     from halo2_lasso_tpu_torch.utils.timer import timed
 
     timed.clear()
-    with timed.scope("fixture" if "seeds" in cfg else "build"):
-        ci, circuit = make_circuit(np, cfg)
     backend = hyperplonk(pcs_class(cfg))
+    with timed.scope("fixture" if "seeds" in cfg else "build"):
+        ci, circuit = make_circuit(np, cfg, **({} if backend.field is Fr else {"field": backend.field}))
     with timed.scope("setup"):
         param = backend.setup(ci, np.random.RandomState(cfg["setup_seed"]), device=device)
     pp, vp = backend.preprocess(param, ci)
@@ -1230,7 +1288,159 @@ def check_kernels(torch, np, dev):
            "scripts/tpu_layout_bench.py:108", lambda: [LB.mont_mul_tiled(a_t, b_t)],
            lambda: [LB.mont_mul_tiled_plain(a_t, b_t)], 96 * big, big * IMAD_PER_MONT_MUL,
            errs["mont_mul_tiled"])
-    return [results[k] for k in native.KERNELS]
+    check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results)
+    return [results[k] for k in native.KERNELS + native.INSTANCES]
+
+
+def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results, n=1 << 16):
+    """The field instances of the grumpkin-backed SNARK (phase 13), each
+    against its plain version at that path's nv = 16 shapes (n = 2^16),
+    recorded under its own name (``native.INSTANCES``): K1 and K2 over BN254
+    Fq, K3's add and MSM level over grumpkin (coordinates in BN254 Fr,
+    scalars in Fq)."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
+    from halo2_lasso_tpu_torch.ops import curves, ec
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+    from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, device_ms
+
+    G = curves.GRUMPKIN
+
+    # K1 over Fq: the zero check of the grumpkin SNARK's nv = 16 circuit
+    # (vanilla plonk with lookup: 23 leaf tables, degree 5, three
+    # challenges) at 2^14, 2 * 1037 and its first round, 2^16, timed there
+    ci = fixtures.vanilla_plonk_with_lookup_circuit_info(16, 16, [[0]] * 9, [[(10, 1), (11, 1), (12, 1)]])
+    nz, expr = preprocessor.compose(ci)
+    keys = SC._leaf_keys(expr, ci.num_poly() + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz)
+    prog = SC.lower_expression(expr, keys)
+    chal = rand_field(Fq, 3)
+    err = 0
+    for size in (min(1 << 14, n), 2 * 1037, n):
+        leaves = [rand_field(Fq, size, [0, 1, Fq.modulus - 1, Fq.R]) for _ in keys]
+        err = max(err, same("sumcheck_round.fq",
+                            lambda: [no_sync(torch, lambda: SC.round_message(Fq, leaves, prog, chal, expr.degree))],
+                            lambda: [SC.round_message_plain(Fq, leaves, prog, chal, expr.degree)]))
+    muls = program_muls(SC, prog)
+    record("sumcheck_round.fq", "halo2_lasso_tpu_torch/csrc/sumcheck_round.cu",
+           "halo2_lasso_tpu/ops/pallas_field.py:376",
+           lambda: [SC.round_message(Fq, leaves, prog, chal, expr.degree)],
+           lambda: [SC.round_message_plain(Fq, leaves, prog, chal, expr.degree)],
+           len(leaves) * n * 32, expr.degree * muls * (n // 2) * IMAD_PER_MONT_MUL, err)
+    results["sumcheck_round.fq"].update(
+        shape=f"grumpkin SNARK zero check over Fq: {len(keys)} leaves, degree {expr.degree}, stack "
+              f"{prog.max_stack}, {muls} products a point, 2^{n.bit_length() - 1}",
+        device_ms=device_ms(lambda: SC.round_message(Fq, leaves, prog, chal, expr.degree), 20,
+                            ["round_kernel"])["round_kernel"])
+
+    # K2 over Fq: 1, 37, 64 and 65 tables of 2^10, both strides, the
+    # challenge as a host int and on the card; then the zero check's first
+    # fold (its 23 tables of 2^16, the challenge by value), timed there
+    xv = Fq.decode_ints(rand_field(Fq, 1))[0]
+    x = Fq.encode([xv], dev)[0]
+    err = 0
+    for ntables in (1, 37, 64, 65):
+        tabs = [rand_field(Fq, 1 << 10, [0, 1, Fq.modulus - 1, Fq.R]) for _ in range(ntables)]
+        for last in (False, True):
+            for xc in (xv, x):
+                err = max(err, same("fold_all.fq", lambda: mle.fold_all(Fq, tabs, xc, last),
+                                    lambda: mle.fold_all_plain(Fq, tabs, x, last)))
+    tabs = leaves
+    err = max(err, same("fold_all.fq", lambda: no_sync(torch, lambda: mle.fold_all(Fq, tabs, xv)),
+                        lambda: mle.fold_all_plain(Fq, tabs, x)))
+    record("fold_all.fq", "halo2_lasso_tpu_torch/csrc/fold.cu", "halo2_lasso_tpu/ops/pallas_field.py:293",
+           lambda: mle.fold_all(Fq, tabs, xv), lambda: mle.fold_all_plain(Fq, tabs, x),
+           len(tabs) * n * 48, len(tabs) * (n // 2) * IMAD_PER_MONT_MUL, err)
+    results["fold_all.fq"].update(
+        shape=f"the zero check's first fold over Fq: {len(tabs)} tables of 2^{n.bit_length() - 1}, the challenge "
+              "by value",
+        device_ms=device_ms(lambda: mle.fold_all(Fq, tabs, xv), 20, ["fold_all_kernel"])["fold_all_kernel"])
+    del leaves, tabs
+
+    # K3's add over grumpkin at the IPA ladder's nv = 16 shapes (2^15
+    # lanes): the five cases of ec_cases (generic, P = Q, P = -Q, P = O,
+    # Q = O), also against host arithmetic; then six ladder steps over
+    # 2^15 grumpkin points, every 9th the identity (the doubling of the
+    # accumulator, the add of the point), and the point added to itself;
+    # the doubling step timed, its bound counting the doubling lanes' 15
+    # products
+    lanes = n // 2
+    pts_p, pts_q = ec_cases(np, rng, MJ, Fr.modulus, lanes, G.generator)
+    P = {k: Fr.encode([pt[i] for pt in pts_p], dev) for i, k in enumerate(ec.COORDS)}
+    Q = {k: Fr.encode([pt[i] for pt in pts_q], dev) for i, k in enumerate(ec.COORDS)}
+    err = same("ec_add.grumpkin", lambda: list(ec.ec_add(P, Q, Fr).values()),
+               lambda: list(ec.ec_add_plain(P, Q, Fr).values()))
+    want = MJ.host_batch_affine([MJ.host_jac_add(a, b, Fr.modulus) for a, b in zip(pts_p, pts_q)], Fr.modulus)
+    if ec.jacobian_to_affine(ec.ec_add(P, Q, Fr), Fr) != want:
+        raise SystemExit("ec_add over grumpkin disagrees with host arithmetic")
+    del P, Q
+    base = ec.fixed_base_msm(G.generator, rand_field(Fq, lanes), base=Fr, scalar=Fq)
+    base["z"][::9] = 0
+    acc = ec.identity_point(lanes, dev, Fr)
+    err = max(err, same("ec_add.grumpkin", lambda: list(ec.ec_add(base, base, Fr).values()),
+                        lambda: list(ec.ec_add_plain(base, base, Fr).values())))
+    for _ in range(6):
+        err = max(err, same("ec_add.grumpkin", lambda: list(ec.ec_add(acc, acc, Fr).values()),
+                            lambda: list(ec.ec_add_plain(acc, acc, Fr).values())))
+        dbl = ec.ec_add(acc, acc, Fr)
+        err = max(err, same("ec_add.grumpkin", lambda: list(ec.ec_add(dbl, base, Fr).values()),
+                            lambda: list(ec.ec_add_plain(dbl, base, Fr).values())))
+        bit = torch.from_numpy(rng.randint(0, 2, size=lanes).astype(bool)).to(dev)
+        acc = ec.ec_select(bit, ec.ec_add(dbl, base, Fr), dbl)
+    live = int((~F.is_zero(acc["z"])).sum())
+    record("ec_add.grumpkin", "halo2_lasso_tpu_torch/csrc/ec_add.cu",
+           "halo2_lasso_tpu/ops/pallas_ec.py:144 (grumpkin: halo2_lasso_tpu/ops/msm_jacobian.py:90 over "
+           "halo2_lasso_tpu/ops/pallas_field.py:225)",
+           lambda: list(ec.ec_add(acc, acc, Fr).values()), lambda: list(ec.ec_add_plain(acc, acc, Fr).values()),
+           lanes * 9 * 32, live * 15 * IMAD_PER_MONT_MUL, err)
+    results["ec_add.grumpkin"]["shape"] = f"grumpkin IPA ladder doubling step, {lanes} lanes ({live} not the identity)"
+    del base, acc, dbl
+
+    # msm_level over grumpkin: every level of a 64-point MSM (c = 3; P = Q,
+    # P = -Q, digit-0 and identity lanes) and of a 2^16 MSM (the SNARK's
+    # commits) against the plain level; the 2^16 MSM's device part 17
+    # launches of the grumpkin instance with no host sync, timed over them,
+    # the bound counting the adds its data needs
+    err = check_msm_levels(torch, np, rng, dev, msm_edge_points(np, rng, MJ, Fr.modulus, dev, curve=G), 64, Fq, Fr)
+    points = ec.fixed_base_msm(G.generator, rand_field(Fq, n), base=Fr, scalar=Fq)
+    scal = rand_field(Fq, n)
+    err = max(err, check_msm_levels(torch, np, rng, dev, points, n, Fq, Fr))
+    MJ.msm_planes(points, scal, Fr, Fq)
+    native.reset_counts()
+    no_sync(torch, lambda: MJ.msm_planes(points, scal, Fr, Fq))
+    if native.counts["msm_level.grumpkin"] != n.bit_length():
+        raise SystemExit(f"a {n}-point grumpkin MSM launched msm_level's grumpkin instance "
+                         f"{native.counts['msm_level.grumpkin']} times, not {n.bit_length()}")
+    c = MJ.best_c(n)
+    B, W = 1 << c, -(-Fq.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(Fq, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+
+    def levels(level_fn):
+        def run():
+            bucket = ec.identity_point(W * B + 1, dev, Fr)
+            pts, dig = level_fn(points, digits, bucket, W, B, order=order, base=Fr)
+            while dig.shape[0]:
+                pts, dig = level_fn(pts, dig, bucket, W, B, base=Fr)
+            return [bucket[k][: W * B] for k in ec.COORDS]
+        return run
+
+    adds = msm_level_adds(torch, torch.gather(digits, 1, order), B)
+    record("msm_level.grumpkin", "halo2_lasso_tpu_torch/csrc/msm_level.cu",
+           "halo2_lasso_tpu/ops/pallas_ec.py:144 with halo2_lasso_tpu/ops/msm_jacobian.py:168 (grumpkin: "
+           "jac_add_lf, :90, over halo2_lasso_tpu/ops/pallas_field.py:225)",
+           levels(MJ.msm_level), levels(MJ.msm_level_plain),
+           n * 96 + W * n * 12 + W * B * 96, adds * 16 * IMAD_PER_MONT_MUL, err)
+    lv = results["msm_level.grumpkin"]
+    lv["event_ms"] = lv["ms"]
+    lv["ms"] = device_ms(levels(MJ.msm_level), 5, ["msm_level_kernel"])["msm_level_kernel"]
+    lv.update(shape=f"a 2^{n.bit_length() - 1} grumpkin MSM's {n.bit_length()} launches (c = {c}, W = {W})",
+              adds=adds)
+    print("the grumpkin SNARK's instances: K1 and K2 over Fq, K3's add and level over grumpkin, bit-exact at "
+          "the nv = 16 shapes; a 2^16 grumpkin MSM launches the level 17 times with no host sync", flush=True)
 
 
 def ew_cases(t, x, y):
@@ -1260,10 +1470,11 @@ def no_sync(torch, fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def ec_cases(np, rng, MJ, mod, n):
-    """Jacobian lane pairs over the five cases of the complete add."""
+def ec_cases(np, rng, MJ, mod, n, gen=(1, 2)):
+    """Jacobian lane pairs over the five cases of the complete add, on the
+    curve of generator `gen` over the modulus `mod` (BN254 G1 by default)."""
     def mul(k):
-        acc, base = (0, 0, 0), (1, 2, 1)
+        acc, base = (0, 0, 0), (gen[0], gen[1], 1)
         while k:
             if k & 1:
                 acc = MJ.host_jac_add(acc, base, mod)
@@ -1299,40 +1510,45 @@ def program_muls(SC, prog):
     return sum(op in (SC.OP_MUL, SC.OP_SCALED) for op, _ in prog.ops)
 
 
-def msm_edge_points(np, rng, MJ, mod, dev, n=64):
+def msm_edge_points(np, rng, MJ, mod, dev, n=64, curve=None):
     """n points over two base points, rescaled and every other block of four
-    negated (P = Q and P = -Q lanes), point 5 the identity."""
-    from halo2_lasso_tpu_torch.ops import ec
-    from halo2_lasso_tpu_torch.ops.bn254 import Fq
+    negated (P = Q and P = -Q lanes), point 5 the identity; on `curve`
+    (ops/curves.py), BN254 G1 by default."""
+    from halo2_lasso_tpu_torch.ops import curves, ec
 
-    base = [ec_cases(np, rng, MJ, mod, 1)[0][0] for _ in range(2)]
+    curve = curve or curves.BN254_G1
+    base = [ec_cases(np, rng, MJ, mod, 1, curve.generator)[0][0] for _ in range(2)]
     pts = []
     for i in range(n):
         x, y, z = base[i % 2]
         lam = int(rng.randint(2, 1 << 40))
         pts.append((x * lam * lam % mod, (-1) ** (i // 4) * y * lam**3 % mod, z * lam % mod))
     pts[5] = (1, 1, 0)
-    return {k: Fq.encode([pt[i] for pt in pts], dev) for i, k in enumerate(ec.COORDS)}
+    return {k: curve.base.encode([pt[i] for pt in pts], dev) for i, k in enumerate(ec.COORDS)}
 
 
-def check_msm_levels(torch, np, rng, dev, points, n, Fr):
-    """Every level of one MSM of the n points, msm_level against
-    msm_level_plain on the same inputs (survivors, digits, buckets); a third
-    of the scalars are 0 (digit-0 slots). Returns the largest difference."""
+def check_msm_levels(torch, np, rng, dev, points, n, Fr, base=None):
+    """Every level of one MSM of the n points (coordinates over `base`,
+    BN254 Fq by default; scalars over `Fr`, the scalar field), msm_level
+    against msm_level_plain on the same inputs (survivors, digits, buckets);
+    a third of the scalars are 0 (digit-0 slots). Returns the largest
+    difference."""
     from halo2_lasso_tpu_torch.ops import ec
     from halo2_lasso_tpu_torch.ops import field as F
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops.bn254 import Fq
 
+    base = base or Fq
     scal = Fr.encode([int(rng.randint(0, 1 << 62)) * (i % 3 != 0) for i in range(n)], dev)
     c = MJ.best_c(n)
     B, W = 1 << c, -(-Fr.num_bits // c)
     digits = MJ.digits_all(F.from_mont(Fr, scal), c, W).to(torch.int32)
     order = torch.argsort(-digits, dim=1, stable=True)
-    bk, bp = ec.identity_point(W * B + 1, dev), ec.identity_point(W * B + 1, dev)
+    bk, bp = ec.identity_point(W * B + 1, dev, base), ec.identity_point(W * B + 1, dev, base)
     kp, kd, pp, pd, first = points, digits, points, digits, True
     while True:
-        kp, kd = MJ.msm_level(kp, kd, bk, W, B, order=order if first else None)
-        pp, pd = MJ.msm_level_plain(pp, pd, bp, W, B, order=order if first else None)
+        kp, kd = MJ.msm_level(kp, kd, bk, W, B, order=order if first else None, base=base)
+        pp, pd = MJ.msm_level_plain(pp, pd, bp, W, B, order=order if first else None, base=base)
         got = [kd, *kp.values(), *(bk[k][: W * B] for k in ec.COORDS)]
         want = [pd, *pp.values(), *(bp[k][: W * B] for k in ec.COORDS)]
         if not all(torch.equal(a, b) for a, b in zip(got, want)):

@@ -3,8 +3,10 @@ preprocess / prove / verify (the port of
 halo2_lasso_tpu/backend/hyperplonk/__init__.py;
 plonkish_backend/src/backend/hyperplonk.rs:85-369 semantics). ``HyperPlonk``
 runs over multilinear KZG; ``hyperplonk(pcs_cls)`` instantiates it over
-another BN254 PCS (Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax), the
-reference's ``HyperPlonk<Pcs>`` (hyperplonk.rs:398-427).
+another PCS (Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax over BN254,
+MultilinearIpaGrumpkin, MultilinearHyraxGrumpkin over grumpkin), the
+reference's ``HyperPlonk<Pcs>`` (hyperplonk.rs:398-427). The SNARK's field is
+the PCS's ``FIELD``: BN254 Fr, or Fq for the grumpkin-backed PCS.
 
 Witness tables, lookup and permutation polys, the zero check and the MSMs
 run on the device that holds the prover parameters (``setup`` defaults to
@@ -159,7 +161,7 @@ def from_jax_hyperplonk_params(jpp, jvp, device="cuda", pcs=MultilinearKzg) -> T
 
 class HyperPlonk:
     Pcs = MultilinearKzg
-    field = Fr
+    field = Fr  # the PCS's polynomial field (``hyperplonk`` sets it)
 
     @classmethod
     def transcript(cls, proof: Optional[bytes] = None) -> Keccak256Transcript:
@@ -430,7 +432,10 @@ class HyperPlonk:
 
 
 def hyperplonk(pcs_cls) -> type:
-    """HyperPlonk over `pcs_cls` (the reference's HyperPlonk<Pcs>)."""
+    """HyperPlonk over `pcs_cls` (the reference's HyperPlonk<Pcs>), over the
+    PCS's polynomial field (the JAX package's ``field()``,
+    halo2_lasso_tpu/backend/hyperplonk/__init__.py:96-99)."""
     if pcs_cls is MultilinearKzg:
         return HyperPlonk
-    return type(f"HyperPlonk_{pcs_cls.__name__}", (HyperPlonk,), {"Pcs": pcs_cls})
+    return type(f"HyperPlonk_{pcs_cls.__name__}", (HyperPlonk,),
+                {"Pcs": pcs_cls, "field": getattr(pcs_cls, "FIELD", Fr)})

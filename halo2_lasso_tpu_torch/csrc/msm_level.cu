@@ -1,7 +1,9 @@
 // One halving level of the Pippenger MSM in one launch: the port of the TPU's
 // complete Jacobian add (_ec_add_kernel, halo2_lasso_tpu/ops/pallas_ec.py:144)
 // together with the level step around it (_level_step,
-// halo2_lasso_tpu/ops/msm_jacobian.py:168).
+// halo2_lasso_tpu/ops/msm_jacobian.py:168). Two instances, selected by
+// `field` as in csrc/ec_add.cu: BN254 G1 over Fq and grumpkin over Fr (on
+// the TPU grumpkin's level step adds through jac_add_lf, :90).
 //
 // The slots of each window are sorted by digit, descending. One thread takes
 // one pair lane (w, i), slots 2i and 2i+1 of window w (A and B):
@@ -21,7 +23,7 @@
 // pairs == 0 the launch is the final flush: lane w adds window w's last
 // survivor into its bucket.
 //
-// Bound: operations. A generic lane needs 16 Montgomery products over Fq
+// Bound: operations. A generic lane needs 16 Montgomery products
 // (add-2007-bl); a lane whose bucket is still the identity needs none. The
 // design keeps the card on those products: no host sync and no torch op
 // between the levels (the TPU version ran about 25 launches and four
@@ -40,6 +42,7 @@
 
 // One pair lane. Also compiled for the host (FIELD_HOST_TEST), where the
 // CPU tests run every lane of a level in order against the plain version.
+template <class P>
 FD void msm_level_lane(const uint32_t* sx, const uint32_t* sy, const uint32_t* sz,
                        const int32_t* dig, const long long* order, long long pairs, int B,
                        long long lane, uint32_t* bx, uint32_t* by, uint32_t* bz, uint32_t* ox,
@@ -81,7 +84,7 @@ FD void msm_level_lane(const uint32_t* sx, const uint32_t* sy, const uint32_t* s
     px = fe_load16(bx, slot), py = fe_load16(by, slot), pz = fe_load16(bz, slot);
   }
   Fe rx, ry, rz;
-  ec_add_lane(px, py, pz, same ? bxv : ax, same ? byv : ay, same ? bzv : az, rx, ry, rz);
+  ec_add_lane<P>(px, py, pz, same ? bxv : ax, same ? byv : ay, same ? bzv : az, rx, ry, rz);
   if (!same) {
     fe_store16(bx, slot, rx);
     fe_store16(by, slot, ry);
@@ -98,6 +101,7 @@ FD void msm_level_lane(const uint32_t* sx, const uint32_t* sy, const uint32_t* s
 #ifndef FIELD_HOST_TEST
 #define LEVEL_THREADS 128
 
+template <class P>
 __global__ void __launch_bounds__(LEVEL_THREADS)
 msm_level_kernel(const uint32_t* sx, const uint32_t* sy, const uint32_t* sz, const int32_t* dig,
                  const long long* order, long long pairs, int B, long long lanes, uint32_t* bx,
@@ -105,24 +109,34 @@ msm_level_kernel(const uint32_t* sx, const uint32_t* sy, const uint32_t* sz, con
                  int32_t* odig) {
   long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  msm_level_lane(sx, sy, sz, dig, order, pairs, B, lane, bx, by, bz, ox, oy, oz, odig);
+  msm_level_lane<P>(sx, sy, sz, dig, order, pairs, B, lane, bx, by, bz, ox, oy, oz, odig);
 }
 
 // sx/sy/sz, dig: the level's slots (W * 2 * pairs rows and digits), or at the
 // first level (order != null) the n points and the (W, n) unsorted digits;
 // pairs: pairs per window, 0 for the final flush (W slots); bx/by/bz: the
-// W * B buckets, updated in place; ox/oy/oz, odig: W * pairs survivors.
-extern "C" int h2l_msm_level(const void* sx, const void* sy, const void* sz, const void* dig,
+// W * B buckets, updated in place; ox/oy/oz, odig: W * pairs survivors;
+// field: the coordinate field's kernel_id (0 = Fr, grumpkin; 1 = Fq, BN254).
+extern "C" int h2l_msm_level(int field, const void* sx, const void* sy, const void* sz, const void* dig,
                              const void* order, long long pairs, int W, int B, void* bx,
                              void* by, void* bz, void* ox, void* oy, void* oz, void* odig,
                              void* stream) {
   long long lanes = pairs == 0 ? (long long)W : (long long)W * pairs;
   if (lanes <= 0) return 0;
   long long blocks = (lanes + LEVEL_THREADS - 1) / LEVEL_THREADS;
-  msm_level_kernel<<<blocks, LEVEL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (const int32_t*)dig,
-      (const long long*)order, pairs, B, lanes, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
-      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)odig);
+  cudaStream_t s = (cudaStream_t)stream;
+#define H2L_LEVEL_LAUNCH(P)                                                                      \
+  msm_level_kernel<P><<<blocks, LEVEL_THREADS, 0, s>>>(                                          \
+      (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (const int32_t*)dig,        \
+      (const long long*)order, pairs, B, lanes, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,     \
+      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)odig)
+  if (field == 0)
+    H2L_LEVEL_LAUNCH(Fr);
+  else if (field == 1)
+    H2L_LEVEL_LAUNCH(Fq);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef H2L_LEVEL_LAUNCH
   return (int)cudaGetLastError();
 }
 #endif

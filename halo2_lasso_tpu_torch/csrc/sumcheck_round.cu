@@ -1,6 +1,9 @@
 // Round message of the EvaluationsProver, the port of make_sumcheck_round
 // (halo2_lasso_tpu/ops/pallas_field.py:376; kernel :412, eval_expr :463,
-// round_fn :523, pallas_call :560).
+// round_fn :523, pallas_call :560). make_sumcheck_round takes any
+// FieldSpec; this kernel has an Fr and an Fq instance (a template over the
+// field, selected by `field`, the kernel_id): the grumpkin-backed SNARK's
+// sumchecks run over BN254 Fq.
 //
 //   msg[t-1] = sum_i expr(leaf values at X_0 = t), t = 1..degree,
 //   leaf value at t = hi + (t-1)(hi - lo), (lo, hi) = (L[2i], L[2i+1]).
@@ -87,7 +90,7 @@ struct Stack {
 // The program on pair i at t = 1..D; the values end in slot 0. Also compiled
 // for the host (FIELD_HOST_TEST), where the CPU tests hold it against the
 // plain version.
-template <int D>
+template <class P, int D>
 FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
   int sp = 0;
   for (int pc = 0; pc < p.nops; ++pc) {
@@ -99,10 +102,10 @@ FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
       Fe v = fe_load16(tab, 2 * i + 1);
       st.put(sp, 0, v);
       if (D > 1) {
-        const Fe step = fe_sub<Fr>(v, lo);
+        const Fe step = fe_sub<P>(v, lo);
 #pragma unroll 1
         for (int t = 1; t < D; ++t) {
-          v = fe_add<Fr>(v, step);
+          v = fe_add<P>(v, step);
           st.put(sp, t, v);
         }
       }
@@ -114,17 +117,17 @@ FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
       ++sp;
     } else if (op == OP_NEG) {
 #pragma unroll 1
-      for (int t = 0; t < D; ++t) st.put(sp - 1, t, fe_neg<Fr>(st.get(sp - 1, t)));
+      for (int t = 0; t < D; ++t) st.put(sp - 1, t, fe_neg<P>(st.get(sp - 1, t)));
     } else if (op == OP_ADD) {
       --sp;
 #pragma unroll 1
-      for (int t = 0; t < D; ++t) st.put(sp - 1, t, fe_add<Fr>(st.get(sp - 1, t), st.get(sp, t)));
+      for (int t = 0; t < D; ++t) st.put(sp - 1, t, fe_add<P>(st.get(sp - 1, t), st.get(sp, t)));
     } else {  // OP_MUL, OP_SCALED
       if (op == OP_MUL) --sp;
 #pragma unroll 1
       for (int t = 0; t < D; ++t) {
         const Fe rhs = op == OP_MUL ? st.get(sp, t) : p.consts[arg];
-        st.put(sp - 1, t, fe_mul<Fr>(st.get(sp - 1, t), rhs));
+        st.put(sp - 1, t, fe_mul<P>(st.get(sp - 1, t), rhs));
       }
     }
   }
@@ -132,7 +135,7 @@ FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
 
 #ifndef FIELD_HOST_TEST
 // Sums slot 0 of every thread's stack into thread 0's (T a power of two).
-template <int D>
+template <class P, int D>
 __device__ void block_sum(uint32_t* smem, const Stack<D>& st) {
   const int T = blockDim.x, tid = threadIdx.x;
   __syncthreads();
@@ -140,13 +143,13 @@ __device__ void block_sum(uint32_t* smem, const Stack<D>& st) {
     if (tid < s) {
       const Stack<D> other{smem + tid + s, T};
 #pragma unroll 1
-      for (int t = 0; t < D; ++t) st.put(0, t, fe_add<Fr>(st.get(0, t), other.get(0, t)));
+      for (int t = 0; t < D; ++t) st.put(0, t, fe_add<P>(st.get(0, t), other.get(0, t)));
     }
     __syncthreads();
   }
 }
 
-template <int D>
+template <class P, int D>
 __global__ void __launch_bounds__(256)
 round_kernel(const __grid_constant__ RoundParams p, uint32_t* partials, unsigned int* ticket,
              uint32_t* out) {
@@ -158,13 +161,13 @@ round_kernel(const __grid_constant__ RoundParams p, uint32_t* partials, unsigned
   for (int t = 0; t < D; ++t) acc[t] = fe_zero();
   const long long stride = (long long)gridDim.x * T;
   for (long long i = (long long)blockIdx.x * T + tid; i < p.h; i += stride) {
-    eval_pair<D>(p, i, st);
+    eval_pair<P, D>(p, i, st);
 #pragma unroll
-    for (int t = 0; t < D; ++t) acc[t] = fe_add<Fr>(acc[t], st.get(0, t));
+    for (int t = 0; t < D; ++t) acc[t] = fe_add<P>(acc[t], st.get(0, t));
   }
 #pragma unroll
   for (int t = 0; t < D; ++t) st.put(0, t, acc[t]);
-  block_sum<D>(smem, st);
+  block_sum<P, D>(smem, st);
 
   __shared__ bool last;
   if (tid == 0) {
@@ -179,51 +182,68 @@ round_kernel(const __grid_constant__ RoundParams p, uint32_t* partials, unsigned
   for (int t = 0; t < D; ++t) acc[t] = fe_zero();
   for (int b = tid; b < gridDim.x; b += T) {
 #pragma unroll
-    for (int t = 0; t < D; ++t) acc[t] = fe_add<Fr>(acc[t], fe_load_cg(partials, (long long)b * D + t));
+    for (int t = 0; t < D; ++t) acc[t] = fe_add<P>(acc[t], fe_load_cg(partials, (long long)b * D + t));
   }
 #pragma unroll
   for (int t = 0; t < D; ++t) st.put(0, t, acc[t]);
-  block_sum<D>(smem, st);
+  block_sum<P, D>(smem, st);
   if (tid == 0) {
     for (int t = 0; t < D; ++t) fe_store(out, t, st.get(0, t));
     *ticket = 0;  // ready for the next launch on this stream
   }
 }
 
-template <int D>
+template <class P, int D>
 int launch(const RoundParams& p, int stack, int threads, int blocks, void* partials, void* ticket,
            void* out, cudaStream_t s) {
-  static bool optin = false;  // the shared-memory opt-in, once per process and degree (one card)
+  static bool optin = false;  // the shared-memory opt-in, once per process and instance (one card)
   if (!optin) {
     int dev = 0, most = 0;
     cudaFuncAttributes attr;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaError_t e = cudaFuncGetAttributes(&attr, round_kernel<D>);
+    cudaError_t e = cudaFuncGetAttributes(&attr, round_kernel<P, D>);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(round_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(round_kernel<P, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most - (int)attr.sharedSizeBytes);
     if (e != cudaSuccess) return (int)e;
     optin = true;
   }
   const size_t smem = (size_t)stack * D * 32 * threads;
-  round_kernel<D><<<blocks, threads, smem, s>>>(p, (uint32_t*)partials, (unsigned int*)ticket,
-                                                (uint32_t*)out);
+  round_kernel<P, D><<<blocks, threads, smem, s>>>(p, (uint32_t*)partials, (unsigned int*)ticket,
+                                                   (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// leaves: host array of nleaves device pointers; ops: host array of nops
-// (op | arg << 3); consts: host array of nconsts Montgomery elements (8
-// words each); chals: device (c, 8) or null; stack: the program's depth;
-// threads: a power of two in 32..256; partials: blocks * degree elements of
-// device scratch; ticket: a device counter at 0; out: degree elements.
-extern "C" int h2l_sumcheck_round(const void* leaves, int nleaves, const void* ops, int nops,
+template <class P>
+int launch_degree(const RoundParams& p, int degree, int stack, int threads, int blocks, void* partials,
+                  void* ticket, void* out, cudaStream_t s) {
+  switch (degree) {
+    case 1: return launch<P, 1>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 2: return launch<P, 2>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 3: return launch<P, 3>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 4: return launch<P, 4>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 5: return launch<P, 5>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 6: return launch<P, 6>(p, stack, threads, blocks, partials, ticket, out, s);
+    case 7: return launch<P, 7>(p, stack, threads, blocks, partials, ticket, out, s);
+    default: return launch<P, 8>(p, stack, threads, blocks, partials, ticket, out, s);
+  }
+}
+
+// field: 0 = Fr, 1 = Fq; leaves: host array of nleaves device pointers;
+// ops: host array of nops (op | arg << 3); consts: host array of nconsts
+// Montgomery elements (8 words each); chals: device (c, 8) or null; stack:
+// the program's depth; threads: a power of two in 32..256; partials:
+// blocks * degree elements of device scratch; ticket: a device counter at
+// 0; out: degree elements.
+extern "C" int h2l_sumcheck_round(int field, const void* leaves, int nleaves, const void* ops, int nops,
                                   const void* consts, int nconsts, const void* chals,
                                   long long h, int degree, int stack, int threads, int blocks,
                                   void* partials, void* ticket, void* out, void* stream) {
   if (degree < 1 || degree > MAX_DEGREE || nleaves < 1 || nleaves > MAX_LEAVES || nops < 1 ||
       nops > MAX_OPS || nconsts < 0 || nconsts > MAX_CONSTS || stack < 1 || stack > MAX_STACK ||
-      threads < 32 || threads > 256 || (threads & (threads - 1)) || blocks < 1 || h < 1)
+      threads < 32 || threads > 256 || (threads & (threads - 1)) || blocks < 1 || h < 1 ||
+      (field != 0 && field != 1))
     return (int)cudaErrorInvalidValue;
   RoundParams p;
   memcpy(p.leaves, leaves, sizeof(void*) * nleaves);
@@ -233,15 +253,7 @@ extern "C" int h2l_sumcheck_round(const void* leaves, int nleaves, const void* o
   p.h = h;
   p.nops = nops;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (degree) {
-    case 1: return launch<1>(p, stack, threads, blocks, partials, ticket, out, s);
-    case 2: return launch<2>(p, stack, threads, blocks, partials, ticket, out, s);
-    case 3: return launch<3>(p, stack, threads, blocks, partials, ticket, out, s);
-    case 4: return launch<4>(p, stack, threads, blocks, partials, ticket, out, s);
-    case 5: return launch<5>(p, stack, threads, blocks, partials, ticket, out, s);
-    case 6: return launch<6>(p, stack, threads, blocks, partials, ticket, out, s);
-    case 7: return launch<7>(p, stack, threads, blocks, partials, ticket, out, s);
-    default: return launch<8>(p, stack, threads, blocks, partials, ticket, out, s);
-  }
+  return field == 0 ? launch_degree<Fr>(p, degree, stack, threads, blocks, partials, ticket, out, s)
+                    : launch_degree<Fq>(p, degree, stack, threads, blocks, partials, ticket, out, s);
 }
 #endif

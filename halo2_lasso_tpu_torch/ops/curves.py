@@ -2,17 +2,18 @@
 copy of halo2_lasso_tpu/ops/curves.py; halo2_curves bn256 / grumpkin /
 pasta).
 
-Host code only. BN254 G1 is the one curve with device group ops
-(ops/ec.py, over the Fq kernels); Grumpkin's fields are BN254's Fr and Fq
-swapped, and the Pasta fields have no kernel (``kernel_id`` None), so no
-device path may take a point of those curves. ``hash_to_curve`` derives
-the IPA and Hyrax generators; ``host_add`` / ``host_mul`` combine the
-handful of commitment points a verifier touches.
+Host code only. BN254 G1 and grumpkin have device group ops (ops/ec.py,
+over the Fq and the Fr instances of the curve kernels; grumpkin's fields
+are BN254's Fr and Fq swapped); the Pasta fields have no kernel
+(``kernel_id`` None), so no device path may take a point of those curves.
+``hash_to_curve`` derives the IPA and Hyrax generators; ``host_add`` /
+``host_mul`` combine the handful of commitment points a verifier touches.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -60,19 +61,10 @@ def on_curve(spec: CurveSpec, x: int, y: int) -> bool:
     return (y * y - x * x * x - spec.b) % p == 0
 
 
-def sqrt_mod(a: int, p: int):
-    """A square root mod the odd prime p, or None for a non-residue: the
-    p = 3 (mod 4) shortcut (BN254 Fq; one power, its square compared with
-    a in place of Euler's criterion), Tonelli-Shanks otherwise (Fr,
-    pasta)."""
-    a %= p
-    if a == 0:
-        return 0
-    if p % 4 == 3:
-        r = pow(a, (p + 1) // 4, p)
-        return r if r * r % p == a else None
-    if pow(a, (p - 1) // 2, p) != 1:
-        return None
+@functools.lru_cache(maxsize=None)
+def _tonelli_shanks_consts(p: int) -> Tuple[int, int, int]:
+    """p - 1 = q 2^s with q odd, and c = z^q for the least non-residue z:
+    the per-modulus part of Tonelli-Shanks, found once a modulus."""
     q, s = p - 1, 0
     while q % 2 == 0:
         q //= 2
@@ -80,8 +72,31 @@ def sqrt_mod(a: int, p: int):
     z = 2
     while pow(z, (p - 1) // 2, p) != p - 1:
         z += 1
-    m, c = s, pow(z, q, p)
-    t, r = pow(a, q, p), pow(a, (q + 1) // 2, p)
+    return q, s, pow(z, q, p)
+
+
+def sqrt_mod(a: int, p: int):
+    """A square root mod the odd prime p, or None for a non-residue: the
+    p = 3 (mod 4) shortcut (BN254 Fq; one power, its square compared with
+    a in place of Euler's criterion), Tonelli-Shanks otherwise (Fr,
+    pasta): one power a^((q-1)/2) gives its root and t, Euler's criterion
+    comes from t by squarings, and the split of p - 1 and the
+    non-residue's power are computed once a modulus."""
+    a %= p
+    if a == 0:
+        return 0
+    if p % 4 == 3:
+        r = pow(a, (p + 1) // 4, p)
+        return r if r * r % p == a else None
+    q, m, c = _tonelli_shanks_consts(p)
+    w = pow(a, (q - 1) // 2, p)  # one power: r = a^((q+1)/2), t = a^q
+    r = a * w % p
+    t = r * w % p
+    e = t  # Euler's criterion, a^((p-1)/2) = t^(2^(m-1))
+    for _ in range(m - 1):
+        e = e * e % p
+    if e != 1:
+        return None
     while t != 1:
         i, t2 = 0, t
         while t2 != 1:

@@ -1,11 +1,15 @@
-"""BN254 G1 arithmetic (the port of halo2_lasso_tpu/ops/ec.py).
+"""Curve arithmetic over BN254 G1 and grumpkin (the port of
+halo2_lasso_tpu/ops/ec.py).
 
-A point batch is a dict {"x", "y", "z"} of (n, 8) Fq tensors in Jacobian
-coordinates; the identity has z = 0 (and x = y = R mod p when this module
-makes it). ``ec_add`` is the port of the TPU kernel _ec_add_kernel
-(ops/pallas_ec.py:144): on a CUDA tensor it launches csrc/ec_add.cu or
-raises; only CPU tensors take ``ec_add_plain``, the same formulas in plain
-field ops, bit for bit.
+A point batch is a dict {"x", "y", "z"} of (n, 8) tensors over the curve's
+coordinate field ``spec`` in Jacobian coordinates; the identity has z = 0
+(and x = y = R mod p when this module makes it). As in the JAX package the
+field is an argument, BN254 G1's Fq by default; grumpkin's is Fr (both curves
+have a = 0). ``ec_add`` is the port of the TPU kernel _ec_add_kernel
+(ops/pallas_ec.py:144) and, for grumpkin, of the add the TPU builds from
+Montgomery-product launches (msm_jacobian.jac_add_lf): on a CUDA tensor it
+launches csrc/ec_add.cu's instance for the field or raises; only CPU tensors
+take ``ec_add_plain``, the same formulas in plain field ops, bit for bit.
 
 MSMs run the halving-tree Pippenger of ops/msm_jacobian.py; commitments
 leave the device as affine (x, y) canonical ints, (0, 0) for the identity.
@@ -21,31 +25,32 @@ import torch
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+from halo2_lasso_tpu_torch.ops.field import FieldSpec
 
 Points = Dict[str, torch.Tensor]
 COORDS = ("x", "y", "z")
 
 
-def identity_point(n: int, device="cpu") -> Points:
-    one = Fq.one(device).expand(n, F.LIMBS).contiguous()
-    return {"x": one, "y": one.clone(), "z": Fq.zeros(n, device)}
+def identity_point(n: int, device="cpu", spec: FieldSpec = Fq) -> Points:
+    one = spec.one(device).expand(n, F.LIMBS).contiguous()
+    return {"x": one, "y": one.clone(), "z": spec.zeros(n, device)}
 
 
-def affine_to_jacobian(pts_xy: Sequence[Tuple[int, int]], device="cpu") -> Points:
+def affine_to_jacobian(pts_xy: Sequence[Tuple[int, int]], device="cpu", spec: FieldSpec = Fq) -> Points:
     """Canonical affine ints ((0, 0) = identity) -> Jacobian point batch."""
     is_id = [x == 0 and y == 0 for x, y in pts_xy]
     xs = [1 if i else x for (x, _), i in zip(pts_xy, is_id)]
     ys = [1 if i else y for (_, y), i in zip(pts_xy, is_id)]
     zs = [0 if i else 1 for i in is_id]
-    return {"x": Fq.encode(xs, device), "y": Fq.encode(ys, device), "z": Fq.encode(zs, device)}
+    return {"x": spec.encode(xs, device), "y": spec.encode(ys, device), "z": spec.encode(zs, device)}
 
 
-def jacobian_to_affine(pts: Points) -> List[Tuple[int, int]]:
+def jacobian_to_affine(pts: Points, spec: FieldSpec = Fq) -> List[Tuple[int, int]]:
     """Device Jacobian batch -> host affine ints, one batch inversion."""
-    zinv = F.batch_inv(Fq, pts["z"])
-    zinv2 = F.mont_mul(Fq, zinv, zinv)
-    ax = Fq.decode_ints(F.mont_mul(Fq, pts["x"], zinv2))
-    ay = Fq.decode_ints(F.mont_mul(Fq, pts["y"], F.mont_mul(Fq, zinv2, zinv)))
+    zinv = F.batch_inv(spec, pts["z"])
+    zinv2 = F.mont_mul(spec, zinv, zinv)
+    ax = spec.decode_ints(F.mont_mul(spec, pts["x"], zinv2))
+    ay = spec.decode_ints(F.mont_mul(spec, pts["y"], F.mont_mul(spec, zinv2, zinv)))
     zero = F.is_zero(pts["z"]).tolist()
     return [(0, 0) if z else (x, y) for x, y, z in zip(ax, ay, zero)]
 
@@ -55,11 +60,11 @@ def jacobian_to_affine(pts: Points) -> List[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _ec_add_host(p: Points, q: Points) -> Points:
+def _ec_add_host(p: Points, q: Points, spec: FieldSpec) -> Points:
     """``ec_add_plain`` in host ints, lane by lane, for a small CPU batch
     (see ops/field.py HOST_PLAIN_ROWS): the same formulas on the same
     Montgomery-form numbers, so the same coordinates bit for bit."""
-    m, rinv, one = Fq.modulus, Fq.Rinv, Fq.R
+    m, rinv, one = spec.modulus, spec.Rinv, spec.R
     cols = [F.u32_to_ints(F.to_numpy_u32(t)) for t in (p["x"], p["y"], p["z"], q["x"], q["y"], q["z"])]
     out = []
     for x1, y1, z1, x2, y2, z2 in zip(*cols):
@@ -95,14 +100,15 @@ def _ec_add_host(p: Points, q: Points) -> Points:
             for i, k in enumerate(COORDS)}
 
 
-def ec_add_plain(p: Points, q: Points) -> Points:
-    """add-2007-bl with the dbl-2009-l doubling for P = Q and the same lane
-    selection as the kernel (ops/pallas_ec.py:85-141). As the kernel's warp
-    vote does, the doubling is computed only when some lane needs it. A
-    small CPU batch takes the same formulas in host ints."""
+def ec_add_plain(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
+    """add-2007-bl with the dbl-2009-l doubling (a = 0) for P = Q and the
+    same lane selection as the kernel (ops/pallas_ec.py:85-141), over the
+    coordinate field `spec`: the plain version of both K3 instances. As the
+    kernel's warp vote does, the doubling is computed only when some lane
+    needs it. A small CPU batch takes the same formulas in host ints."""
     if p["x"].device.type == "cpu" and p["x"].shape[0] <= F.HOST_PLAIN_ROWS:
-        return _ec_add_host(p, q)
-    s = Fq
+        return _ec_add_host(p, q, spec)
+    s = spec
     mul = functools.partial(F.mont_mul_plain, s)
     add = functools.partial(F.add_plain, s)
     sub = functools.partial(F.sub_plain, s)
@@ -152,11 +158,21 @@ def ec_add_plain(p: Points, q: Points) -> Points:
     }
 
 
-def ec_add(p: Points, q: Points) -> Points:
-    """Lane-wise complete Jacobian add of two (n,) batches over Fq.
-    Kernel: csrc/ec_add.cu (port of pallas_ec._ec_add_kernel)."""
+def curve_instance(spec: FieldSpec) -> str:
+    """K3's instance for the coordinate field `spec`, as ``native.counts``
+    names it apart ("" for BN254 G1, the first)."""
+    if spec.kernel_id not in (0, 1):
+        raise ValueError(f"ec: no curve kernel over {spec.name}")
+    return "grumpkin" if spec.kernel_id == 0 else ""
+
+
+def ec_add(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
+    """Lane-wise complete Jacobian add of two (n,) batches over the
+    coordinate field `spec` (Fq: BN254 G1, Fr: grumpkin). Kernel:
+    csrc/ec_add.cu (port of pallas_ec._ec_add_kernel)."""
     if p["x"].device.type == "cpu":
-        return ec_add_plain(p, q)
+        return ec_add_plain(p, q, spec)
+    instance = curve_instance(spec)
     ins = [t.contiguous() for t in (p["x"], p["y"], p["z"], q["x"], q["y"], q["z"])]
     n = ins[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in ins):
@@ -164,16 +180,16 @@ def ec_add(p: Points, q: Points) -> Points:
     native.require_cuda("ec_add", *ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     rc = native.lib().h2l_ec_add(
-        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n, native.stream()
+        spec.kernel_id, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n, native.stream()
     )
     native.check(rc, "ec_add")
-    native.counts["ec_add"] += 1
+    native.count("ec_add", instance)
     return dict(zip(COORDS, outs))
 
 
-def ec_neg(p: Points) -> Points:
+def ec_neg(p: Points, spec: FieldSpec = Fq) -> Points:
     """-P lane-wise: y negated in one launch of csrc/mont_mul.cu."""
-    return {"x": p["x"], "y": F.neg(Fq, p["y"]), "z": p["z"]}
+    return {"x": p["x"], "y": F.neg(spec, p["y"]), "z": p["z"]}
 
 
 def ec_select(cond: torch.Tensor, p: Points, q: Points) -> Points:
@@ -181,7 +197,7 @@ def ec_select(cond: torch.Tensor, p: Points, q: Points) -> Points:
     return {k: torch.where(cond[:, None], p[k], q[k]) for k in COORDS}
 
 
-def scalar_mul_bits(p: Points, bits) -> Points:
+def scalar_mul_bits(p: Points, bits, spec: FieldSpec = Fq) -> Points:
     """Lane-wise scalar multiple of an (n,) batch by double-and-add from the
     top bit (the port of ops/ec.py:216): each step doubles (a complete add
     of the accumulator to itself) and adds the point, two ``ec_add``
@@ -192,10 +208,10 @@ def scalar_mul_bits(p: Points, bits) -> Points:
     n = p["x"].shape[0]
     shared = not isinstance(bits, torch.Tensor)
     nbits = len(bits) if shared else bits.shape[-1]
-    acc = identity_point(n, p["x"].device)
+    acc = identity_point(n, p["x"].device, spec)
     for i in range(nbits):
-        acc = ec_add(acc, acc)
-        added = ec_add(acc, p)
+        acc = ec_add(acc, acc, spec)
+        added = ec_add(acc, p, spec)
         bit = bits[nbits - 1 - i] if shared else bits[:, nbits - 1 - i] == 1
         acc = (added if bit else acc) if shared else ec_select(bit, added, acc)
     return acc
@@ -203,10 +219,10 @@ def scalar_mul_bits(p: Points, bits) -> Points:
 
 def curve_generator(curve, device="cuda") -> Points:
     """The generator of a catalogued curve (ops/curves.py) as a one-point
-    batch on `device`; BN254 G1 only, the one curve with device group ops."""
-    if curve.name != "bn254_g1":
-        raise ValueError(f"ec: no device group ops for {curve.name}")
-    return affine_to_jacobian([curve.generator], device)
+    batch on `device`; BN254 G1 and grumpkin, the curves with device group
+    ops."""
+    curve_instance(curve.base)
+    return affine_to_jacobian([curve.generator], device, curve.base)
 
 
 def cat_points(*batches: Points) -> Points:
@@ -223,29 +239,33 @@ def split_points(pts: Points, sizes: Sequence[int]) -> List[Points]:
 # ---------------------------------------------------------------------------
 
 
-def msm_to_affine_int(points: Points, scalars_mont: torch.Tensor) -> Tuple[int, int]:
-    """sum_i s_i * P_i for (n,) points and (n, 8) Montgomery Fr scalars."""
-    return msm_list_to_affine_int([(points, scalars_mont)])[0]
+def msm_to_affine_int(points: Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
+                      scalar: FieldSpec = Fr) -> Tuple[int, int]:
+    """sum_i s_i * P_i for (n,) points over `base` and (n, 8) Montgomery
+    scalars over `scalar` (BN254 G1 and Fr by default; grumpkin: Fr, Fq)."""
+    return msm_list_to_affine_int([(points, scalars_mont)], base, scalar)[0]
 
 
-def msm_list_to_affine_int(jobs: Sequence[Tuple[Points, torch.Tensor]]) -> List[Tuple[int, int]]:
+def msm_list_to_affine_int(jobs: Sequence[Tuple[Points, torch.Tensor]], base: FieldSpec = Fq,
+                           scalar: FieldSpec = Fr) -> List[Tuple[int, int]]:
     """Independent MSMs (any sizes) -> affine ints, one inversion in all."""
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 
-    return MJ.host_batch_affine(MJ.msm_many(jobs), Fq.modulus)
+    return MJ.host_batch_affine(MJ.msm_many(jobs, base, scalar), base.modulus)
 
 
-def fixed_base_msm(base_xy: Tuple[int, int], scalars_mont: torch.Tensor, c: int = 8) -> Points:
+def fixed_base_msm(base_xy: Tuple[int, int], scalars_mont: torch.Tensor, c: int = 8, base: FieldSpec = Fq,
+                   scalar: FieldSpec = Fr) -> Points:
     """[s_i] * G for (n, 8) Montgomery scalars (msm.rs:67 semantics): a
     per-base window table T[w, v] = v * 2^(c w) * G built once on the host,
     one gather per window and a halving tree of adds over the windows."""
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 
     device = scalars_mont.device
-    W = -(-Fr.num_bits // c)
+    W = -(-scalar.num_bits // c)
     Wp = 1 << (W - 1).bit_length()
-    table = MJ.fixed_base_table(base_xy, c, W, Wp, str(device))
-    digits = MJ.digits_all(F.from_mont(Fr, scalars_mont), c, Wp)  # (Wp, n)
+    table = MJ.fixed_base_table(base_xy, c, W, Wp, str(device), base)
+    digits = MJ.digits_all(F.from_mont(scalar, scalars_mont), c, Wp)  # (Wp, n)
     n = scalars_mont.shape[0]
     woff = (torch.arange(Wp, device=device) << c)[:, None]
     idx = (digits + woff).reshape(-1)
@@ -253,5 +273,5 @@ def fixed_base_msm(base_xy: Tuple[int, int], scalars_mont: torch.Tensor, c: int 
     while pts["x"].shape[0] > n:
         half = pts["x"].shape[0] // 2
         lo, hi = split_points(pts, [half, half])
-        pts = ec_add(lo, hi)
+        pts = ec_add(lo, hi, base)
     return pts

@@ -14,8 +14,11 @@ halo2_lasso_tpu/ops/msm_jacobian.py).
      with bit j set, by a halving tree of ``ec_add`` launches;
   4. host: sum_{w,j} 2^(c w + j) U_{w,j} by double-and-add in Python ints.
 
-No torch op runs between the level launches and nothing syncs with the host
-until the plane sums are read. ``msm_level_plain`` is the same level in
+The points' coordinate field is ``base`` and the scalars' field ``scalar``
+(BN254 G1 over Fq with Fr scalars by default; grumpkin is base Fr, scalar
+Fq), as in the JAX package (msm_jacobian.py:691-765). No torch op runs
+between the level launches and nothing syncs with the host until the plane
+sums are read. ``msm_level_plain`` is the same level in
 plain torch, for CPU tensors and as the kernel's oracle. The TPU's
 2^18-point slicing, index-scatter detour, whole-bucket add per level and
 bit-reversed slot storage are policies of that machine and are not carried
@@ -33,6 +36,7 @@ from halo2_lasso_tpu_torch.ops import ec
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+from halo2_lasso_tpu_torch.ops.field import FieldSpec
 
 
 def best_c(n: int) -> int:
@@ -54,12 +58,12 @@ def digits_all(scal: torch.Tensor, c: int, num_windows: int) -> torch.Tensor:
     return (val & ((1 << c) - 1)).T.contiguous()
 
 
-def _pad_pow2(points: ec.Points, scal: torch.Tensor):
+def _pad_pow2(points: ec.Points, scal: torch.Tensor, base: FieldSpec):
     n = scal.shape[0]
     target = max(2, 1 << (n - 1).bit_length())
     if target == n:
         return points, scal
-    idp = ec.identity_point(target - n, scal.device)
+    idp = ec.identity_point(target - n, scal.device, base)
     return ec.cat_points(points, idp), torch.cat([scal, scal.new_zeros((target - n, F.LIMBS))])
 
 
@@ -70,7 +74,7 @@ def _pad_pow2(points: ec.Points, scal: torch.Tensor):
 
 def msm_level_plain(
     pts: ec.Points, dig: torch.Tensor, bucket: ec.Points, W: int, B: int,
-    order: Optional[torch.Tensor] = None,
+    order: Optional[torch.Tensor] = None, base: FieldSpec = Fq,
 ) -> Tuple[ec.Points, torch.Tensor]:
     """One level in plain torch, bit for bit what csrc/msm_level.cu does.
 
@@ -100,7 +104,7 @@ def msm_level_plain(
     sm = same[:, None]
     p = {k: torch.where(sm, a[k], bucket[k][slot]) for k in ec.COORDS}
     q = {k: torch.where(sm, b[k], a[k]) for k in ec.COORDS}
-    r = ec.ec_add_plain(p, q)
+    r = ec.ec_add_plain(p, q, base)
     dump = torch.where(same, W * B, slot)
     for k in ec.COORDS:
         bucket[k][dump] = r[k]
@@ -111,13 +115,14 @@ def msm_level_plain(
 
 def msm_level(
     pts: ec.Points, dig: torch.Tensor, bucket: ec.Points, W: int, B: int,
-    order: Optional[torch.Tensor] = None,
+    order: Optional[torch.Tensor] = None, base: FieldSpec = Fq,
 ) -> Tuple[ec.Points, torch.Tensor]:
     """One halving level (see ``msm_level_plain``) in one launch of
-    csrc/msm_level.cu: the port of the TPU's _ec_add_kernel with the level
-    step around it (msm_jacobian._level_step). The inputs are checked on
-    either device, as the kernel reads them: contiguous int32 rows and
-    digits, a contiguous int64 ``order``."""
+    csrc/msm_level.cu's instance for the coordinate field `base`: the port
+    of the TPU's _ec_add_kernel with the level step around it
+    (msm_jacobian._level_step). The inputs are checked on either device, as
+    the kernel reads them: contiguous int32 rows and digits, a contiguous
+    int64 ``order``."""
     coords = [pts[k] for k in ec.COORDS] + [bucket[k] for k in ec.COORDS]
     for t in (dig, *coords):
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -135,7 +140,8 @@ def msm_level(
     if m & (m - 1) or dig.numel() != W * m or pts["x"].shape[0] != (dig.shape[1] if order is not None else W * m):
         raise ValueError("msm_level: W windows of a power-of-two number of slots")
     if dig.device.type == "cpu":
-        return msm_level_plain(pts, dig, bucket, W, B, order)
+        return msm_level_plain(pts, dig, bucket, W, B, order, base)
+    instance = ec.curve_instance(base)
     native.require_cuda("msm_level", dig, *coords)
     if any(t.data_ptr() % 16 for t in coords):
         raise ValueError("msm_level: coordinates must start on 16-byte boundaries")
@@ -144,12 +150,12 @@ def msm_level(
     out = [torch.empty((W * pairs, F.LIMBS), dtype=torch.int32, device=device) for _ in ec.COORDS]
     odig = torch.empty(W * pairs, dtype=torch.int32, device=device)
     rc = native.lib().h2l_msm_level(
-        *[t.data_ptr() for t in coords[:3]], dig.data_ptr(), None if order is None else order.data_ptr(),
+        base.kernel_id, *[t.data_ptr() for t in coords[:3]], dig.data_ptr(), None if order is None else order.data_ptr(),
         pairs, W, B, *[t.data_ptr() for t in coords[3:]], *[t.data_ptr() for t in out], odig.data_ptr(),
         native.stream(),
     )
     native.check(rc, "msm_level")
-    native.counts["msm_level"] += 1
+    native.count("msm_level", instance)
     return dict(zip(ec.COORDS, out)), odig
 
 
@@ -158,22 +164,23 @@ def msm_level(
 # ---------------------------------------------------------------------------
 
 
-def msm_planes(points: ec.Points, scalars_mont: torch.Tensor) -> Tuple[ec.Points, int, int]:
+def msm_planes(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
+               scalar: FieldSpec = Fr) -> Tuple[ec.Points, int, int]:
     """The device part of a variable-base MSM: the c * W plane sums
     U_{w,j}, plane-major ([j * W + w]), with c and W."""
-    points, scalars_mont = _pad_pow2({k: v.contiguous() for k, v in points.items()}, scalars_mont)
+    points, scalars_mont = _pad_pow2({k: v.contiguous() for k, v in points.items()}, scalars_mont, base)
     n = scalars_mont.shape[0]
     c = best_c(n)
     B = 1 << c
-    W = -(-Fr.num_bits // c)
-    digits = digits_all(F.from_mont(Fr, scalars_mont), c, W).to(torch.int32)
+    W = -(-scalar.num_bits // c)
+    digits = digits_all(F.from_mont(scalar, scalars_mont), c, W).to(torch.int32)
     order = torch.argsort(-digits, dim=1, stable=True)
-    bucket = ec.identity_point(W * B + 1, scalars_mont.device)
-    pts, dig = msm_level(points, digits, bucket, W, B, order=order)
+    bucket = ec.identity_point(W * B + 1, scalars_mont.device, base)
+    pts, dig = msm_level(points, digits, bucket, W, B, order=order, base=base)
     while dig.shape[0] > W:
-        pts, dig = msm_level(pts, dig, bucket, W, B)
-    msm_level(pts, dig, bucket, W, B)  # final flush
-    return bucket_planes(bucket, c, W), c, W
+        pts, dig = msm_level(pts, dig, bucket, W, B, base=base)
+    msm_level(pts, dig, bucket, W, B, base=base)  # final flush
+    return bucket_planes(bucket, c, W, base), c, W
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,7 +196,7 @@ def _plane_rows(c: int, W: int, device: str):
     return idx, keep
 
 
-def bucket_planes(bucket: ec.Points, c: int, W: int) -> ec.Points:
+def bucket_planes(bucket: ec.Points, c: int, W: int, base: FieldSpec = Fq) -> ec.Points:
     """U_{w,j} = sum of the buckets (w, v) with bit j of v set, for all (j, w)
     at once: a halving tree over v whose two halves are contiguous rows."""
     idx, keep = _plane_rows(c, W, str(bucket["x"].device))
@@ -198,28 +205,30 @@ def bucket_planes(bucket: ec.Points, c: int, W: int) -> ec.Points:
     rows = tree["x"].shape[0]
     while rows > c * W:
         rows //= 2
-        tree = ec.ec_add({k: v[:rows] for k, v in tree.items()}, {k: v[rows:] for k, v in tree.items()})
+        tree = ec.ec_add({k: v[:rows] for k, v in tree.items()}, {k: v[rows:] for k, v in tree.items()}, base)
     return tree
 
 
-def msm(points: ec.Points, scalars_mont: torch.Tensor) -> Tuple[int, int, int]:
+def msm(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
+        scalar: FieldSpec = Fr) -> Tuple[int, int, int]:
     """Variable-base MSM -> Jacobian (X, Y, Z) canonical ints."""
-    return msm_many([(points, scalars_mont)])[0]
+    return msm_many([(points, scalars_mont)], base, scalar)[0]
 
 
-def msm_many(jobs: Sequence[Tuple[ec.Points, torch.Tensor]]) -> List[Tuple[int, int, int]]:
+def msm_many(jobs: Sequence[Tuple[ec.Points, torch.Tensor]], base: FieldSpec = Fq,
+             scalar: FieldSpec = Fr) -> List[Tuple[int, int, int]]:
     """Independent MSMs -> Jacobian canonical ints, with one read of the card
     for all of them."""
-    planes = [msm_planes(points, scal) for points, scal in jobs]
+    planes = [msm_planes(points, scal, base, scalar) for points, scal in jobs]
     if not planes:
         return []
-    flat = Fq.decode_ints(torch.cat([u[k] for u, _, _ in planes for k in ec.COORDS]))
+    flat = base.decode_ints(torch.cat([u[k] for u, _, _ in planes for k in ec.COORDS]))
     out, at = [], 0
     for _, c, W in planes:
         cw = c * W
         xs, ys, zs = flat[at : at + cw], flat[at + cw : at + 2 * cw], flat[at + 2 * cw : at + 3 * cw]
         at += 3 * cw
-        out.append(finish_host(list(zip(xs, ys, zs)), c, W, Fq.modulus))
+        out.append(finish_host(list(zip(xs, ys, zs)), c, W, base.modulus))
     return out
 
 
@@ -310,8 +319,7 @@ def host_batch_affine(pts, mod):
 
 
 @functools.lru_cache(maxsize=None)
-def _fixed_base_rows(base_xy: Tuple[int, int], c: int, W: int, Wp: int):
-    mod = Fq.modulus
+def _fixed_base_rows(base_xy: Tuple[int, int], c: int, W: int, Wp: int, mod: int):
     rows = []
     g = (base_xy[0], base_xy[1], 1)
     for w in range(Wp):
@@ -325,7 +333,8 @@ def _fixed_base_rows(base_xy: Tuple[int, int], c: int, W: int, Wp: int):
 
 
 @functools.lru_cache(maxsize=None)
-def fixed_base_table(base_xy: Tuple[int, int], c: int, W: int, Wp: int, device: str) -> Dict:
-    """T[w * 2^c + v] = v * 2^(c w) * G as a device point batch (built once
-    per base on the host; msm.rs:16-65 semantics)."""
-    return ec.affine_to_jacobian(_fixed_base_rows(base_xy, c, W, Wp), device)
+def fixed_base_table(base_xy: Tuple[int, int], c: int, W: int, Wp: int, device: str, base: FieldSpec = Fq) -> Dict:
+    """T[w * 2^c + v] = v * 2^(c w) * G as a device point batch over the
+    coordinate field `base` (built once per base on the host; msm.rs:16-65
+    semantics)."""
+    return ec.affine_to_jacobian(_fixed_base_rows(base_xy, c, W, Wp, base.modulus), device, base)

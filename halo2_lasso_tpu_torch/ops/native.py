@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
 All kernel sources (``halo2_lasso_tpu_torch/csrc/*.cu`` over the shared
-``field.cuh``) are compiled by ONE ``nvcc`` call into one shared library with
-a plain C interface, loaded with ``ctypes``. Nothing includes PyTorch's
-headers, so the build takes seconds, and nothing compiles after it: the
-library is named by a hash of its sources, so a stale build is never loaded
-and an existing one is reused.
+``field.cuh``) are compiled by parallel ``nvcc -c`` jobs, one a source, all
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. Nothing includes PyTorch's headers, so the
+build takes as long as its largest source, and nothing compiles after it:
+the library is named by a hash of its sources, so a stale build is never
+loaded and an existing one is reused.
 
 The build happens on the first launch of any kernel (never at import time:
 the CPU tests import every module and have no ``nvcc``). Every C entry point
@@ -13,8 +14,12 @@ returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
 ``ptxas_info`` keeps what ``-Xptxas -v`` said of each kernel (registers,
 shared memory, spills) when this process built the library.
 
-``counts`` holds one launch counter per kernel. A wrapper adds one where it
-launches its kernel and nowhere else; ``reset_counts`` zeroes them.
+``counts`` holds one launch counter per kernel, and one per field instance
+that a kernel has beside its first (``INSTANCES``: the Fq instances of K1
+and K2, the grumpkin instances of K3's add and level). A wrapper adds one to
+its kernel's count where it launches it, whatever the instance, and one to
+the instance's count when it launches that instance, and nowhere else;
+``reset_counts`` zeroes them.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 BUILD_TIMEOUT_S = 600
 
@@ -42,7 +47,11 @@ KERNELS = (
     "mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "mont_mul_limbs_first",
     "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy", "sum_reduce",
 )
-counts = {k: 0 for k in KERNELS}
+# the instances counted apart: "<kernel>.<instance>", launched where a
+# wrapper is given a field (K1, K2: Fq) or a curve (K3: grumpkin, whose
+# coordinates are Fr) other than its first
+INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin")
+counts = {k: 0 for k in KERNELS + INSTANCES}
 # the __global__ function of each kernel, as a profiler names it
 SYMBOLS = {
     "mont_mul": "mont_mul_kernel", "fold_all": "fold_all_kernel", "sumcheck_round": "round_kernel",
@@ -51,7 +60,7 @@ SYMBOLS = {
     "msm_level": "msm_level_kernel", "mont_pow": "mont_pow_kernel", "prefix_products": "scan_kernel",
     "eq_xy": "eq_xy_kernel", "sum_reduce": "sum_reduce_kernel",
 }
-build_seconds = None  # wall time of the nvcc call, when this process built
+build_seconds = None  # wall time of the build (the parallel compiles and the link), when this process built
 ptxas_info = ""  # what -Xptxas -v printed, when this process built
 
 _lib = None
@@ -62,11 +71,11 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "h2l_mont_mul": [_I, _I, _P, _P, _P, _P, _LL, _LL, _P],
     "h2l_sum_reduce": [_I, _P, _LL, _I, _LL, _LL, _I, _P, _P, _P, _P],
-    "h2l_fold_all": [_P, _P, _I, _LL, _LL, _P, _P, _P],
+    "h2l_fold_all": [_I, _P, _P, _I, _LL, _LL, _P, _P, _P],
     "h2l_fix_var": [_I, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "h2l_sumcheck_round": [_P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
-    "h2l_ec_add": [_P] * 9 + [_LL, _P],
-    "h2l_msm_level": [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
+    "h2l_sumcheck_round": [_I, _P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
+    "h2l_ec_add": [_I] + [_P] * 9 + [_LL, _P],
+    "h2l_msm_level": [_I] + [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
     "h2l_mont_mul_limbs_first": [_P, _P, _P, _LL, _P],
     "h2l_mont_mul_tiled": [_P, _P, _P, _LL, _P],
     "h2l_mont_pow": [_I, _P, _P, _LL, _P, _I, _P],
@@ -79,6 +88,14 @@ _SIGNATURES = {
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+def count(name: str, instance: str = "") -> None:
+    """One launch of kernel `name`, of its instance `instance` where that is
+    counted apart."""
+    counts[name] += 1
+    if instance:
+        counts[f"{name}.{instance}"] += 1
 
 
 _tickets = {}
@@ -105,7 +122,8 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile every kernel source into one library; returns its path."""
+    """Compile every kernel source, one ``nvcc -c`` job each, all at once,
+    and link them into one library; returns its path."""
     global build_seconds, ptxas_info
     h = hashlib.sha256()
     for src in sources():
@@ -117,14 +135,34 @@ def build() -> str:
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    jobs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(cu, objs)
+    ]
+    try:
+        outs = [j.communicate(timeout=max(1.0, BUILD_TIMEOUT_S - (time.perf_counter() - t0)))[0] for j in jobs]
+        failed = [(s, j.returncode, o) for s, j, o in zip(cu, jobs, outs) if j.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{s} ({rc}):\n{o}" for s, rc, o in failed))
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for j in jobs:
+            if j.poll() is None:
+                j.kill()
+                j.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_seconds = time.perf_counter() - t0
-    ptxas_info = proc.stdout + proc.stderr
+    ptxas_info = "".join(outs)
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -3,7 +3,9 @@
 Commitments cross the host boundary as affine (x, y) canonical int pairs
 ((0, 0) = identity); the MSMs run on the device. The additive batch open
 reduces many (poly, point) claims to one opening through the degree-2
-coefficient sumcheck (pcs/multilinear.rs:109-276 semantics).
+coefficient sumcheck (pcs/multilinear.rs:109-276 semantics), over the PCS's
+``FIELD`` (Fr, or Fq for the grumpkin-backed PCS), and combines commitments
+on its ``CURVE``.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from halo2_lasso_tpu_torch.ops import curves
 from halo2_lasso_tpu_torch.ops import field as F
-from halo2_lasso_tpu_torch.ops import pairing as hostec
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
 from halo2_lasso_tpu_torch.piop import sum_check
 from halo2_lasso_tpu_torch.poly import multilinear as mle
@@ -51,20 +53,22 @@ class PointCommitmentIO:
         return comm
 
 
-def g1_sum_with_scalar(scalars: Sequence[int], bases: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
-    """Host small MSM over commitment points (pcs.rs:157-177)."""
+def g1_sum_with_scalar(scalars: Sequence[int], bases: Sequence[Tuple[int, int]],
+                       curve: curves.CurveSpec = curves.BN254_G1) -> Tuple[int, int]:
+    """Host small MSM over commitment points on `curve` (pcs.rs:157-177;
+    BN254 G1 unless the PCS's CURVE says)."""
     acc = None
     for s, b in zip(scalars, bases):
-        if s % Fr.modulus == 0 or (b[0] == 0 and b[1] == 0):
+        if s % curve.scalar.modulus == 0 or (b[0] == 0 and b[1] == 0):
             continue
-        acc = hostec._add(acc, hostec._mul(b, s % Fr.modulus))
+        acc = curves.host_add(curve, acc, curves.host_mul(curve, b, s))
     return (0, 0) if acc is None else acc
 
 
-def _eq_xt(t: Sequence[int], device) -> List[int]:
+def _eq_xt(spec, t: Sequence[int], device) -> List[int]:
     if not t:
         return [1]
-    return Fr.decode_ints(mle.eq_xy(Fr, list(t), device))
+    return spec.decode_ints(mle.eq_xy(spec, list(t), device))
 
 
 def additive_batch_open(
@@ -76,12 +80,13 @@ def additive_batch_open(
     evals: Sequence[Evaluation],
     transcript: Keccak256Transcript,
 ) -> None:
-    """pcs/multilinear.rs:134-235 semantics. `polys` are (2^k, 8) tensors."""
-    spec = Fr
+    """pcs/multilinear.rs:134-235 semantics. `polys` are (2^k, 8) tensors
+    over the PCS's FIELD."""
+    spec = getattr(pcs, "FIELD", Fr)
     p = spec.modulus
     device = polys[0].device
     ell = (len(evals) - 1).bit_length() if len(evals) > 1 else 0
-    eq_xt = _eq_xt(transcript.squeeze_challenges(ell), device)
+    eq_xt = _eq_xt(spec, transcript.squeeze_challenges(ell), device)
 
     # merge polys per point (scalar bookkeeping mirrors the reference fold);
     # the scalars are host ints, by value in the product kernel
@@ -127,9 +132,10 @@ def additive_batch_verify(
     evals: Sequence[Evaluation],
     transcript: Keccak256Transcript,
 ) -> None:
-    """pcs/multilinear.rs:237-275 semantics. A PCS whose commitments are
-    not single points combines them with its own ``sum_commitments``."""
-    p = Fr.modulus
+    """pcs/multilinear.rs:237-275 semantics, over the PCS's FIELD. A PCS
+    whose commitments are not single points, or not on BN254 G1, combines
+    them with its own ``sum_commitments``."""
+    p = getattr(pcs, "FIELD", Fr).modulus
     ell = (len(evals) - 1).bit_length() if len(evals) > 1 else 0
     t = transcript.squeeze_challenges(ell)
     eq_xt = [1] if not t else [mle.lagrange_eval_host(p, t, b) for b in range(1 << ell)]

@@ -1,5 +1,7 @@
 """Multilinear Hyrax: a matrix commitment over the IPA (the port of
-halo2_lasso_tpu/pcs/hyrax.py; pcs/multilinear/hyrax.rs), over BN254 G1.
+halo2_lasso_tpu/pcs/hyrax.py; pcs/multilinear/hyrax.rs), over BN254 G1
+(``MultilinearHyrax``) or grumpkin with polynomials over BN254 Fq
+(``MultilinearHyraxGrumpkin``, hyperplonk.rs:423).
 
 The 2^k evaluations are a (num_chunks x row_len) matrix; the commitment is
 one MSM a row, all of a batch's rows in one ``msm_list_to_affine_int``. An
@@ -17,9 +19,9 @@ from typing import List, Sequence, Tuple
 import torch
 
 from halo2_lasso_tpu_torch.ops import curves, ec
-from halo2_lasso_tpu_torch.ops.bn254 import Fr
+from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
 from halo2_lasso_tpu_torch.pcs import additive_batch_open, additive_batch_verify
-from halo2_lasso_tpu_torch.pcs.ipa import IpaParams, MultilinearIpa
+from halo2_lasso_tpu_torch.pcs.ipa import IpaParams, MultilinearIpa, MultilinearIpaGrumpkin
 from halo2_lasso_tpu_torch.pcs.multilinear_kzg import PcsError
 from halo2_lasso_tpu_torch.poly import multilinear as mle
 
@@ -87,7 +89,7 @@ class MultilinearHyrax:
             g = {k: v[:row_len] for k, v in pp.ipa.g.items()}
             rows.append(n // row_len)
             jobs += [(g, evals[r * row_len : (r + 1) * row_len]) for r in range(n // row_len)]
-        flat = ec.msm_list_to_affine_int(jobs)
+        flat = ec.msm_list_to_affine_int(jobs, cls.CURVE.base, cls.FIELD)
         out, at = [], 0
         for m in rows:
             out.append(flat[at : at + m])
@@ -144,3 +146,12 @@ class MultilinearHyrax:
     @classmethod
     def batch_verify(cls, vp, comms, points, evals, transcript):
         additive_batch_verify(cls, vp, vp.num_vars, comms, points, evals, transcript)
+
+
+class MultilinearHyraxGrumpkin(MultilinearHyrax):
+    """Hyrax over grumpkin, polynomials over BN254 Fq (the port of
+    halo2_lasso_tpu/pcs/hyrax.py:167; hyperplonk.rs:423)."""
+
+    IPA = MultilinearIpaGrumpkin
+    CURVE = curves.GRUMPKIN
+    FIELD = Fq

@@ -1,6 +1,7 @@
 """Multilinear IPA, Bulletproofs-style log-round folding (the port of
 halo2_lasso_tpu/pcs/ipa.py; pcs/multilinear/ipa.rs), over BN254 G1 with
-polynomials over Fr.
+polynomials over Fr (``MultilinearIpa``) or over grumpkin with polynomials
+over BN254 Fq (``MultilinearIpaGrumpkin``, hyperplonk.rs:422).
 
 commit = MSM(evals, G). open squeezes xi_0, scales H to h' = xi_0 H, then
 runs num_vars rounds: the cross terms L = MSM(G_l, c_r) + <c_r, z_l> h' and
@@ -9,8 +10,8 @@ c = c_l + xi^-1 c_r, z = z_l + xi z_r (ipa.rs:170-241). verify recombines
 with the tensor-expanded h_coeffs polynomial (ipa.rs:269-337).
 
 A scaling by a host scalar (``_scale_points``) is the double-and-add ladder
-of ops/ec.py ``scalar_mul_bits`` over 254 bits: two ``ec_add`` launches a
-bit, whatever the number of points. The generators come from
+of ops/ec.py ``scalar_mul_bits`` over the scalar field's 254 bits: two
+``ec_add`` launches a bit, whatever the number of points. The generators come from
 ``hash_to_curve(b"MultilinearIpa::setup")`` on the host (ipa.rs:105,123),
 timed apart as ``ipa_hash_to_curve``.
 """
@@ -27,12 +28,12 @@ from halo2_lasso_tpu_torch.ops import curves, ec
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
-from halo2_lasso_tpu_torch.pcs import PointCommitmentIO, additive_batch_open, additive_batch_verify
+from halo2_lasso_tpu_torch.pcs import (
+    PointCommitmentIO, additive_batch_open, additive_batch_verify, g1_sum_with_scalar,
+)
 from halo2_lasso_tpu_torch.pcs.multilinear_kzg import PcsError
 from halo2_lasso_tpu_torch.poly import multilinear as mle
 from halo2_lasso_tpu_torch.utils.timer import timed
-
-SCALAR_BITS = 254  # the ladder's fixed width (Fr's bit length)
 
 
 @dataclasses.dataclass
@@ -54,7 +55,7 @@ class MultilinearIpa(PointCommitmentIO):
     def setup(cls, poly_size: int, rng=None, device="cuda") -> IpaParams:
         with timed.scope("ipa_hash_to_curve"):
             affine = curves.hash_to_curve(cls.CURVE, b"MultilinearIpa::setup", poly_size + 1)
-        pts = ec.affine_to_jacobian([(int(x), int(y)) for x, y in affine], device)
+        pts = ec.affine_to_jacobian([(int(x), int(y)) for x, y in affine], device, cls.CURVE.base)
         return IpaParams(
             num_vars=poly_size.bit_length() - 1,
             g={k: v[:poly_size] for k, v in pts.items()},
@@ -87,7 +88,7 @@ class MultilinearIpa(PointCommitmentIO):
             if n.bit_length() - 1 > pp.num_vars:
                 raise PcsError("poly has too many variates")
             jobs.append(({k: v[:n] for k, v in pp.g.items()}, evals))
-        return ec.msm_list_to_affine_int(jobs)
+        return ec.msm_list_to_affine_int(jobs, cls.CURVE.base, cls.FIELD)
 
     @classmethod
     def commit(cls, pp: IpaParams, evals: torch.Tensor) -> Tuple[int, int]:
@@ -95,23 +96,18 @@ class MultilinearIpa(PointCommitmentIO):
 
     @classmethod
     def sum_commitments(cls, scalars, bases) -> Tuple[int, int]:
-        acc = None
-        for sc, b in zip(scalars, bases):
-            if sc % cls.FIELD.modulus == 0 or (b[0] == 0 and b[1] == 0):
-                continue
-            acc = curves.host_add(cls.CURVE, acc, curves.host_mul(cls.CURVE, b, sc))
-        return (0, 0) if acc is None else acc
+        return g1_sum_with_scalar(scalars, bases, cls.CURVE)
 
     @classmethod
     def _scale_points(cls, pts: dict, scalar: int) -> dict:
-        """scalar * pts for a host scalar: the 254-bit ladder, its bits shared
-        by every lane."""
+        """scalar * pts for a host scalar: the ladder over the scalar field's
+        bit length (254 for Fr and Fq), its bits shared by every lane."""
         s = scalar % cls.FIELD.modulus
-        return ec.scalar_mul_bits(pts, [(s >> i) & 1 for i in range(SCALAR_BITS)])
+        return ec.scalar_mul_bits(pts, [(s >> i) & 1 for i in range(cls.FIELD.num_bits)], cls.CURVE.base)
 
     @classmethod
     def open(cls, pp: IpaParams, evals: torch.Tensor, point: Sequence[int], eval_, transcript) -> None:
-        S = cls.FIELD
+        S, B = cls.FIELD, cls.CURVE.base
         num_vars = len(point)
         xi_0 = transcript.squeeze_challenge()
         h_prime = cls._scale_points(pp.h, xi_0)
@@ -128,19 +124,19 @@ class MultilinearIpa(PointCommitmentIO):
                 F.sum_reduce(S, F.mont_mul(S, coeffs[:mid], zs[mid:])),
             ]))
             # L = MSM(bases_l, coeffs_r) + c_l h', R = MSM(bases_r, coeffs_l) + c_r h'
-            msm_l, msm_r = MJ.msm_many([(b_l, coeffs[mid:]), (b_r, coeffs[:mid])])
+            msm_l, msm_r = MJ.msm_many([(b_l, coeffs[mid:]), (b_r, coeffs[:mid])], B, S)
             scaled = ec.cat_points(cls._scale_points(h_prime, c_l), cls._scale_points(h_prime, c_r))
-            v = Fq.decode_ints(torch.cat([scaled[k] for k in ec.COORDS]))  # x_l, x_r, y_l, y_r, z_l, z_r
+            v = B.decode_ints(torch.cat([scaled[k] for k in ec.COORDS]))  # x_l, x_r, y_l, y_r, z_l, z_r
             l_aff, r_aff = MJ.host_batch_affine([
-                MJ.host_jac_add(msm_l, tuple(v[0::2]), Fq.modulus),
-                MJ.host_jac_add(msm_r, tuple(v[1::2]), Fq.modulus),
-            ], Fq.modulus)
+                MJ.host_jac_add(msm_l, tuple(v[0::2]), B.modulus),
+                MJ.host_jac_add(msm_r, tuple(v[1::2]), B.modulus),
+            ], B.modulus)
             transcript.write_commitment(l_aff)
             transcript.write_commitment(r_aff)
 
             xi = transcript.squeeze_challenge()
             xi_inv = pow(xi, -1, S.modulus)
-            bases = ec.ec_add(b_l, cls._scale_points(b_r, xi))
+            bases = ec.ec_add(b_l, cls._scale_points(b_r, xi), B)
             coeffs = F.mul_add(S, coeffs[mid:], xi_inv, coeffs[:mid])
             zs = F.mul_add(S, zs[mid:], xi, zs[:mid])
 
@@ -175,11 +171,11 @@ class MultilinearIpa(PointCommitmentIO):
             acc = curves.host_add(cls.CURVE, acc, curves.host_mul(cls.CURVE, l_c, pow(xi, -1, Pm)))
         for r_c, xi in zip(rs, xis):
             acc = curves.host_add(cls.CURVE, acc, curves.host_mul(cls.CURVE, r_c, xi))
-        g_part = ec.msm_to_affine_int({k: v[: 1 << num_vars] for k, v in vp.g.items()}, hc_dev)
+        g_part = ec.msm_to_affine_int({k: v[: 1 << num_vars] for k, v in vp.g.items()}, hc_dev, cls.CURVE.base, S)
         if g_part != (0, 0):
             acc = curves.host_add(cls.CURVE, acc, g_part)
         if u:
-            acc = curves.host_add(cls.CURVE, acc, curves.host_mul(cls.CURVE, ec.jacobian_to_affine(vp.h)[0], u))
+            acc = curves.host_add(cls.CURVE, acc, curves.host_mul(cls.CURVE, ec.jacobian_to_affine(vp.h, cls.CURVE.base)[0], u))
         if comm != (0, 0):
             acc = curves.host_add(cls.CURVE, acc, comm)
         if acc is not None and acc != (0, 0):
@@ -192,3 +188,12 @@ class MultilinearIpa(PointCommitmentIO):
     @classmethod
     def batch_verify(cls, vp, comms, points, evals, transcript):
         additive_batch_verify(cls, vp, vp.num_vars, comms, points, evals, transcript)
+
+
+class MultilinearIpaGrumpkin(MultilinearIpa):
+    """IPA over grumpkin, the other half of the BN254 2-cycle: coordinates in
+    BN254 Fr, polynomials and challenges over BN254 Fq (the port of
+    halo2_lasso_tpu/pcs/ipa.py:222; hyperplonk.rs:422-423)."""
+
+    CURVE = curves.GRUMPKIN
+    FIELD = Fq

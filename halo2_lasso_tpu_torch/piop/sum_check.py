@@ -254,8 +254,8 @@ def round_message(
     tables = list(tables)
     if tables[0].device.type == "cpu":
         return round_message_plain(spec, tables, program, challenges, degree)
-    if spec.kernel_id != 0:
-        raise ValueError("sumcheck_round: the kernel is compiled for Fr only")
+    if spec.kernel_id is None:
+        raise ValueError(f"sumcheck_round: the kernel has no instance for {spec.name}")
     if not 1 <= degree <= MAX_DEGREE:
         raise SumcheckError(f"degree {degree} outside 1..{MAX_DEGREE}")
     if len(tables) > MAX_LEAVES or len(program.ops) > MAX_OPS or len(program.consts) > MAX_CONSTS:
@@ -278,13 +278,13 @@ def round_message(
     ops, consts = program.kernel_args(spec)
     leaves = (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables])
     rc = native.lib().h2l_sumcheck_round(
-        ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops), consts.ctypes.data,
+        spec.kernel_id, ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops), consts.ctypes.data,
         len(program.consts), None if challenges is None else challenges.data_ptr(), h, degree,
         program.max_stack, threads, blocks, partials.data_ptr(), native.ticket("sumcheck_round", device).data_ptr(),
         out.data_ptr(), native.stream(),
     )
     native.check(rc, "sumcheck_round")
-    native.counts["sumcheck_round"] += 1
+    native.count("sumcheck_round", "fq" if spec.kernel_id == 1 else "")
     return out
 
 

@@ -65,8 +65,8 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
     by_value = not isinstance(x, torch.Tensor)
     if tables[0].device.type == "cpu":
         return fold_all_plain(spec, tables, spec.encode([x])[0] if by_value else x, last)
-    if spec.kernel_id != 0:
-        raise ValueError("fold_all: the kernel is compiled for Fr only")
+    if spec.kernel_id is None:
+        raise ValueError(f"fold_all: the kernel has no instance for {spec.name}")
     n = tables[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in tables) or n % 2:
         raise ValueError("fold_all: tables must share one even length")
@@ -85,11 +85,11 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
         ins = tables[g : g + FOLD_MAX_TABLES]
         ins_p = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
         rc = native.lib().h2l_fold_all(
-            ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS, len(ins), h, h if last else 1,
+            spec.kernel_id, ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS, len(ins), h, h if last else 1,
             x_host, x_dev, native.stream(),
         )
         native.check(rc, "fold_all")
-        native.counts["fold_all"] += 1
+        native.count("fold_all", "fq" if spec.kernel_id == 1 else "")
     return list(out.unbind(0))
 
 

@@ -6,7 +6,9 @@ run can be held against the plain PyTorch versions on the CPU, bit for bit,
 without a GPU, and so are csrc/mont_mul.cu's elementwise op (every op code,
 strided, broadcast and by-value operands), csrc/fix_var.cu's chain (its
 column phase and its tail's steps, emulated in order, with the quotients)
-and the power and eq table entries of csrc/mont_chain.cu. (The kernels'
+and the power and eq table entries of csrc/mont_chain.cu, each kernel in
+the field instances it has (BN254 G1 and grumpkin for the EC lane and the
+MSM level, Fr and Fq for the round evaluation). (The kernels'
 launch and reduction code runs only on the card: tests/test_torch_kernels.py.)
 """
 
@@ -33,6 +35,7 @@ HARNESS = r"""
 #include <cstdlib>
 #include "ec.cuh"
 #include "fix_var.cu"
+#include "fold.cu"
 #include "mont_mul.cu"
 #include "mont_chain.cu"
 #include "msm_level.cu"
@@ -57,16 +60,29 @@ static std::vector<uint32_t> rows(long long n) {  // n elements of 8 words
   }
   return t;
 }
-template <int D>
+template <class P, int D>
 static void round_sum(const RoundParams& p, int stack) {  // one line: the D sums
   std::vector<uint32_t> st(stack * D * 8);
   Fe acc[D];
   for (int t = 0; t < D; ++t) acc[t] = fe_zero();
   for (long long i = 0; i < p.h; ++i) {
-    eval_pair<D>(p, i, Stack<D>{st.data(), 1});
-    for (int t = 0; t < D; ++t) acc[t] = fe_add<Fr>(acc[t], Stack<D>{st.data(), 1}.get(0, t));
+    eval_pair<P, D>(p, i, Stack<D>{st.data(), 1});
+    for (int t = 0; t < D; ++t) acc[t] = fe_add<P>(acc[t], Stack<D>{st.data(), 1}.get(0, t));
   }
   for (int t = 0; t < D; ++t) wr(acc[t]);
+}
+template <class P>
+static void round_sum_degree(const RoundParams& p, int D, int stack) {
+  switch (D) {
+    case 1: round_sum<P, 1>(p, stack); break;
+    case 2: round_sum<P, 2>(p, stack); break;
+    case 3: round_sum<P, 3>(p, stack); break;
+    case 4: round_sum<P, 4>(p, stack); break;
+    case 5: round_sum<P, 5>(p, stack); break;
+    case 6: round_sum<P, 6>(p, stack); break;
+    case 7: round_sum<P, 7>(p, stack); break;
+    default: round_sum<P, 8>(p, stack);
+  }
 }
 template <class P>
 static void chain(ChainParams& p) {  // one line: the bound table, then the quotients
@@ -138,7 +154,7 @@ int main() {
       p.c = operand(kc);
       for (long long g = 0; g < p.outer * p.inner; ++g)
         wr(op[1] == '1' ? ew_elem_op<Fq>(ewop, p, g) : ew_elem_op<Fr>(ewop, p, g));
-    } else if (op[0] == 'l') {  // l W B m n first: one MSM level, every lane in order
+    } else if (op[0] == 'l') {  // l[0] W B m n first: one MSM level, every lane in order (l0: grumpkin)
       long long W = rdi(), B = rdi(), m = rdi(), n = rdi(), first = rdi();
       std::vector<uint32_t> x = rows(n), y = rows(n), z = rows(n);
       std::vector<int32_t> dig(first ? W * n : W * m);
@@ -149,16 +165,17 @@ int main() {
       long long pairs = m / 2, lanes = pairs ? W * pairs : W;
       std::vector<uint32_t> ox(8 * W * pairs + 8), oy(ox.size()), oz(ox.size());
       std::vector<int32_t> odig(W * pairs + 1);
+      auto lane_fn = op[1] == '0' ? msm_level_lane<Fr> : msm_level_lane<Fq>;
       for (long long lane = 0; lane < lanes; ++lane)
-        msm_level_lane(x.data(), y.data(), z.data(), dig.data(), first ? order.data() : nullptr,
-                       pairs, (int)B, lane, bx.data(), by.data(), bz.data(), ox.data(), oy.data(),
-                       oz.data(), odig.data());
+        lane_fn(x.data(), y.data(), z.data(), dig.data(), first ? order.data() : nullptr,
+                pairs, (int)B, lane, bx.data(), by.data(), bz.data(), ox.data(), oy.data(),
+                oz.data(), odig.data());
       for (auto* t : {&ox, &oy, &oz})
         for (long long i = 0; i < 8 * W * pairs; ++i) printf("%u ", (*t)[i]);
       for (long long i = 0; i < W * pairs; ++i) printf("%d ", odig[i]);
       for (auto* t : {&bx, &by, &bz})
         for (long long i = 0; i < 8 * W * B; ++i) printf("%u ", (*t)[i]);
-    } else if (op[0] == 'r') {  // r D nleaves nops nconsts h nchals stack: one round message
+    } else if (op[0] == 'r') {  // r[1] D nleaves nops nconsts h nchals stack: one round message (r1: Fq)
       static RoundParams p;
       int D = (int)rdi(), nleaves = (int)rdi(), nops = (int)rdi(), nconsts = (int)rdi();
       long long h = rdi();
@@ -172,16 +189,7 @@ int main() {
       p.chals = chals.data();
       p.h = h;
       p.nops = nops;
-      switch (D) {
-        case 1: round_sum<1>(p, stack); break;
-        case 2: round_sum<2>(p, stack); break;
-        case 3: round_sum<3>(p, stack); break;
-        case 4: round_sum<4>(p, stack); break;
-        case 5: round_sum<5>(p, stack); break;
-        case 6: round_sum<6>(p, stack); break;
-        case 7: round_sum<7>(p, stack); break;
-        default: round_sum<8>(p, stack);
-      }
+      if (op[1] == '1') round_sum_degree<Fq>(p, D, stack); else round_sum_degree<Fr>(p, D, stack);
     } else if (op[0] == 'p') {  // p<field> nbits w0..w7 a: a^e
       PowExp e;
       e.nbits = (int)rdi();
@@ -194,9 +202,10 @@ int main() {
       p.y_dev = nullptr;
       for (int i = 0; i < p.k; ++i) p.y[i] = rd();
       for (long long b = 0; b < (1ll << p.k); ++b) wr(eq_xy_elem<Fr>(p, b));
-    } else if (op[0] == 'e') {
+    } else if (op[0] == 'e') {  // e[0]: one EC lane, BN254 G1 over Fq (e0: grumpkin over Fr)
       Fe x1 = rd(), y1 = rd(), z1 = rd(), x2 = rd(), y2 = rd(), z2 = rd(), ox, oy, oz;
-      ec_add_lane(x1, y1, z1, x2, y2, z2, ox, oy, oz);
+      if (op[1] == '0') ec_add_lane<Fr>(x1, y1, z1, x2, y2, z2, ox, oy, oz);
+      else ec_add_lane<Fq>(x1, y1, z1, x2, y2, z2, ox, oy, oz);
       wr(ox); wr(oy); wr(oz);
     } else {
       bool q = op[1] == '1';
@@ -517,3 +526,77 @@ def test_mont_mul_and_fix_var_limits_match_wrappers():
     assert codes == [F.EW_MUL, F.EW_MUL_ADD, F.EW_MUL_SUB, F.EW_ADD, F.EW_SUB, F.EW_NEG]
     assert (int(ew["SUM_THREADS"]), int(ew["SUM_MAX_BLOCKS"])) == (F.SUM_THREADS, F.SUM_MAX_BLOCKS)
     assert (int(chain["MAX_CHAIN_VARS"]), int(chain["TAIL_BITS"])) == (mle.MAX_CHAIN_VARS, mle.TAIL_BITS)
+
+
+# the field instances of the grumpkin SNARK: the same device functions over
+# the other field (e0: the lane add over grumpkin's Fr; l0: an MSM level over
+# grumpkin; r1: the round's one-pass evaluation over Fq)
+
+
+def test_ec_add_lane_grumpkin_instance_matches_plain(harness):
+    from halo2_lasso_tpu_torch.ops import curves
+
+    ps, qs = chip_smoke.ec_cases(np, np.random.RandomState(9), MJ, Fr.modulus, 200, curves.GRUMPKIN.generator)
+    P = {k: Fr.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    Q = {k: Fr.encode([pt[i] for pt in qs]) for i, k in enumerate(ec.COORDS)}
+    cols = [rows(P[k]) for k in ec.COORDS] + [rows(Q[k]) for k in ec.COORDS]
+    got = run(harness, ["e0 " + " ".join(c[i] for c in cols) for i in range(len(ps))])
+    want = ec.ec_add_plain(P, Q, Fr)
+    assert np.array_equal(got, np.concatenate([F.to_numpy_u32(want[k]) for k in ec.COORDS], axis=1))
+
+
+def test_msm_level_lane_grumpkin_instance_matches_plain(harness):
+    """The MSM level's lanes over grumpkin (coordinates in Fr, scalars in
+    Fq), every level of an 8-point MSM (c = 3), against msm_level_plain."""
+    from halo2_lasso_tpu_torch.ops import curves
+
+    rng = np.random.RandomState(13)
+    points = chip_smoke.msm_edge_points(np, rng, MJ, Fr.modulus, "cpu", n=8, curve=curves.GRUMPKIN)
+    scal = Fq.encode([int(rng.randint(0, 1 << 62)) * (i % 3 != 0) for i in range(8)])
+    c = 3
+    B, W = 1 << c, -(-Fq.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(Fq, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bucket = ec.identity_point(W * B + 1, "cpu", Fr)
+    lvl_pts, lvl_dig, first = points, digits, True
+    while True:
+        n = lvl_pts["x"].shape[0]
+        m = 8 if first else lvl_dig.shape[0] // W
+        line = " ".join([f"l0 {W} {B} {m} {n} {int(first)}"] + [words(lvl_pts[k]) for k in ec.COORDS]
+                        + [" ".join(map(str, lvl_dig.reshape(-1).tolist()))]
+                        + ([" ".join(map(str, order.reshape(-1).tolist()))] if first else [])
+                        + [words(bucket[k][: W * B]) for k in ec.COORDS])
+        got = run(harness, [line])[0].astype(np.int64)
+        lvl_pts, lvl_dig = MJ.msm_level_plain(lvl_pts, lvl_dig, bucket, W, B, order=order if first else None, base=Fr)
+        want = np.concatenate([F.to_numpy_u32(lvl_pts[k]).reshape(-1) for k in ec.COORDS]
+                              + [lvl_dig.numpy().astype(np.uint32)]
+                              + [F.to_numpy_u32(bucket[k][: W * B]).reshape(-1) for k in ec.COORDS])
+        assert np.array_equal(got, want.astype(np.int64)), f"level m={m}"
+        first = False
+        if m == 1:
+            break
+
+
+def test_round_eval_pair_fq_instance_matches_plain(harness):
+    """The one-pass evaluation over Fq on the grumpkin SNARK's zero check
+    (the vanilla circuit with lookup: 23 leaves, degree 5), summed over the
+    pairs, against round_message_plain over Fq."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
+    from halo2_lasso_tpu_torch.piop import sum_check as sc
+
+    ci = fixtures.vanilla_plonk_with_lookup_circuit_info(4, 4, [[0]] * 9, [[(10, 1), (11, 1), (12, 1)]])
+    nz, expr = preprocessor.compose(ci)
+    keys = sc._leaf_keys(expr, ci.num_poly() + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz)
+    prog = sc.lower_expression(expr, keys)
+    rng = random.Random(12)
+    p = Fq.modulus
+    h = 5
+    tables = [Fq.encode([rng.randrange(p) for _ in range(2 * h)]) for _ in keys]
+    tables[0][:4] = Fq.encode([0, p - 1, 1, Fq.R])
+    chals = Fq.encode([rng.randrange(p) for _ in range(3)])
+    ops, consts = prog.kernel_args(Fq)
+    line = " ".join([f"r1 {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 3 {prog.max_stack}"]
+                    + [words(t) for t in tables] + [" ".join(map(str, ops.tolist()))]
+                    + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
+    want = sc.round_message_plain(Fq, tables, prog, chals, expr.degree)
+    assert np.array_equal(run(harness, [line]).reshape(-1, 8), F.to_numpy_u32(want))

@@ -3,7 +3,9 @@
 package on the CPU: rand_vanilla_plonk_circuit at nv = 3 with
 tests/test_hyperplonk_pcs.py's seeds (3, 103; setup seed 0) under Gemini and
 Zeromorph here, MultilinearIpa and MultilinearHyrax in
-tests/test_torch_hyperplonk_ipa.py (which reuses these tests):
+tests/test_torch_hyperplonk_ipa.py, and their grumpkin twins (the circuit
+over BN254 Fq) in tests/test_torch_grumpkin_hyperplonk_ipa.py and
+tests/test_torch_grumpkin_hyperplonk_hyrax.py (which reuse these tests):
 
 * the port's proof made with the JAX package's preprocessed state
   (from_jax_hyperplonk_params dispatching on the PCS class) equals the JAX
@@ -25,13 +27,15 @@ from halo2_lasso_tpu.backend.hyperplonk import fixtures as jfixtures
 from halo2_lasso_tpu.backend.hyperplonk import hyperplonk as jhyperplonk
 from halo2_lasso_tpu.pcs.gemini import Gemini as JGemini
 from halo2_lasso_tpu.pcs.hyrax import MultilinearHyrax as JHyrax
+from halo2_lasso_tpu.pcs.hyrax import MultilinearHyraxGrumpkin as JHyraxGrumpkin
 from halo2_lasso_tpu.pcs.ipa import MultilinearIpa as JIpa
+from halo2_lasso_tpu.pcs.ipa import MultilinearIpaGrumpkin as JIpaGrumpkin
 from halo2_lasso_tpu.pcs.zeromorph import Zeromorph as JZeromorph
 from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, from_jax_hyperplonk_params, hyperplonk
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
 from halo2_lasso_tpu_torch.pcs.gemini import Gemini
-from halo2_lasso_tpu_torch.pcs.hyrax import MultilinearHyrax
-from halo2_lasso_tpu_torch.pcs.ipa import MultilinearIpa
+from halo2_lasso_tpu_torch.pcs.hyrax import MultilinearHyrax, MultilinearHyraxGrumpkin
+from halo2_lasso_tpu_torch.pcs.ipa import MultilinearIpa, MultilinearIpaGrumpkin
 from halo2_lasso_tpu_torch.pcs.zeromorph import Zeromorph
 
 torch.set_num_threads(1)  # tiny tensors; the suite's workers share the cores
@@ -41,11 +45,16 @@ PCS = {
     "Zeromorph": (JZeromorph, Zeromorph),
     "MultilinearIpa": (JIpa, MultilinearIpa),
     "MultilinearHyrax": (JHyrax, MultilinearHyrax),
+    "MultilinearIpaGrumpkin": (JIpaGrumpkin, MultilinearIpaGrumpkin),
+    "MultilinearHyraxGrumpkin": (JHyraxGrumpkin, MultilinearHyraxGrumpkin),
 }
 
 
-def circuit(fx):
-    return fx.rand_vanilla_plonk_circuit(CFG["num_vars"], *(np.random.RandomState(s) for s in CFG["seeds"]))
+def circuit(fx, field):
+    """The config's circuit over `field`, the backend's (BN254 Fq for the
+    grumpkin-backed PCS)."""
+    return fx.rand_vanilla_plonk_circuit(CFG["num_vars"], *(np.random.RandomState(s) for s in CFG["seeds"]),
+                                         field=field)
 
 
 def prove(backend, pp, circ):
@@ -59,9 +68,9 @@ def make_case(name):
     carried JAX state and with its own setup, on the CPU."""
     jpcs, pcs = PCS[name]
     jb, b = jhyperplonk(jpcs), hyperplonk(pcs)
-    jci, jcirc = circuit(jfixtures)
+    jci, jcirc = circuit(jfixtures, jb.field())
     jpp, jvp = jb.preprocess(jb.setup(jci, np.random.RandomState(CFG["setup_seed"])), jci)
-    ci, circ = circuit(fixtures)
+    ci, circ = circuit(fixtures, b.field)
     pp, vp = from_jax_hyperplonk_params(jpp, jvp, device="cpu", pcs=pcs)
     own_pp, own_vp = b.preprocess(b.setup(ci, np.random.RandomState(CFG["setup_seed"]), device="cpu"), ci)
     return {

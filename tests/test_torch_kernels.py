@@ -18,11 +18,11 @@ import chip_smoke
 from halo2_lasso_tpu_torch import lasso
 from halo2_lasso_tpu_torch.expression import Expression
 from halo2_lasso_tpu_torch.lasso.tables import range_table
-from halo2_lasso_tpu_torch.ops import ec
+from halo2_lasso_tpu_torch.ops import curves, ec
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 from halo2_lasso_tpu_torch.ops import native
-from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fq, Fr
+from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, FR_MODULUS, Fq, Fr
 from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
 from halo2_lasso_tpu_torch.piop import gkr
 from halo2_lasso_tpu_torch.piop import sum_check as sc
@@ -342,3 +342,92 @@ def test_small_lasso_hyperplonk_proof_on_card_matches_jax(cuda):
     proof, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.LASSO_PLONK_SMALL, cuda)
     assert hashlib.sha256(proof).hexdigest() == chip_smoke.LASSO_PLONK_SHA256
     assert F.norm_on_card == norm
+
+
+# the grumpkin SNARK's field instances: K1 and K2 over BN254 Fq, K3's add and
+# level over grumpkin (coordinates in BN254 Fr, scalars in Fq)
+
+
+@pytest.mark.parametrize("pairs", [1 << 10, 1, 1037], ids=["pow2", "h1", "ragged"])
+def test_round_kernel_fq_instance_matches_plain(cuda, pairs):
+    """The Fq instance on the grumpkin SNARK's zero check (the vanilla
+    circuit with lookup: 23 leaves, degree 5) and on a degree-8 program: one
+    launch of the instance each, no host sync, bit-exact."""
+    from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
+
+    ci = fixtures.vanilla_plonk_with_lookup_circuit_info(4, 4, [[0]] * 9, [[(10, 1), (11, 1), (12, 1)]])
+    nz, zexpr = preprocessor.compose(ci)
+    cases = [(zexpr, ci.num_poly() + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz), _degree_expr(8)]
+    for expr, n_polys in cases:
+        keys = sc._leaf_keys(expr, n_polys)
+        prog = sc.lower_expression(expr, keys)
+        tables = [Fq.encode([0, 1, FQ_MODULUS - 1, Fq.R] + rand_ints(FQ_MODULUS, 2 * pairs), cuda)[: 2 * pairs]
+                  .contiguous() for _ in keys]
+        chals = Fq.encode(rand_ints(FQ_MODULUS, 3), cuda)
+        got, n = launches(lambda: no_sync(lambda: sc.round_message(Fq, tables, prog, chals, expr.degree)),
+                          "sumcheck_round", "sumcheck_round.fq")
+        assert n == (1, 1)
+        assert torch.equal(got, sc.round_message_plain(Fq, tables, prog, chals, expr.degree))
+
+
+@pytest.mark.parametrize("ntables", [1, 23, 65])
+def test_fold_all_kernel_fq_instance_matches_plain(cuda, ntables):
+    tables = [Fq.encode([0, 1, FQ_MODULUS - 1, Fq.R] + rand_ints(FQ_MODULUS, (1 << 6) - 4), cuda)
+              for _ in range(ntables)]
+    xv = rand_ints(FQ_MODULUS, 1)[0]
+    x = Fq.encode([xv], cuda)[0]
+    groups = -(-ntables // mle.FOLD_MAX_TABLES)
+    for last in (False, True):
+        want = mle.fold_all_plain(Fq, tables, x, last=last)
+        for xc in (xv, x):
+            got, n = launches(lambda: mle.fold_all(Fq, tables, xc, last=last), "fold_all", "fold_all.fq")
+            assert n == (groups, groups) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_ec_add_kernel_grumpkin_instance_matches_plain_and_host(cuda):
+    ps, qs = chip_smoke.ec_cases(np, RNG, MJ, FR_MODULUS, 640, curves.GRUMPKIN.generator)
+    p = {k: Fr.encode([pt[i] for pt in ps], cuda) for i, k in enumerate(ec.COORDS)}
+    q = {k: Fr.encode([pt[i] for pt in qs], cuda) for i, k in enumerate(ec.COORDS)}
+    got, n = launches(lambda: ec.ec_add(p, q, Fr), "ec_add", "ec_add.grumpkin")
+    want = ec.ec_add_plain(p, q, Fr)
+    assert n == (1, 1) and all(torch.equal(got[k], want[k]) for k in ec.COORDS)
+    host = [MJ.host_jac_add(a, b, FR_MODULUS) for a, b in zip(ps, qs)]
+    assert ec.jacobian_to_affine(got, Fr) == MJ.host_batch_affine(host, FR_MODULUS)
+
+
+def test_msm_level_kernel_grumpkin_instance_matches_plain(cuda):
+    """Every level of a 64-point grumpkin MSM on the card against the plain
+    level (P = Q, P = -Q, digit-0 and identity lanes); then a 2^9 grumpkin
+    MSM on the card against the CPU's, its device part 10 launches of the
+    grumpkin instance with no host sync."""
+    points = chip_smoke.msm_edge_points(np, RNG, MJ, FR_MODULUS, cuda, curve=curves.GRUMPKIN)
+    before = native.counts["msm_level.grumpkin"]
+    assert chip_smoke.check_msm_levels(torch, np, RNG, cuda, points, 64, Fq, Fr) == 0
+    assert native.counts["msm_level.grumpkin"] == before + 7
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, FR_MODULUS, 1 << 9, curves.GRUMPKIN.generator)
+    pts = {k: Fr.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    scal = Fq.encode(rand_ints(FQ_MODULUS, 1 << 9))
+    card_pts, card_scal = {k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda)
+    assert ec.msm_to_affine_int(card_pts, card_scal, Fr, Fq) == ec.msm_to_affine_int(pts, scal, Fr, Fq)
+    _, n = launches(lambda: no_sync(lambda: MJ.msm_planes(card_pts, card_scal, Fr, Fq)), "msm_level.grumpkin")
+    assert n == (10,)
+
+
+def test_kernels_raise_for_a_field_without_instance(cuda):
+    """A CUDA tensor over a field with no compiled instance (a Pasta field,
+    kernel_id None) raises in each wrapper; nothing falls back to the plain
+    version."""
+    spec = curves.Fp_pallas
+    t = [spec.encode([1, 2, 3, 4], cuda) for _ in range(2)]
+    prog = sc.lower_expression(Expression.poly(0) * Expression.poly(1), [("poly", 0, 0), ("poly", 1, 0)])
+    pts = ec.identity_point(4, cuda, spec)
+    with pytest.raises(ValueError):
+        sc.round_message(spec, t, prog, None, 2)
+    with pytest.raises(ValueError):
+        mle.fold_all(spec, t, 5)
+    with pytest.raises(ValueError):
+        ec.ec_add(pts, pts, spec)
+    dig = torch.zeros(4, dtype=torch.int32, device=cuda)
+    bucket = ec.identity_point(5, cuda, spec)
+    with pytest.raises(ValueError):
+        MJ.msm_level(pts, dig, bucket, 2, 2, base=spec)
