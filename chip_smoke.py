@@ -21,11 +21,18 @@ Phases, each printing one line with its wall time:
      the Lasso-in-HyperPlonk zero check's first round (37 leaves, degree 3,
      2^16) and the Lasso primary sumcheck's, and at the ARX chain's zero
      check (48 leaves, 2^19) and its largest GKR layer (73 leaves, 2^18),
-     msm_level over every level of a 2^16 MSM (17 launches, no host sync;
-     the profiler's device time) and of a 2^19 MSM (the ARX chain's
-     commits),
-     ec_add at the first level of that MSM's bit-plane tree and over PR 6's
-     878,592 lanes of the five cases; fold_all (1, 37, 64, 65 tables, the
+     msm_level over every level of a 2^16 MSM (17 launches and one
+     plane_tree launch, no host sync, no ec_add; the profiler's device time)
+     and of a 2^19 MSM (the ARX chain's commits),
+     ec_add at the IPA open's first fold add (2^15 lanes) and over
+     878,592 lanes of the five cases; the scalar ladder ec_ladder at the
+     IPA open's first scaling (2^15 lanes, a shared scalar) and the 2-lane
+     per-lane ladder, one launch each and none of ec_add, scalar_mul_bits
+     included; the plane tree plane_tree over the buckets of the 2^16 and
+     2^19 MSMs and of a Hyrax row MSM (256 points, c = 4, W = 64); the
+     device times of msm_level, ec_ladder and plane_tree in one fresh
+     process at the end of the phase, which fails unless the profiler
+     records every launch; fold_all (1, 37, 64, 65 tables, the
      challenge as a host int and on the card) at 6 tables of 2^16; the
      Montgomery chains of csrc/mont_chain.cu: mont_pow (exponents 0, 1, 2,
      p - 2, random) on batch_inv's one total, the scan both ways and
@@ -107,9 +114,14 @@ grumpkin SNARK's zero check over Fq (23 leaves, degree 5; 2^14, 2 * 1037 and
 challenge forms; timed at the zero check's 23 tables of 2^16),
 ec_add.grumpkin (the five cases at 2^15 lanes, also against host
 arithmetic, and six steps of the IPA ladder over 2^15 grumpkin points;
-timed at its doubling step) and msm_level.grumpkin (every level of a
+timed at its doubling step), msm_level.grumpkin (every level of a
 64-point edge-case MSM and of a 2^16 grumpkin MSM, 17 launches of the
-instance with no host sync; timed over them).
+instance and one of plane_tree.grumpkin with no host sync; timed over
+them), and ec_ladder.grumpkin and plane_tree.grumpkin at the shapes of
+their BN254 twins (the 2^16 grumpkin MSM's and a grumpkin Hyrax row MSM's
+buckets). The IPA-family paths (IPA_PCS) print their prove's K3 launches
+and fail unless ec_add is the open's fold adds alone and ec_ladder twice
+that and one (on MultilinearIpa's, ec_add is nv).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, the two full-width paths of 10, 11, the five
 full-size paths of 12 and the two of 13) and read just after it; each path must
@@ -130,6 +142,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import faulthandler
+import functools
 import hashlib
 import json
 import os
@@ -191,12 +204,16 @@ LASSO_GEMINI_SHA256 = "ec43db505fd50634294dc7df94bdc4e5cad5a7ed08286a824b966e70d
 LASSO_GEMINI = {**SLICE, "pcs": "Gemini"}
 ARX_SHAPE = {"selectors": 1, "advice": [8], "gates": 6, "lasso_tables": ["xor_32", "range_25", "range_7"]}
 TWO_PHASE = {"circuit": "rand_two_phase_circuit", "num_vars": 16, "seeds": (116,), "setup_seed": 0}
-PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy", "sum_reduce")
+PROOF_KERNELS = ("mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "msm_level", "eq_xy", "sum_reduce",
+                 "plane_tree")
 # the HyperPlonk paths' batch inversions and permutation scan
 HYPERPLONK_KERNELS = PROOF_KERNELS + ("mont_pow", "prefix_products")
 # the kernels' field instances that the grumpkin SNARK runs (ops/native.py
 # INSTANCES, counted apart from their kernel's first instance)
-GRUMPKIN_INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin")
+GRUMPKIN_INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin", "ec_ladder.grumpkin",
+                      "plane_tree.grumpkin")
+# the IPA-family PCS: their opens scale points with the ladder
+IPA_PCS = ("MultilinearIpa", "MultilinearHyrax", "MultilinearIpaGrumpkin", "MultilinearHyraxGrumpkin")
 PATH_KERNELS = {
     "lasso": PROOF_KERNELS,
     "hyperplonk": HYPERPLONK_KERNELS,
@@ -207,12 +224,12 @@ PATH_KERNELS = {
     "two_phase": PROOF_KERNELS,
     "layout": ("mont_mul", "mont_mul_limbs_first", "mont_mul_tiled"),
     # phase 7's circuit under each secondary PCS (HyperPlonk's batch
-    # inversions and scan, as there); Lasso over Gemini adds the scan of the
-    # univariate evaluations' powers
-    **{f"plonk_{name}": HYPERPLONK_KERNELS for name in SECONDARY_PCS},
+    # inversions and scan, as there; the IPA family's ladders); Lasso over
+    # Gemini adds the scan of the univariate evaluations' powers
+    **{f"plonk_{name}": HYPERPLONK_KERNELS + (("ec_ladder",) if name in IPA_PCS else ()) for name in SECONDARY_PCS},
     # the grumpkin SNARK: the same kernels, and the Fq instances of K1 and K2
-    # and the grumpkin instances of K3's add and level among their launches
-    **{f"plonk_{name}": HYPERPLONK_KERNELS + GRUMPKIN_INSTANCES for name in GRUMPKIN_PCS},
+    # and the grumpkin instances of K3 among their launches
+    **{f"plonk_{name}": HYPERPLONK_KERNELS + ("ec_ladder",) + GRUMPKIN_INSTANCES for name in GRUMPKIN_PCS},
     "lasso_gemini": PROOF_KERNELS + ("prefix_products",),
 }
 # K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
@@ -281,13 +298,14 @@ def main() -> int:
         k = by_name[name]
         print(f"{name}: {k['shape']}: events {k['ms']:.4f}ms, device {k['device_ms']:.4f}ms (bound "
               f"{k['bound_ms']:.5f}ms, {k['bound_by']}; plain {k['plain_ms']:.3f}ms)", flush=True)
-    for name in GRUMPKIN_INSTANCES:
+    for name in ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin"):
         k = by_name[name]
         extra_ms = f", device {k['device_ms']:.4f}ms" if "device_ms" in k else ""
         if "event_ms" in k:
             extra_ms = f" (device), events {k['event_ms']:.4f}ms"
         print(f"{name}: {k['shape']}: {k['ms']:.4f}ms{extra_ms} (bound {k['bound_ms']:.5f}ms, {k['bound_by']}; "
               f"plain {k['plain_ms']:.3f}ms)", flush=True)
+    print_ladder_and_tree(by_name)
     bi = by_name["prefix_products"]
     print(f"batch_inv: 2^17 Fr: events {bi['batch_inv_ms']:.4f}ms, device {bi['batch_inv_device_ms']:.4f}ms "
           f"(bound {bi['batch_inv_bound_ms']:.5f}ms, {bi['batch_inv_bound_by']}; plain "
@@ -423,6 +441,16 @@ def run_hyperplonk_path(torch, np, launches, path, name, label, cfg, cheat=False
     read), then ``profile_path``."""
     extra = {}
     run_path(launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
+    if cfg.get("pcs") in IPA_PCS:
+        # one IPA open a prove: a ladder for h', two a round (c_l h' and c_r
+        # h' in one, xi b_r) and one ec_add a round (the fold); every MSM's
+        # tree one plane_tree launch
+        pl = extra["prove_launches"]
+        print(f"  K3 in prove: ec_add {pl['ec_add']} (the open's fold adds), ec_ladder {pl['ec_ladder']}, "
+              f"plane_tree {pl['plane_tree']}, msm_level {pl['msm_level']}", flush=True)
+        rounds = cfg["num_vars"] if cfg["pcs"].startswith("MultilinearIpa") else None
+        if pl["ec_ladder"] != 2 * pl["ec_add"] + 1 or pl["ec_add"] == 0 or rounds not in (None, pl["ec_add"]):
+            raise SystemExit(f"the {path} prove launched ec_add {pl['ec_add']} and ec_ladder {pl['ec_ladder']} times")
     if cheat:
         rejects_cheat(np, cfg, extra["pp"], extra["vp"])
         print("  a proof of the cheating witness was rejected", flush=True)
@@ -760,7 +788,7 @@ def check_kernels(torch, np, dev):
     """Each kernel against its plain version on the same card inputs."""
     from halo2_lasso_tpu_torch.expression import Expression
     from halo2_lasso_tpu_torch.lasso.tables import range_table
-    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import curves, ec
     from halo2_lasso_tpu_torch.ops import field as F
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
     from halo2_lasso_tpu_torch.ops import native
@@ -790,6 +818,7 @@ def check_kernels(torch, np, dev):
         return int(((flat_k.long() & 0xFFFFFFFF) - (flat_p.long() & 0xFFFFFFFF)).abs().max())
 
     results = {}
+    fresh = FreshDeviceTimes()
 
     def record(name, src, replaces, kernel_fn, plain_fn, bytes_moved, imads, err):
         """Check and time one kernel at a shape of the main path."""
@@ -1029,9 +1058,11 @@ def check_kernels(torch, np, dev):
     MJ.msm_planes(points, scal)  # the cached constants exist before the sync check
     native.reset_counts()
     planes = no_sync(torch, lambda: MJ.msm_planes(points, scal))[0]
-    if native.counts["msm_level"] != 17:
-        raise SystemExit(f"a 2^16 MSM launched msm_level {native.counts['msm_level']} times, not 17")
-    print("msm_level: a 2^16 MSM launches it 17 times (16 levels + the final flush), with no host sync", flush=True)
+    if native.counts["msm_level"] != 17 or native.counts["plane_tree"] != 1 or native.counts["ec_add"]:
+        raise SystemExit(f"a 2^16 MSM launched msm_level {native.counts['msm_level']} times, not 17, and "
+                         f"plane_tree {native.counts['plane_tree']} times, not 1, and ec_add {native.counts['ec_add']}")
+    print("msm_level: a 2^16 MSM launches it 17 times (16 levels + the final flush) and plane_tree once, no "
+          "ec_add, with no host sync", flush=True)
     c = MJ.best_c(n)
     B, W = 1 << c, -(-Fr.num_bits // c)
     digits = MJ.digits_all(F.from_mont(Fr, scal), c, W).to(torch.int32)
@@ -1052,11 +1083,14 @@ def check_kernels(torch, np, dev):
            levels(MJ.msm_level), levels(MJ.msm_level_plain),
            n * 96 + W * n * 12 + W * B * 96, adds * 16 * IMAD_PER_MONT_MUL, err)
     # its ms is the kernel's own device time over the 17 launches (the
-    # profiler's rows), not the events' wall time, which holds the host's
-    # enqueue gaps between the launches
+    # profiler's rows, in a fresh process: FreshDeviceTimes), not the
+    # events' wall time, which holds the host's enqueue gaps between the
+    # launches
     lv = results["msm_level"]
     lv["event_ms"] = lv["ms"]
-    lv["ms"] = device_ms(levels(MJ.msm_level), 5, ["msm_level_kernel"])["msm_level_kernel"]
+    fresh.add("msm", "msm", {"points": points, "scal": scal, "base": Fq.kernel_id},
+              {"msm_level_kernel": 17, "plane_tree_kernel": 1})
+    fresh.into("msm", "msm_level_kernel", lv, "ms")
     lv.update(shape="a 2^16 MSM's 17 launches (c = 10, W = 26)", adds=adds)
 
     # msm_level over one 2^19 MSM (the ARX chain's commits): bit-exact at
@@ -1073,24 +1107,26 @@ def check_kernels(torch, np, dev):
     adds19 = msm_level_adds(torch, torch.sort(dig19, dim=1, descending=True, stable=True).values, B19)
     b_ms, b_by = bound_ms(big * 96 + W19 * big * 12 + W19 * B19 * 96, adds19 * 16 * IMAD_PER_MONT_MUL)
     lv["timed"] = {f"a 2^19 MSM (c = {c19}, W = {W19})": {
-        "ms": cuda_ms(lambda: MJ.msm_planes(points19, scal19), 3),
-        "device_ms": device_ms(lambda: MJ.msm_planes(points19, scal19), 3, ["msm_level_kernel"])["msm_level_kernel"],
-        "bound_ms": b_ms, "bound_by": b_by, "adds": adds19}}
+        "ms": cuda_ms(lambda: MJ.msm_planes(points19, scal19), 3), "bound_ms": b_ms, "bound_by": b_by,
+        "adds": adds19}}
+    fresh.add("msm19", "msm", {"points": points19, "scal": scal19, "base": Fq.kernel_id},
+              {"msm_level_kernel": big.bit_length(), "plane_tree_kernel": 1})
+    fresh.into("msm19", "msm_level_kernel", lv["timed"][f"a 2^19 MSM (c = {c19}, W = {W19})"], "device_ms")
+    bucket19 = MJ.msm_buckets(points19, scal19, Fq, Fr)[0]
     del points19, scal19, dig19
 
-    # K3 at the first level of that MSM's bit-plane tree (c W 2^(c-1) lanes;
-    # random buckets, so no lane meets P = Q or P = -Q)
-    half = c * W * B // 2
-    idx, keep = MJ._plane_rows(c, W, str(dev))
-    bucket = dict(zip(ec.COORDS, levels(MJ.msm_level)()))
-    tree = {k: bucket[k][idx] for k in ec.COORDS}
-    tree["z"] = torch.where(keep, tree["z"], torch.zeros_like(tree["z"]))
-    lo, hi = ({k: v[a:b].contiguous() for k, v in tree.items()} for a, b in ((0, half), (half, 2 * half)))
-    live = int((~F.is_zero(lo["z"]) & ~F.is_zero(hi["z"])).sum())
+    # K3's add at the IPA open's first fold at nv = 16 (b_l + xi b_r over
+    # 2^15 lanes; random points, so no lane meets P = Q or P = -Q), where the
+    # bit-plane tree no longer takes it
+    lanes = n // 2
+    fold_l, fold_r = (ec.fixed_base_msm(G1_GEN, rand_field(Fr, lanes)) for _ in range(2))
+    live = int((~F.is_zero(fold_l["z"]) & ~F.is_zero(fold_r["z"])).sum())
     record("ec_add", "halo2_lasso_tpu_torch/csrc/ec_add.cu", "halo2_lasso_tpu/ops/pallas_ec.py:144",
-           lambda: list(ec.ec_add(lo, hi).values()), lambda: list(ec.ec_add_plain(lo, hi).values()),
-           half * 9 * 32, live * 16 * IMAD_PER_MONT_MUL, k3_err)
-    results["ec_add"].update(five, shape=f"bit-plane tree level 1 of a 2^16 MSM, {half} lanes")
+           lambda: list(ec.ec_add(fold_l, fold_r).values()), lambda: list(ec.ec_add_plain(fold_l, fold_r).values()),
+           lanes * 9 * 32, live * 16 * IMAD_PER_MONT_MUL, k3_err)
+    results["ec_add"].update(five, shape=f"the IPA open's first fold add, {lanes} lanes")
+    results["ec_add"]["device_ms"] = device_ms(lambda: ec.ec_add(fold_l, fold_r), 20, ["ec_add_kernel"])["ec_add_kernel"]
+    del fold_l, fold_r
 
     # K3 at the IPA ladder's shapes at nv = 16 (MultilinearIpa._scale_points
     # over the first round's 2^15 right-hand bases), every 9th lane the
@@ -1123,6 +1159,19 @@ def check_kernels(torch, np, dev):
     del base, acc, dbl
     if planes["x"].shape[0] != c * W:
         raise SystemExit("msm_planes returned the wrong number of plane sums")
+
+    # K3's ladder and plane tree: the IPA ladders, and the trees of the
+    # 2^16 and 2^19 MSMs and of a Hyrax row MSM (256 points)
+    trees = [(f"a 2^16 MSM's buckets (c = {c}, W = {W})", dict(zip(ec.COORDS, levels(MJ.msm_level)())), c, W, "msm"),
+             ("a 2^19 MSM's buckets (c = 10, W = 26)", bucket19, 10, 26, "msm19")]
+    row = ec.fixed_base_msm(G1_GEN, rand_field(Fr, 256))
+    row_scal = rand_field(Fr, 256)
+    bucket, c_row, w_row = MJ.msm_buckets(row, row_scal, Fq, Fr)
+    trees.append((f"a Hyrax row MSM's buckets (256 points, c = {c_row}, W = {w_row})", bucket, c_row, w_row, "row"))
+    fresh.add("row", "msm", {"points": row, "scal": row_scal, "base": Fq.kernel_id},
+              {"msm_level_kernel": 9, "plane_tree_kernel": 1})
+    check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curves.BN254_G1, trees, "", lanes)
+    del trees, bucket19, bucket
 
     # K5, csrc/fix_var.cu's chain: k = 0, 1, 5, 12, 13 and 16, both
     # directions, with and without quotients, Fr and Fq, the point as host
@@ -1288,11 +1337,12 @@ def check_kernels(torch, np, dev):
            "scripts/tpu_layout_bench.py:108", lambda: [LB.mont_mul_tiled(a_t, b_t)],
            lambda: [LB.mont_mul_tiled_plain(a_t, b_t)], 96 * big, big * IMAD_PER_MONT_MUL,
            errs["mont_mul_tiled"])
-    check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results)
+    check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results, fresh)
+    fresh.run(torch)
     return [results[k] for k in native.KERNELS + native.INSTANCES]
 
 
-def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results, n=1 << 16):
+def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results, fresh, n=1 << 16):
     """The field instances of the grumpkin-backed SNARK (phase 13), each
     against its plain version at that path's nv = 16 shapes (n = 2^16),
     recorded under its own name (``native.INSTANCES``): K1 and K2 over BN254
@@ -1411,9 +1461,10 @@ def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, resu
     MJ.msm_planes(points, scal, Fr, Fq)
     native.reset_counts()
     no_sync(torch, lambda: MJ.msm_planes(points, scal, Fr, Fq))
-    if native.counts["msm_level.grumpkin"] != n.bit_length():
+    if native.counts["msm_level.grumpkin"] != n.bit_length() or native.counts["plane_tree.grumpkin"] != 1:
         raise SystemExit(f"a {n}-point grumpkin MSM launched msm_level's grumpkin instance "
-                         f"{native.counts['msm_level.grumpkin']} times, not {n.bit_length()}")
+                         f"{native.counts['msm_level.grumpkin']} times, not {n.bit_length()}, and plane_tree's "
+                         f"{native.counts['plane_tree.grumpkin']} times, not 1")
     c = MJ.best_c(n)
     B, W = 1 << c, -(-Fq.num_bits // c)
     digits = MJ.digits_all(F.from_mont(Fq, scal), c, W).to(torch.int32)
@@ -1436,11 +1487,247 @@ def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, resu
            n * 96 + W * n * 12 + W * B * 96, adds * 16 * IMAD_PER_MONT_MUL, err)
     lv = results["msm_level.grumpkin"]
     lv["event_ms"] = lv["ms"]
-    lv["ms"] = device_ms(levels(MJ.msm_level), 5, ["msm_level_kernel"])["msm_level_kernel"]
+    fresh.add("msm.grumpkin", "msm", {"points": points, "scal": scal, "base": Fr.kernel_id},
+              {"msm_level_kernel": n.bit_length(), "plane_tree_kernel": 1})
+    fresh.into("msm.grumpkin", "msm_level_kernel", lv, "ms")
     lv.update(shape=f"a 2^{n.bit_length() - 1} grumpkin MSM's {n.bit_length()} launches (c = {c}, W = {W})",
               adds=adds)
-    print("the grumpkin SNARK's instances: K1 and K2 over Fq, K3's add and level over grumpkin, bit-exact at "
-          "the nv = 16 shapes; a 2^16 grumpkin MSM launches the level 17 times with no host sync", flush=True)
+    # K3's ladder and plane tree over grumpkin: the IPA ladders, and the
+    # trees of that MSM and of a Hyrax row MSM (256 points)
+    trees = [(f"a 2^{n.bit_length() - 1} grumpkin MSM's buckets (c = {c}, W = {W})",
+              dict(zip(ec.COORDS, levels(MJ.msm_level)())), c, W, "msm.grumpkin")]
+    row = ec.fixed_base_msm(G.generator, rand_field(Fq, 256), base=Fr, scalar=Fq)
+    row_scal = rand_field(Fq, 256)
+    bucket, c_row, w_row = MJ.msm_buckets(row, row_scal, Fr, Fq)
+    trees.append((f"a Hyrax row grumpkin MSM's buckets (256 points, c = {c_row}, W = {w_row})", bucket, c_row, w_row,
+                  "row.grumpkin"))
+    fresh.add("row.grumpkin", "msm", {"points": row, "scal": row_scal, "base": Fr.kernel_id},
+              {"msm_level_kernel": 9, "plane_tree_kernel": 1})
+    check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, G, trees, ".grumpkin", lanes)
+    del trees, bucket
+    print("the grumpkin SNARK's instances: K1 and K2 over Fq, K3's add, level, ladder and plane tree over grumpkin, "
+          "bit-exact at the nv = 16 shapes; a 2^16 grumpkin MSM launches the level 17 times and the plane tree once, "
+          "with no host sync", flush=True)
+
+
+def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve, trees, suffix, lanes):
+    """K3's scalar ladder and plane tree (csrc/ec_add.cu) over `curve`
+    (BN254 G1; grumpkin with `suffix` ".grumpkin"), bit-exact against
+    their plain versions at the main paths' shapes, recorded as
+    ec_ladder<suffix> and plane_tree<suffix>:
+
+      - the ladder at the IPA open's first scaling of b_r (`lanes` bases,
+        every 9th the identity, a shared random scalar below the scalar
+        field's modulus, 254 bits): against scalar_mul_bits_plain on the
+        card, whose one call is the plain time; timed by events; the same
+        scalar as per-lane limbs and through scalar_mul_bits (shared bits)
+        give the same bits, each one ec_ladder launch and no ec_add launch;
+      - the 2-lane ladder of c_l h' and c_r h' (per-lane scalars: random
+        ones, then 0 and q - 1, then 1 and q - 1) against the plain version
+        on CPU copies (host ints), timed by events;
+      - the plane tree over each of `trees` [(label, bucket, c, W, key)]
+        against bucket_planes_plain on the card (one call, its plain time),
+        with no host sync, timed by events; the first is the recorded shape.
+
+    Their device times come from `fresh` (FreshDeviceTimes): the two
+    ladders' here, and each tree's from the job `key` (the MSM whose
+    buckets it is), which the caller adds.
+
+    Bounds: the ladder's products where P is not the identity (7 a step
+    past the scalar's top bit, 16 a further set bit) against each point
+    read and written once; the tree's adds whose operands are both not the
+    identity (16 products each) against the buckets read and the planes
+    written once."""
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
+
+    base, scal = curve.base, curve.scalar
+    q, nbits = scal.modulus, scal.num_bits
+    src = "halo2_lasso_tpu_torch/csrc/ec_add.cu"
+    grumpkin = " (grumpkin: halo2_lasso_tpu/ops/msm_jacobian.py:90 over halo2_lasso_tpu/ops/pallas_field.py:225)"
+    via = f"halo2_lasso_tpu/ops/pallas_ec.py:144{grumpkin if suffix else ''}"
+
+    def once(fn):
+        """(fn(), its ms by CUDA events over one call): a plain version's
+        time, seconds a call."""
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return out, t0.elapsed_time(t1)
+
+    def check(name, got, want):
+        if not all(torch.equal(got[k], want[k].to(got[k].device)) for k in ec.COORDS):
+            raise SystemExit(f"kernel {name} disagrees with its plain version")
+
+    def ladder_products(ks, live):
+        return sum(7 * (k.bit_length() - 1) + 16 * (bin(k).count("1") - 1) for k, on in zip(ks, live) if on and k)
+
+    def launched(fn, *names):
+        before = {k: native.counts[k] for k in names}
+        out = fn()
+        return out, [native.counts[k] - before[k] for k in names]
+
+    lname, tname = "ec_ladder" + suffix, "plane_tree" + suffix
+
+    # the ladder at the IPA open's first scaling of b_r
+    pts = ec.fixed_base_msm(curve.generator, rand_field(scal, lanes), base=base, scalar=scal)
+    pts["z"][::9] = 0
+    k = int.from_bytes(rng.bytes(32), "little") % q
+    bits = [(k >> i) & 1 for i in range(nbits)]
+    got = no_sync(torch, lambda: ec.ec_ladder(pts, k, nbits, base))
+    want, plain_ms = once(lambda: ec.scalar_mul_bits_plain(pts, bits, base))
+    check(lname, got, want)
+    del want
+    limbs = F.from_numpy_u32(F.ints_to_u32([k] * lanes), dev)
+    for fn in (lambda: ec.ec_ladder(pts, limbs, nbits, base), lambda: ec.scalar_mul_bits(pts, bits, base)):
+        same_bits, n_launch = launched(fn, "ec_ladder", lname, "ec_add")
+        if n_launch != [1, 1, 0]:
+            raise SystemExit(f"a ladder launched ec_ladder, {lname} and ec_add {n_launch} times, not 1, 1 and 0")
+        check(lname, same_bits, got)
+    live = (~F.is_zero(pts["z"])).tolist()
+    b_ms, b_by = bound_ms(lanes * 192, ladder_products([k] * lanes, live) * IMAD_PER_MONT_MUL)
+    results[lname] = {
+        "name": lname, "route": "cuda", "source": src, "replaces": f"halo2_lasso_tpu/ops/ec.py:216 over {via}",
+        "launches": 0, "max_abs_err": 0, "ms": cuda_ms(lambda: ec.ec_ladder(pts, k, nbits, base), 5),
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"the IPA open's first scaling of b_r: {lanes} lanes ({sum(live)} not the identity), a shared "
+                 f"{nbits}-bit scalar",
+    }
+    fresh.add(f"ladder{suffix}", "ladder", {"pts": pts, "k": k, "nbits": nbits, "base": base.kernel_id},
+              {"ec_ladder_kernel": 1})
+    fresh.into(f"ladder{suffix}", "ec_ladder_kernel", results[lname], "device_ms")
+    del limbs, got
+
+    # the 2-lane ladder of c_l h' and c_r h', per-lane scalars
+    h = ec.fixed_base_msm(curve.generator, rand_field(scal, 1), base=base, scalar=scal)
+    h = {kk: v.expand(2, F.LIMBS).contiguous() for kk, v in h.items()}
+    host = {kk: v.cpu() for kk, v in h.items()}
+    pairs = ([int.from_bytes(rng.bytes(32), "little") % q for _ in range(2)], [0, q - 1], [1, q - 1])
+    for pair in pairs:
+        ks = F.from_numpy_u32(F.ints_to_u32(pair), dev)
+        check(lname, ec.ec_ladder(h, ks, nbits, base), ec.ec_ladder(host, ks.cpu(), nbits, base))
+    ks = F.from_numpy_u32(F.ints_to_u32(pairs[0]), dev)
+    t0 = time.perf_counter()
+    ec.ec_ladder(host, ks.cpu(), nbits, base)
+    b2_ms, b2_by = bound_ms(2 * 192 + 2 * 32, ladder_products(pairs[0], [True, True]) * IMAD_PER_MONT_MUL)
+    r = {"ms": cuda_ms(lambda: ec.ec_ladder(h, ks, nbits, base), 5), "plain_cpu_ms": (time.perf_counter() - t0) * 1e3,
+         "bound_ms": b2_ms, "bound_by": b2_by}
+    results[lname]["timed"] = {"the 2-lane ladder of c_l h' and c_r h', per-lane scalars": r}
+    fresh.add(f"ladder2{suffix}", "ladder", {"pts": h, "k": ks, "nbits": nbits, "base": base.kernel_id},
+              {"ec_ladder_kernel": 1})
+    fresh.into(f"ladder2{suffix}", "ec_ladder_kernel", r, "device_ms")
+
+    # the plane tree
+    for i, (label, bucket, c, W, key) in enumerate(trees):
+        got = no_sync(torch, lambda: MJ.bucket_planes(bucket, c, W, base))
+        want, p_ms = once(lambda: MJ.bucket_planes_plain(bucket, c, W, base))
+        check(tname, got, want)
+        live = ~F.is_zero(bucket["z"][: W << c])[MJ._tree_rows(c, W, str(dev))]
+        adds = 0
+        while live.shape[1] > 1:
+            half = live.shape[1] // 2
+            adds += int((live[:, :half] & live[:, half:]).sum())
+            live = live[:, :half] | live[:, half:]
+        b_ms, b_by = bound_ms((W << c) * 96 + c * W * 96, adds * 16 * IMAD_PER_MONT_MUL)
+        r = {"ms": cuda_ms(lambda: MJ.bucket_planes(bucket, c, W, base), 10), "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "adds": adds}
+        if i == 0:
+            r = results[tname] = {
+                "name": tname, "route": "cuda", "source": src,
+                "replaces": f"halo2_lasso_tpu/ops/msm_jacobian.py:299 with :318 over {via}", "launches": 0,
+                "max_abs_err": 0, "library_ms": None, "shape": label, "timed": {}, **r}
+        else:
+            results[tname]["timed"][label] = r
+        fresh.into(key, "plane_tree_kernel", r, "device_ms")
+
+
+def print_ladder_and_tree(by_name):
+    """The ladder's and the plane tree's lines, in both instances: each
+    shape's events and device time, bound and plain time."""
+    for name in ("ec_ladder", "plane_tree", "ec_ladder.grumpkin", "plane_tree.grumpkin"):
+        k = by_name[name]
+        for shape, r in [(k["shape"], k), *k["timed"].items()]:
+            plain = f"plain {r['plain_ms']:.1f}ms" if "plain_ms" in r else f"plain on the CPU {r['plain_cpu_ms']:.1f}ms"
+            print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r['device_ms']:.4f}ms (bound "
+                  f"{r['bound_ms']:.5f}ms, {r['bound_by']}; {plain})", flush=True)
+
+
+class FreshDeviceTimes:
+    """Device times taken in one fresh process (``chip_smoke.py
+    --device-times``) at the end of the kernel phase: late in a long
+    process a profiler session now and then loses the records of some
+    launches, where a fresh process recorded every one. A job is one call,
+    ``ec.ec_ladder`` ("ladder") or ``msm_jacobian.msm_planes`` ("msm"), on
+    card inputs saved for it under build/, with the launches a call makes
+    of each kernel whose time is read; the phase fails unless a profiler
+    session records every one of them."""
+
+    def __init__(self):
+        self.jobs, self.sinks = {}, []
+
+    def add(self, key, call, args, expect):
+        """Job `key`: `call` on `args` (the coordinate field as "base", its
+        kernel_id), launching each kernel of `expect` {symbol: n} n times."""
+        self.jobs[key] = {"call": call, "args": args, "expect": expect}
+
+    def into(self, key, symbol, record, field):
+        """Job `key`'s device ms a call in kernel `symbol` goes to
+        record[field]."""
+        self.sinks.append((key, symbol, record, field))
+
+    def run(self, torch):
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "device_times.pt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(self.jobs, path)
+        try:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-times", path],
+                                  capture_output=True, text=True, timeout=300, check=False)
+        finally:
+            os.remove(path)
+        if proc.returncode != 0:
+            raise SystemExit(f"the device times' process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        for key, symbol, record, field in self.sinks:
+            record[field] = got[key][symbol]
+
+
+def device_times(path) -> int:
+    """``--device-times PATH``: each job of FreshDeviceTimes's file, its
+    device ms a call in each kernel it expects (3 calls a session, up to
+    three tries of three sessions), printed as one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+    from halo2_lasso_tpu_torch.utils.bench import device_ms
+
+    fields = {Fq.kernel_id: (Fq, Fr), Fr.kernel_id: (Fr, Fq)}  # a curve's coordinate and scalar fields
+    out = {}
+    for key, job in torch.load(path, weights_only=False).items():
+        a, expect = job["args"], job["expect"]
+        base, scalar = fields[a["base"]]
+        if job["call"] == "ladder":
+            fn = functools.partial(ec.ec_ladder, a["pts"], a["k"], a["nbits"], base)
+        else:
+            fn = functools.partial(MJ.msm_planes, a["points"], a["scal"], base, scalar)
+        for attempt in range(3):
+            try:
+                ms = device_ms(fn, 3, list(expect), expect=expect)
+                break
+            except RuntimeError:
+                if attempt == 2:
+                    raise
+        out[key] = {sym: ms[sym] for sym in expect}
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def ew_cases(t, x, y):
@@ -1582,4 +1869,4 @@ def msm_level_adds(torch, dig, B):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(device_times(sys.argv[2]) if sys.argv[1:2] == ["--device-times"] else main())

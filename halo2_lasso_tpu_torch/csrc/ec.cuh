@@ -1,9 +1,10 @@
-// Complete Jacobian addition for one lane over the coordinate field P,
-// shared by csrc/ec_add.cu, csrc/msm_level.cu and the host-compiled CPU
-// test (see field.cuh). Two instances: P = Fq, BN254 G1 (y^2 = x^3 + 3),
-// and P = Fr, grumpkin (y^2 = x^3 - 17), the other half of the BN254
-// 2-cycle. Both curves have a = 0, and b appears in neither formula, so
-// the instances differ only in the modulus.
+// Complete Jacobian addition for one lane over the coordinate field P, and
+// the scalar ladder's dedicated doubling, shared by csrc/ec_add.cu,
+// csrc/msm_level.cu and the host-compiled CPU test (see field.cuh). Two
+// instances: P = Fq, BN254 G1 (y^2 = x^3 + 3), and P = Fr, grumpkin
+// (y^2 = x^3 - 17), the other half of the BN254 2-cycle. Both curves have
+// a = 0, and b appears in neither formula, so the instances differ only in
+// the modulus.
 //
 // add-2007-bl takes 16 Montgomery products. The doubling (dbl-2009-l, 7
 // more) is needed only where P = Q, which an MSM almost never meets, so it
@@ -29,6 +30,23 @@ FD Fe qadd(const Fe& a, const Fe& b) { return fe_add<P>(a, b); }
 template <class P>
 FD Fe qsub(const Fe& a, const Fe& b) { return fe_sub<P>(a, b); }
 
+// dbl-2009-l (a = 0): 2P for P = (x1, y1, z1) not the identity, 7
+// Montgomery products.
+template <class P>
+FD void ec_dbl_formulas(const Fe& x1, const Fe& y1, const Fe& z1, Fe& xd, Fe& yd, Fe& zd) {
+  Fe a = qmul<P>(x1, x1), b = qmul<P>(y1, y1);
+  Fe c = qmul<P>(b, b);
+  Fe xb = qadd<P>(x1, b);
+  Fe t = qsub<P>(qsub<P>(qmul<P>(xb, xb), a), c);
+  Fe d = qadd<P>(t, t);
+  Fe e = qadd<P>(qadd<P>(a, a), a);
+  xd = qsub<P>(qmul<P>(e, e), qadd<P>(d, d));
+  Fe c8 = qadd<P>(qadd<P>(c, c), qadd<P>(c, c));
+  c8 = qadd<P>(c8, c8);
+  yd = qsub<P>(qmul<P>(e, qsub<P>(d, xd)), c8);
+  zd = qmul<P>(qadd<P>(y1, y1), z1);
+}
+
 template <class P>
 FD void ec_add_lane(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& x2, const Fe& y2,
                     const Fe& z2, Fe& ox, Fe& oy, Fe& oz) {
@@ -49,18 +67,8 @@ FD void ec_add_lane(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& x2, cons
   bool use_id = both && fe_is_zero(h) && !fe_is_zero(r);
   bool take_q = p_id && !q_id, take_id = p_id && q_id, take_p = q_id && !p_id;
   if (H2L_WARP_ANY(use_dbl)) {
-    // doubling of P (dbl-2009-l, a = 0)
-    Fe a = qmul<P>(x1, x1), b = qmul<P>(y1, y1);
-    Fe c = qmul<P>(b, b);
-    Fe xb = qadd<P>(x1, b);
-    Fe t = qsub<P>(qsub<P>(qmul<P>(xb, xb), a), c);
-    Fe d = qadd<P>(t, t);
-    Fe e = qadd<P>(qadd<P>(a, a), a);
-    Fe xd = qsub<P>(qmul<P>(e, e), qadd<P>(d, d));
-    Fe c8 = qadd<P>(qadd<P>(c, c), qadd<P>(c, c));
-    c8 = qadd<P>(c8, c8);
-    Fe yd = qsub<P>(qmul<P>(e, qsub<P>(d, xd)), c8);
-    Fe zd = qmul<P>(qadd<P>(y1, y1), z1);
+    Fe xd, yd, zd;
+    ec_dbl_formulas<P>(x1, y1, z1, xd, yd, zd);
     x3 = fe_sel(use_dbl, xd, x3);
     y3 = fe_sel(use_dbl, yd, y3);
     z3 = fe_sel(use_dbl, zd, z3);
@@ -69,4 +77,22 @@ FD void ec_add_lane(const Fe& x1, const Fe& y1, const Fe& z1, const Fe& x2, cons
   ox = fe_sel(use_id || take_id, one, fe_sel(take_q, x2, fe_sel(take_p, x1, x3)));
   oy = fe_sel(use_id || take_id, one, fe_sel(take_q, y2, fe_sel(take_p, y1, y3)));
   oz = fe_sel(use_id || take_id, zero, fe_sel(take_q, z2, fe_sel(take_p, z1, z3)));
+}
+
+// The dedicated doubling of the scalar ladder, in place: dbl-2009-l, or
+// (R, R, 0) for the identity (z = 0). Bit for bit what ec_add_lane(P, P)
+// gives: for P not the identity h = r = 0 selects the same formulas, and
+// for the identity take_id gives (R, R, 0); 7 products where the complete
+// add computes 16 before its vote.
+template <class P>
+FD void ec_dbl_lane(Fe& x, Fe& y, Fe& z) {
+  if (fe_is_zero(z)) {
+    x = y = fe_one<P>();
+    return;
+  }
+  Fe xd, yd, zd;
+  ec_dbl_formulas<P>(x, y, z, xd, yd, zd);
+  x = xd;
+  y = yd;
+  z = zd;
 }

@@ -10,6 +10,9 @@ have a = 0). ``ec_add`` is the port of the TPU kernel _ec_add_kernel
 Montgomery-product launches (msm_jacobian.jac_add_lf): on a CUDA tensor it
 launches csrc/ec_add.cu's instance for the field or raises; only CPU tensors
 take ``ec_add_plain``, the same formulas in plain field ops, bit for bit.
+``ec_ladder`` (and ``scalar_mul_bits`` over it) scales a batch in one
+launch of csrc/ec_add.cu's ladder, where the TPU ran two ``ec_add``
+launches a bit; ``scalar_mul_bits_plain`` is that loop in plain field ops.
 
 MSMs run the halving-tree Pippenger of ops/msm_jacobian.py; commitments
 leave the device as affine (x, y) canonical ints, (0, 0) for the identity.
@@ -20,6 +23,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from halo2_lasso_tpu_torch.ops import field as F
@@ -197,24 +201,77 @@ def ec_select(cond: torch.Tensor, p: Points, q: Points) -> Points:
     return {k: torch.where(cond[:, None], p[k], q[k]) for k in COORDS}
 
 
-def scalar_mul_bits(p: Points, bits, spec: FieldSpec = Fq) -> Points:
-    """Lane-wise scalar multiple of an (n,) batch by double-and-add from the
-    top bit (the port of ops/ec.py:216): each step doubles (a complete add
-    of the accumulator to itself) and adds the point, two ``ec_add``
-    launches, then keeps the sum where the bit is set. ``bits`` is an
-    (n, nbits) 0/1 tensor on the points' device, little-endian, or one
-    host sequence of nbits bits shared by every lane, whose choice is then
-    made on the host."""
+def scalar_mul_bits_plain(p: Points, bits, spec: FieldSpec = Fq) -> Points:
+    """The ladder in plain field ops: double-and-add from the top bit, each
+    step a complete add of the accumulator to itself and one of the point
+    (``ec_add_plain``), the sum kept where the bit is set. ``bits`` is one
+    host sequence of nbits bits shared by every lane, or an (n, nbits) 0/1
+    tensor, both little-endian. The CPU path and the oracle of
+    csrc/ec_add.cu's ladder."""
     n = p["x"].shape[0]
     shared = not isinstance(bits, torch.Tensor)
     nbits = len(bits) if shared else bits.shape[-1]
     acc = identity_point(n, p["x"].device, spec)
     for i in range(nbits):
-        acc = ec_add(acc, acc, spec)
-        added = ec_add(acc, p, spec)
+        acc = ec_add_plain(acc, acc, spec)
+        added = ec_add_plain(acc, p, spec)
         bit = bits[nbits - 1 - i] if shared else bits[:, nbits - 1 - i] == 1
         acc = (added if bit else acc) if shared else ec_select(bit, added, acc)
     return acc
+
+
+def _ladder_bits(scalar, nbits: int):
+    """A ladder's scalar (a host int, or (n, 8) limbs) as
+    ``scalar_mul_bits_plain`` takes it: nbits host bits, or an (n, nbits)
+    0/1 tensor."""
+    if isinstance(scalar, int):
+        return [(scalar >> i) & 1 for i in range(nbits)]
+    limbs = scalar.to(torch.int64) & 0xFFFFFFFF
+    i = torch.arange(nbits, device=scalar.device)
+    return ((limbs[:, i // 32] >> (i % 32)) & 1).to(torch.uint8)
+
+
+def ec_ladder(p: Points, scalar, nbits: int, spec: FieldSpec = Fq) -> Points:
+    """k * P lane-wise over the low ``nbits`` bits of the scalar, from the
+    top, for an (n,) batch over the coordinate field `spec`: one launch of
+    csrc/ec_add.cu's ladder (the port of ops/ec.py:216's loop of complete
+    adds). ``scalar`` is a host int shared by every lane (passed by value),
+    or an (n, 8) int32 tensor of canonical limbs on the points' device, one
+    a lane. A CPU batch takes ``scalar_mul_bits_plain``, bit for bit the
+    same; a CUDA batch launches or raises."""
+    if not 0 <= nbits <= 256:
+        raise ValueError("ec_ladder: at most 256 bits")
+    shared = isinstance(scalar, int)
+    if shared and not 0 <= scalar < 1 << 256:
+        raise ValueError("ec_ladder: the scalar must lie in [0, 2^256)")
+    if p["x"].device.type == "cpu":
+        return scalar_mul_bits_plain(p, _ladder_bits(scalar, nbits), spec)
+    instance = curve_instance(spec)
+    ins = [p[k].contiguous() for k in COORDS]
+    n = ins[0].shape[0]
+    if any(t.shape != (n, F.LIMBS) for t in ins) or (not shared and scalar.shape != (n, F.LIMBS)):
+        raise ValueError("ec_ladder: coordinates and per-lane scalars must be (n, 8) tensors of one length")
+    native.require_cuda("ec_ladder", *ins, *([] if shared else [scalar]))
+    if any(t.data_ptr() % 16 for t in ins):
+        raise ValueError("ec_ladder: coordinates must start on 16-byte boundaries")
+    outs = [torch.empty_like(ins[0]) for _ in COORDS]
+    if n:
+        words = np.ascontiguousarray(F.ints_to_u32([scalar if shared else 0])[0])
+        rc = native.lib().h2l_ec_ladder(
+            spec.kernel_id, *[t.data_ptr() for t in ins], None if shared else scalar.data_ptr(),
+            words.ctypes.data, nbits, *[t.data_ptr() for t in outs], n, native.stream(),
+        )
+        native.check(rc, "ec_ladder")
+        native.count("ec_ladder", instance)
+    return dict(zip(COORDS, outs))
+
+
+def scalar_mul_bits(p: Points, bits: Sequence[int], spec: FieldSpec = Fq) -> Points:
+    """Lane-wise scalar multiple of an (n,) batch by double-and-add from the
+    top bit (the port of ops/ec.py:216), ``bits`` one host sequence of
+    nbits bits, little-endian, shared by every lane: ``ec_ladder`` over the
+    scalar they spell. Per-lane scalars go to ``ec_ladder`` as limbs."""
+    return ec_ladder(p, sum(1 << i for i, b in enumerate(bits) if b), len(bits), spec)
 
 
 def curve_generator(curve, device="cuda") -> Points:

@@ -11,7 +11,9 @@ halo2_lasso_tpu/ops/msm_jacobian.py).
      never collides. The first level reads the points through the sort's
      permutation; a last launch flushes each window's survivor;
   3. bit-plane bucket reduction: U_{w,j} = sum of bucket (w, v) over the v
-     with bit j set, by a halving tree of ``ec_add`` launches;
+     with bit j set, all c W planes in one launch of the ``plane_tree``
+     kernel, which reads the buckets in place and adds only the ones each
+     plane keeps;
   4. host: sum_{w,j} 2^(c w + j) U_{w,j} by double-and-add in Python ints.
 
 The points' coordinate field is ``base`` and the scalars' field ``scalar``
@@ -168,6 +170,14 @@ def msm_planes(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = 
                scalar: FieldSpec = Fr) -> Tuple[ec.Points, int, int]:
     """The device part of a variable-base MSM: the c * W plane sums
     U_{w,j}, plane-major ([j * W + w]), with c and W."""
+    bucket, c, W = msm_buckets(points, scalars_mont, base, scalar)
+    return bucket_planes(bucket, c, W, base), c, W
+
+
+def msm_buckets(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
+                scalar: FieldSpec = Fr) -> Tuple[ec.Points, int, int]:
+    """Steps 1 and 2 of the MSM: the W * 2^c (+ 1) bucket rows after the
+    halving levels and the final flush, with c and W."""
     points, scalars_mont = _pad_pow2({k: v.contiguous() for k, v in points.items()}, scalars_mont, base)
     n = scalars_mont.shape[0]
     c = best_c(n)
@@ -180,33 +190,63 @@ def msm_planes(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = 
     while dig.shape[0] > W:
         pts, dig = msm_level(pts, dig, bucket, W, B, base=base)
     msm_level(pts, dig, bucket, W, B, base=base)  # final flush
-    return bucket_planes(bucket, c, W, base), c, W
+    return bucket, c, W
+
+
+TREE_MAX_C = 10  # csrc/ec_add.cu's TREE_MAX_C: 2^(c-2) shared slots a plane
 
 
 @functools.lru_cache(maxsize=None)
-def _plane_rows(c: int, W: int, device: str):
-    """Row v * (c W) + j * W + w of the reduction tree reads bucket w * 2^c + v
-    and keeps it iff bit j of v is set."""
-    B = 1 << c
-    v = torch.arange(B, device=device)[:, None, None]
-    j = torch.arange(c, device=device)[None, :, None]
-    w = torch.arange(W, device=device)[None, None, :]
-    idx = (w * B + v).expand(B, c, W).reshape(-1)
-    keep = ((v >> j) & 1).bool().expand(B, c, W).reshape(-1, 1)
-    return idx, keep
+def _tree_rows(c: int, W: int, device: str) -> torch.Tensor:
+    """(c W, 2^(c-1)) bucket rows: row [j W + w, k] is bucket w 2^c + v, v
+    the c-bit number with bit j set and its other c - 1 bits those of k."""
+    k = torch.arange(1 << (c - 1), device=device)[None, None, :]
+    j = torch.arange(c, device=device)[:, None, None]
+    w = torch.arange(W, device=device)[None, :, None]
+    v = ((k >> j) << (j + 1)) | (1 << j) | (k & ((1 << j) - 1))
+    return ((w << c) + v).reshape(c * W, -1)
+
+
+def bucket_planes_plain(bucket: ec.Points, c: int, W: int, base: FieldSpec = Fq) -> ec.Points:
+    """The plane sums in plain field ops, bit for bit what csrc/ec_add.cu's
+    plane tree computes: for each plane (j, w) its 2^(c-1) kept buckets, a
+    halving over them (position k with k + 2^(c-1) / 2, the lower the first
+    operand) until one is left. The nesting is that of the old gathered
+    tree over all 2^c buckets with the others masked to the identity, less
+    the masked leaves, which change no sum (tests/test_torch_msm.py)."""
+    rows = _tree_rows(c, W, str(bucket["x"].device))
+    tree = {k: bucket[k][rows] for k in ec.COORDS}  # (c W, 2^(c-1), 8)
+    while tree["x"].shape[1] > 1:
+        half = tree["x"].shape[1] // 2
+        r = ec.ec_add_plain({k: v[:, :half].reshape(-1, F.LIMBS) for k, v in tree.items()},
+                            {k: v[:, half:].reshape(-1, F.LIMBS) for k, v in tree.items()}, base)
+        tree = {k: v.view(c * W, half, F.LIMBS) for k, v in r.items()}
+    return {k: v[:, 0].contiguous() for k, v in tree.items()}
 
 
 def bucket_planes(bucket: ec.Points, c: int, W: int, base: FieldSpec = Fq) -> ec.Points:
-    """U_{w,j} = sum of the buckets (w, v) with bit j of v set, for all (j, w)
-    at once: a halving tree over v whose two halves are contiguous rows."""
-    idx, keep = _plane_rows(c, W, str(bucket["x"].device))
-    tree = {k: bucket[k][idx] for k in ec.COORDS}
-    tree["z"] = torch.where(keep, tree["z"], torch.zeros_like(tree["z"]))
-    rows = tree["x"].shape[0]
-    while rows > c * W:
-        rows //= 2
-        tree = ec.ec_add({k: v[:rows] for k, v in tree.items()}, {k: v[rows:] for k, v in tree.items()}, base)
-    return tree
+    """U_{j,w} = sum of the buckets (w, v) with bit j of v set, for all (j, w),
+    plane-major ([j W + w]), from the W 2^c bucket rows read in place: one
+    launch of csrc/ec_add.cu's plane tree (the port of the bit-plane tree
+    of msm_jacobian.py:299-318). A CPU bucket takes ``bucket_planes_plain``;
+    a CUDA one launches or raises."""
+    if bucket["x"].device.type == "cpu":
+        return bucket_planes_plain(bucket, c, W, base)
+    instance = ec.curve_instance(base)
+    coords = [bucket[k] for k in ec.COORDS]
+    if not 2 <= c <= TREE_MAX_C:
+        raise ValueError(f"plane_tree: the kernel takes 2 <= c <= {TREE_MAX_C}")
+    if any(t.dim() != 2 or t.shape[1] != F.LIMBS or t.shape[0] < W << c for t in coords):
+        raise ValueError("plane_tree: the bucket holds at least W * 2^c rows of 8 limbs")
+    native.require_cuda("plane_tree", *coords)
+    if any(t.data_ptr() % 16 for t in coords):
+        raise ValueError("plane_tree: coordinates must start on 16-byte boundaries")
+    out = [torch.empty((c * W, F.LIMBS), dtype=torch.int32, device=coords[0].device) for _ in ec.COORDS]
+    rc = native.lib().h2l_plane_tree(base.kernel_id, *[t.data_ptr() for t in coords], c, W, *[t.data_ptr() for t in out],
+                                     native.stream())
+    native.check(rc, "plane_tree")
+    native.count("plane_tree", instance)
+    return dict(zip(ec.COORDS, out))
 
 
 def msm(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,

@@ -16,10 +16,10 @@ shared memory, spills) when this process built the library.
 
 ``counts`` holds one launch counter per kernel, and one per field instance
 that a kernel has beside its first (``INSTANCES``: the Fq instances of K1
-and K2, the grumpkin instances of K3's add and level). A wrapper adds one to
-its kernel's count where it launches it, whatever the instance, and one to
-the instance's count when it launches that instance, and nowhere else;
-``reset_counts`` zeroes them.
+and K2, the grumpkin instances of K3's add, level, ladder and plane tree).
+A wrapper adds one to its kernel's count where it launches it, whatever the
+instance, and one to the instance's count when it launches that instance,
+and nowhere else; ``reset_counts`` zeroes them.
 """
 
 from __future__ import annotations
@@ -45,12 +45,14 @@ BUILD_TIMEOUT_S = 600
 
 KERNELS = (
     "mont_mul", "fold_all", "sumcheck_round", "ec_add", "fix_var", "mont_mul_limbs_first",
-    "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy", "sum_reduce",
+    "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy", "sum_reduce", "ec_ladder",
+    "plane_tree",
 )
 # the instances counted apart: "<kernel>.<instance>", launched where a
 # wrapper is given a field (K1, K2: Fq) or a curve (K3: grumpkin, whose
 # coordinates are Fr) other than its first
-INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin")
+INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin", "ec_ladder.grumpkin",
+             "plane_tree.grumpkin")
 counts = {k: 0 for k in KERNELS + INSTANCES}
 # the __global__ function of each kernel, as a profiler names it
 SYMBOLS = {
@@ -58,7 +60,8 @@ SYMBOLS = {
     "ec_add": "ec_add_kernel", "fix_var": "fix_var_kernel",
     "mont_mul_limbs_first": "mont_mul_limbs_first_kernel", "mont_mul_tiled": "mont_mul_tiled_kernel",
     "msm_level": "msm_level_kernel", "mont_pow": "mont_pow_kernel", "prefix_products": "scan_kernel",
-    "eq_xy": "eq_xy_kernel", "sum_reduce": "sum_reduce_kernel",
+    "eq_xy": "eq_xy_kernel", "sum_reduce": "sum_reduce_kernel", "ec_ladder": "ec_ladder_kernel",
+    "plane_tree": "plane_tree_kernel",
 }
 build_seconds = None  # wall time of the build (the parallel compiles and the link), when this process built
 ptxas_info = ""  # what -Xptxas -v printed, when this process built
@@ -76,6 +79,8 @@ _SIGNATURES = {
     "h2l_sumcheck_round": [_I, _P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "h2l_ec_add": [_I] + [_P] * 9 + [_LL, _P],
     "h2l_msm_level": [_I] + [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
+    "h2l_ec_ladder": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_LL, _P],
+    "h2l_plane_tree": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "h2l_mont_mul_limbs_first": [_P, _P, _P, _LL, _P],
     "h2l_mont_mul_tiled": [_P, _P, _P, _LL, _P],
     "h2l_mont_pow": [_I, _P, _P, _LL, _P, _I, _P],

@@ -10,8 +10,11 @@ c = c_l + xi^-1 c_r, z = z_l + xi z_r (ipa.rs:170-241). verify recombines
 with the tensor-expanded h_coeffs polynomial (ipa.rs:269-337).
 
 A scaling by a host scalar (``_scale_points``) is the double-and-add ladder
-of ops/ec.py ``scalar_mul_bits`` over the scalar field's 254 bits: two
-``ec_add`` launches a bit, whatever the number of points. The generators come from
+over the scalar field's 254 bits, one launch of ops/ec.py ``ec_ladder``
+whatever the number of points (the TPU ran two complete-add launches a
+bit); each round scales h' by c_l and by c_r in one 2-lane ladder with
+per-lane scalars, and b_r by xi in one shared-scalar ladder, then folds
+the bases with one ``ec_add`` launch. The generators come from
 ``hash_to_curve(b"MultilinearIpa::setup")`` on the host (ipa.rs:105,123),
 timed apart as ``ipa_hash_to_curve``.
 """
@@ -101,9 +104,8 @@ class MultilinearIpa(PointCommitmentIO):
     @classmethod
     def _scale_points(cls, pts: dict, scalar: int) -> dict:
         """scalar * pts for a host scalar: the ladder over the scalar field's
-        bit length (254 for Fr and Fq), its bits shared by every lane."""
-        s = scalar % cls.FIELD.modulus
-        return ec.scalar_mul_bits(pts, [(s >> i) & 1 for i in range(cls.FIELD.num_bits)], cls.CURVE.base)
+        bit length (254 for Fr and Fq), the scalar shared by every lane."""
+        return ec.ec_ladder(pts, scalar % cls.FIELD.modulus, cls.FIELD.num_bits, cls.CURVE.base)
 
     @classmethod
     def open(cls, pp: IpaParams, evals: torch.Tensor, point: Sequence[int], eval_, transcript) -> None:
@@ -119,13 +121,15 @@ class MultilinearIpa(PointCommitmentIO):
             mid = 1 << (num_vars - i - 1)
             b_l = {k: v[:mid] for k, v in bases.items()}
             b_r = {k: v[mid:] for k, v in bases.items()}
-            c_l, c_r = S.decode_ints(torch.stack([
+            # c_l and c_r as canonical limbs, left on the card for the ladder
+            c_lr = F.from_mont(S, torch.stack([
                 F.sum_reduce(S, F.mont_mul(S, coeffs[mid:], zs[:mid])),
                 F.sum_reduce(S, F.mont_mul(S, coeffs[:mid], zs[mid:])),
             ]))
             # L = MSM(bases_l, coeffs_r) + c_l h', R = MSM(bases_r, coeffs_l) + c_r h'
             msm_l, msm_r = MJ.msm_many([(b_l, coeffs[mid:]), (b_r, coeffs[:mid])], B, S)
-            scaled = ec.cat_points(cls._scale_points(h_prime, c_l), cls._scale_points(h_prime, c_r))
+            # c_l h' and c_r h': one ladder over two lanes, a scalar each
+            scaled = ec.ec_ladder(ec.cat_points(h_prime, h_prime), c_lr, S.num_bits, B)
             v = B.decode_ints(torch.cat([scaled[k] for k in ec.COORDS]))  # x_l, x_r, y_l, y_r, z_l, z_r
             l_aff, r_aff = MJ.host_batch_affine([
                 MJ.host_jac_add(msm_l, tuple(v[0::2]), B.modulus),

@@ -1,5 +1,5 @@
-"""Time the heaviest shapes of the round kernel, the MSM, the fold and the
-Montgomery chains for two checkouts of the port on one card, in turns, so
+"""Time the heaviest shapes of the round kernel, the MSM, the IPA ladders,
+the fold and the Montgomery chains for two checkouts of the port on one card, in turns, so
 that a change to any is compared with its parent in one run.
 
     python3 halo2_lasso_tpu_torch/scripts/compare_trees.py BASE [HEAD]
@@ -17,7 +17,18 @@ inputs drawn from fixed seeds, measures
     and in ``round_kernel``;
   - one variable-base MSM of 2^16 points (``msm_jacobian.msm``): host wall
     time per call, and per call the profiler's device time in all, in the
-    ``ec_add`` and ``msm_level`` kernels, and the device-to-host copies;
+    ``ec_add``, ``msm_level`` and ``plane_tree`` kernels (a tree without the
+    plane tree shows 0 there, its bit-plane tree in ``ec_add``), and the
+    device-to-host copies;
+  - the IPA open's scalings at nv = 16 (``pcs/ipa.py``): the first round's
+    b_r scaled by one shared 254-bit scalar (``ec.scalar_mul_bits`` over
+    2^15 bases, every 9th the identity), and c_l h', c_r h' (a tree with
+    ``ec.ec_ladder`` makes one 2-lane ladder with a scalar a lane, an older
+    one two 1-lane ``scalar_mul_bits``, as its open does): CUDA events per
+    call, host wall time (each call followed by a synchronize) and the
+    profiler's device time per call, in all and in the ``ec_add`` and
+    ``ec_ladder`` kernels, from a session that recorded every launch of
+    the kernel the tree's ladder runs;
   - ``fold_all`` of 6 tables of 2^16 (the batch open's first fold) with the
     challenge as the tree's sumchecks pass it: CUDA events per call, the
     profiler's device time in all and in ``fold_all_kernel``, and the
@@ -57,7 +68,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEAD_ROOT = os.path.dirname(os.path.dirname(HERE))
 N = 1 << 16
-REPS_K1, REPS_MSM, REPS_CHAIN = 20, 3, 20
+REPS_K1, REPS_MSM, REPS_CHAIN, REPS_LADDER = 20, 3, 20, 3
 
 
 def _bench():
@@ -126,9 +137,43 @@ def measure(root: str) -> dict:
     for _ in range(REPS_MSM):
         msm()  # reads its result back, so each call ends synchronized
     out["msm_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS_MSM
-    dev = bench.device_ms(msm, REPS_MSM, ["ec_add_kernel", "msm_level_kernel"])
+    dev = bench.device_ms(msm, REPS_MSM, ["ec_add_kernel", "msm_level_kernel", "plane_tree_kernel"])
     out.update(msm_device_ms=dev["all"], msm_ec_add_ms=dev["ec_add_kernel"],
-               msm_level_ms=dev["msm_level_kernel"], msm_dtoh=dev["DtoH"])
+               msm_level_ms=dev["msm_level_kernel"], msm_plane_tree_ms=dev["plane_tree_kernel"],
+               msm_dtoh=dev["DtoH"])
+
+    # the IPA open's scalings (see the module's docstring)
+    one_launch = hasattr(ec, "ec_ladder")
+    nbits = Fr.num_bits
+    lpts = ec.fixed_base_msm(G1_GEN, rand_fr(N // 2))
+    lpts["z"][::9] = 0
+    k = Fr.decode_ints(rand_fr(1))[0]
+    bits = [(k >> i) & 1 for i in range(nbits)]
+    h = ec.fixed_base_msm(G1_GEN, rand_fr(1))
+    h2 = {c: v.expand(2, 8).contiguous() for c, v in h.items()}
+    c_lr = Fr.decode_ints(rand_fr(2))
+    c_lr_limbs = F.from_numpy_u32(F.ints_to_u32(c_lr), "cuda")
+    c_lr_bits = [[(x >> i) & 1 for i in range(nbits)] for x in c_lr]
+
+    def ladder_c_lr():
+        if one_launch:
+            return ec.ec_ladder(h2, c_lr_limbs, nbits)
+        return ec.cat_points(*(ec.scalar_mul_bits(h, b) for b in c_lr_bits))
+
+    for name, fn, calls in (("ladder_b_r", lambda: ec.scalar_mul_bits(lpts, bits), 1),
+                            ("ladder_c_lr", ladder_c_lr, 1 if one_launch else 2)):
+        out[f"{name}_sha"] = digest(torch.cat(list(fn().values())))
+        out[f"{name}_event_ms"] = bench.cuda_ms(fn, REPS_LADDER)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS_LADDER):
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS_LADDER
+        expect = {"ec_ladder_kernel": calls} if one_launch else {"ec_add_kernel": 2 * nbits * calls}
+        dev = bench.device_ms(fn, REPS_LADDER, ["ec_add_kernel", "ec_ladder_kernel"], expect=expect)
+        out.update({f"{name}_device_ms": dev["all"], f"{name}_ec_add_ms": dev["ec_add_kernel"],
+                    f"{name}_ec_ladder_ms": dev["ec_ladder_kernel"]})
 
     by_value = "device" in inspect.signature(mle.eq_xy).parameters
     tabs = [rand_fr(N) for _ in range(6)]
@@ -214,7 +259,8 @@ def main(argv) -> int:
         rec = {"tree": tree, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(rec), flush=True)
         recs.append(rec)
-    for key in ("k1_sha", "msm_sha", "fold_sha", "batch_inv_sha", "eq_xy_sha", "kzg_open_sha", "coeff_round_sha"):
+    for key in ("k1_sha", "msm_sha", "ladder_b_r_sha", "ladder_c_lr_sha", "fold_sha", "batch_inv_sha", "eq_xy_sha",
+                "kzg_open_sha", "coeff_round_sha"):
         if len({r[key] for r in recs}) != 1:
             raise SystemExit(f"the trees disagree on {key}")
     return 0

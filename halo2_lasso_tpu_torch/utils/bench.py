@@ -46,12 +46,15 @@ def kernel_rows(rows, symbol: str):
     return [e for e in rows if re.search(rf"(^|\W){symbol}\s*[<(]", e.key)]
 
 
-def device_ms(fn, reps: int, symbols=()) -> dict:
+def device_ms(fn, reps: int, symbols=(), expect=None) -> dict:
     """Per call over `reps` calls after one warm-up, from torch.profiler's
     device-side rows: "all", the device time of every kernel, copy and
     memset (the host's gaps between them excluded); each of `symbols` (a
     kernel's __global__ name), its device time; "DtoH" and "HtoD", the
-    device-to-host and host-to-device copies."""
+    device-to-host and host-to-device copies. With `expect`, {symbol:
+    launches a call}, a session whose rows hold another number of that
+    kernel's launches is repeated: in a long process a session now and
+    then loses the records of some launches."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -62,10 +65,11 @@ def device_ms(fn, reps: int, symbols=()) -> dict:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         out = {"all": sum(e.self_device_time_total for e in rows) / 1e3 / reps}
-        if out["all"] > 0:
+        whole = all(sum(e.count for e in kernel_rows(rows, sym)) == n * reps for sym, n in (expect or {}).items())
+        if out["all"] > 0 and whole:
             break
     else:
-        raise RuntimeError(f"the profiler saw no device time in {PROFILER_SESSIONS} sessions")
+        raise RuntimeError(f"the profiler saw no device time, or not every launch, in {PROFILER_SESSIONS} sessions")
     for sym in symbols:
         out[sym] = sum(e.self_device_time_total for e in kernel_rows(rows, sym)) / 1e3 / reps
     for d in ("DtoH", "HtoD"):

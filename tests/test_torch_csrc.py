@@ -7,8 +7,9 @@ without a GPU, and so are csrc/mont_mul.cu's elementwise op (every op code,
 strided, broadcast and by-value operands), csrc/fix_var.cu's chain (its
 column phase and its tail's steps, emulated in order, with the quotients)
 and the power and eq table entries of csrc/mont_chain.cu, each kernel in
-the field instances it has (BN254 G1 and grumpkin for the EC lane and the
-MSM level, Fr and Fq for the round evaluation). (The kernels'
+the field instances it has (BN254 G1 and grumpkin for the EC lane, the MSM
+level, the scalar ladder's lane and the plane tree's planes, Fr and Fq for
+the round evaluation). (The kernels'
 launch and reduction code runs only on the card: tests/test_torch_kernels.py.)
 """
 
@@ -34,6 +35,7 @@ HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include "ec.cuh"
+#include "ec_add.cu"
 #include "fix_var.cu"
 #include "fold.cu"
 #include "mont_mul.cu"
@@ -202,6 +204,36 @@ int main() {
       p.y_dev = nullptr;
       for (int i = 0; i < p.k; ++i) p.y[i] = rd();
       for (long long b = 0; b < (1ll << p.k); ++b) wr(eq_xy_elem<Fr>(p, b));
+    } else if (op[0] == 'g') {  // g[0] nbits k0..k7 px py pz: one ladder lane (g0: grumpkin)
+      int nbits = (int)rdi();
+      uint32_t k[8];
+      for (auto& w : k) w = (uint32_t)rdi();
+      Fe px = rd(), py = rd(), pz = rd(), ox, oy, oz;
+      if (op[1] == '0') ec_ladder_lane<Fr>(px, py, pz, k, nbits, ox, oy, oz);
+      else ec_ladder_lane<Fq>(px, py, pz, k, nbits, ox, oy, oz);
+      wr(ox); wr(oy); wr(oz);
+    } else if (op[0] == 't') {  // t[0] c W tpp: the plane tree, each plane's threads in turn (t0: grumpkin)
+      int c = (int)rdi(), W = (int)rdi(), tpp = (int)rdi();
+      std::vector<uint32_t> bx = rows((long long)W << c), by = rows((long long)W << c), bz = rows((long long)W << c);
+      const int half = 1 << (c - 2);
+      std::vector<uint32_t> sm(24 * half);
+      const TreeSlots S{sm.data(), half};
+      const bool fr = op[1] == '0';
+      for (int j = 0; j < c; ++j)
+        for (int w = 0; w < W; ++w) {
+          for (int t = 0; t < tpp; ++t)
+            for (int k = t; k < half; k += tpp)
+              if (fr) tree_first<Fr>(bx.data(), by.data(), bz.data(), c, j, w, k, half, S, k);
+              else tree_first<Fq>(bx.data(), by.data(), bz.data(), c, j, w, k, half, S, k);
+          for (int h = half / 2; h >= 1; h /= 2)
+            for (int t = 0; t < tpp; ++t)
+              for (int k = t; k < h; k += tpp)
+                if (fr) tree_step<Fr>(S, k, k + h);
+                else tree_step<Fq>(S, k, k + h);
+          Fe x, y, z;
+          S.get(0, x, y, z);
+          wr(x); wr(y); wr(z);
+        }
     } else if (op[0] == 'e') {  // e[0]: one EC lane, BN254 G1 over Fq (e0: grumpkin over Fr)
       Fe x1 = rd(), y1 = rd(), z1 = rd(), x2 = rd(), y2 = rd(), z2 = rd(), ox, oy, oz;
       if (op[1] == '0') ec_add_lane<Fr>(x1, y1, z1, x2, y2, z2, ox, oy, oz);
@@ -600,3 +632,85 @@ def test_round_eval_pair_fq_instance_matches_plain(harness):
                     + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
     want = sc.round_message_plain(Fq, tables, prog, chals, expr.degree)
     assert np.array_equal(run(harness, [line]).reshape(-1, 8), F.to_numpy_u32(want))
+
+
+# csrc/ec_add.cu's ladder and plane tree, in both curve instances (g0 / t0:
+# grumpkin over Fr; g1 / t1: BN254 G1 over Fq)
+
+
+def ladder_points(curve, n=5):
+    """n points of `curve` (ops/curves.py) as a Jacobian batch, z not 1, the
+    last the identity."""
+    pts, _ = chip_smoke.ec_cases(np, np.random.RandomState(31), MJ, curve.base.modulus, n - 1, curve.generator)
+    pts = pts + [(1, 1, 0)]
+    return {k: curve.base.encode([pt[i] for pt in pts]) for i, k in enumerate(ec.COORDS)}
+
+
+@pytest.mark.parametrize("curve_name", ["BN254_G1", "GRUMPKIN"], ids=["bn254", "grumpkin"])
+def test_ec_ladder_lane_matches_plain(harness, curve_name):
+    """The ladder's lane (a dedicated doubling, the complete add where the
+    bit is set) against scalar_mul_bits_plain's loop of two complete adds a
+    bit, bit for bit in Jacobian limbs: scalars 0, 1, p - 1 and a random
+    254-bit one (p the scalar field's modulus), shared by every lane and
+    one a lane, over four points and the identity."""
+    from halo2_lasso_tpu_torch.ops import curves
+
+    curve = getattr(curves, curve_name)
+    pts = ladder_points(curve)
+    q, nbits = curve.scalar.modulus, curve.scalar.num_bits
+    ks = [0, 1, q - 1, random.Random(7).getrandbits(254) | 1 << 253]
+    cols = [rows(pts[k]) for k in ec.COORDS]
+    n = len(cols[0])
+
+    def lanes(per_lane):
+        words = [" ".join(map(str, F.ints_to_u32([k])[0].tolist())) for k in per_lane]
+        return run(harness, [f"g{curve.base.kernel_id} {nbits} {words[i]} " + " ".join(c[i] for c in cols)
+                             for i in range(n)])
+
+    def flat(r):
+        return np.concatenate([F.to_numpy_u32(r[k]) for k in ec.COORDS], axis=1)
+
+    for k in ks:
+        want = ec.scalar_mul_bits_plain(pts, [(k >> i) & 1 for i in range(nbits)], curve.base)
+        assert np.array_equal(lanes([k] * n), flat(want)), k
+    per = (ks + ks)[1 : n + 1]
+    bits = torch.tensor([[(k >> i) & 1 for i in range(nbits)] for k in per], dtype=torch.uint8)
+    assert np.array_equal(lanes(per), flat(ec.scalar_mul_bits_plain(pts, bits, curve.base)))
+
+
+@pytest.mark.parametrize("curve_name", ["BN254_G1", "GRUMPKIN"], ids=["bn254", "grumpkin"])
+@pytest.mark.parametrize("c", [3, 4])
+def test_plane_tree_planes_match_plain(harness, curve_name, c):
+    """The plane tree's first level from the buckets and its halving in the
+    shared slots, each plane's threads run in turn at 1, 2 and 2^(c-2)
+    threads a plane, against bucket_planes_plain; the buckets hold empty
+    ones (the identity), equal points and negations (P = Q, P = -Q)."""
+    from halo2_lasso_tpu_torch.ops import curves
+
+    curve = getattr(curves, curve_name)
+    W = 3
+    rng = np.random.RandomState(40 + c)
+    bucket = chip_smoke.msm_edge_points(np, rng, MJ, curve.base.modulus, "cpu", n=W << c, curve=curve)
+    empty = ec.identity_point(1, "cpu", curve.base)
+    for r in (0, 3, 9, (W << c) - 1):
+        for k in ec.COORDS:
+            bucket[k][r] = empty[k][0]
+    want = MJ.bucket_planes_plain(bucket, c, W, curve.base)
+    want = np.concatenate([F.to_numpy_u32(want[k]) for k in ec.COORDS], axis=1)
+    text = " ".join(" ".join(rows(bucket[k])) for k in ec.COORDS)
+    for tpp in sorted({1, 2, 1 << (c - 2)}):
+        got = run(harness, [f"t{curve.base.kernel_id} {c} {W} {tpp} {text}"]).reshape(-1, 24)
+        assert np.array_equal(got, want), tpp
+
+
+def test_plane_tree_limits_match_wrapper():
+    """The plane tree's limit on c compiled into csrc/ec_add.cu is the one
+    its wrapper checks, and its block is a power of two of at least a warp
+    that holds 2^(c-2) first-level positions a thread at most twice at
+    c = TREE_MAX_C (the shape the kernel's shared slots are sized for)."""
+    import re
+
+    defines = dict(re.findall(r"#define (\w+) (\d+)", (CSRC / "ec_add.cu").read_text()))
+    assert int(defines["TREE_MAX_C"]) == MJ.TREE_MAX_C
+    t = int(defines["TREE_THREADS"])
+    assert t >= 32 and t & (t - 1) == 0 and (1 << (MJ.TREE_MAX_C - 2)) <= 2 * t

@@ -151,8 +151,9 @@ def test_grumpkin_ec_add_matches_jax():
 
 def test_grumpkin_scalar_mul_bits_matches_host():
     """The scalar ladder over grumpkin points (one the identity), with the
-    bits shared and per lane, against host arithmetic; the generator and
-    ec_neg on grumpkin."""
+    bits shared (scalar_mul_bits) and per-lane scalars as limbs
+    (ec_ladder), against host arithmetic; the generator and ec_neg on
+    grumpkin."""
     gen = ec.curve_generator(G, "cpu")
     assert ec.jacobian_to_affine(gen, Fr) == [G.generator]
     pts = [ladder_mul((*G.generator, 1), int(RNG.randint(1, 1 << 40))) for _ in range(3)] + [(1, 1, 0)]
@@ -161,8 +162,7 @@ def test_grumpkin_scalar_mul_bits_matches_host():
     ks = [int(RNG.randint(1, 1 << 62)) * (1 << 190) + 3 for _ in range(4)]
     shared = ec.scalar_mul_bits(batch, [(ks[0] >> i) & 1 for i in range(254)], Fr)
     assert ec.jacobian_to_affine(shared, Fr) == [curves.host_mul(G, a, ks[0]) for a in aff]
-    bits = torch.tensor([[(k >> i) & 1 for i in range(254)] for k in ks], dtype=torch.uint8)
-    lanes = ec.scalar_mul_bits(batch, bits, Fr)
+    lanes = ec.ec_ladder(batch, F.from_numpy_u32(F.ints_to_u32(ks)), 254, Fr)
     assert ec.jacobian_to_affine(lanes, Fr) == [curves.host_mul(G, a, k) for a, k in zip(aff, ks)]
     assert ec.jacobian_to_affine(ec.ec_neg(batch, Fr), Fr) == [
         (0, 0) if a == (0, 0) else (a[0], (-a[1]) % FR_MODULUS) for a in aff]

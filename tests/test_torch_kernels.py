@@ -431,3 +431,76 @@ def test_kernels_raise_for_a_field_without_instance(cuda):
     bucket = ec.identity_point(5, cuda, spec)
     with pytest.raises(ValueError):
         MJ.msm_level(pts, dig, bucket, 2, 2, base=spec)
+
+
+# K3's ladder and plane tree (csrc/ec_add.cu), in both curve instances
+
+
+@pytest.mark.parametrize("curve", [curves.BN254_G1, curves.GRUMPKIN], ids=["bn254", "grumpkin"])
+def test_ec_ladder_kernel_matches_plain(cuda, curve):
+    """The ladder over 64 points (every fifth the identity) with a shared
+    scalar (0, 1, q - 1, random, and 1 + 2^200, whose steps skip the add)
+    and with per-lane scalars, against the plain loop on CPU copies;
+    one launch of the kernel and of its instance each, none of ec_add;
+    scalar_mul_bits (shared bits) is that one launch too."""
+    base, q, nbits = curve.base, curve.scalar.modulus, curve.scalar.num_bits
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, base.modulus, 64, curve.generator)
+    pts = {k: base.encode([pt[i] for pt in ps], cuda) for i, k in enumerate(ec.COORDS)}
+    host = {k: v.cpu() for k, v in pts.items()}
+    inst = "ec_ladder" + (".grumpkin" if base is Fr else "")
+    names = ("ec_ladder", inst, "ec_add")
+    for k in (0, 1, q - 1, rand_ints(q, 1)[0], 1 + (1 << 200)):
+        got, n = launches(lambda: no_sync(lambda: ec.ec_ladder(pts, k, nbits, base)), *names)
+        want = ec.ec_ladder(host, k, nbits, base)
+        assert n == (1, 1, 0) and all(torch.equal(got[c].cpu(), want[c]) for c in ec.COORDS), k
+        again, n = launches(lambda: ec.scalar_mul_bits(pts, [(k >> i) & 1 for i in range(nbits)], base), *names)
+        assert n == (1, 1, 0) and all(torch.equal(again[c], got[c]) for c in ec.COORDS)
+    ks = [0, 1, q - 1] + rand_ints(q, 61)
+    limbs = F.from_numpy_u32(F.ints_to_u32(ks))
+    got, n = launches(lambda: ec.ec_ladder(pts, limbs.to(cuda), nbits, base), *names)
+    want = ec.ec_ladder(host, limbs, nbits, base)
+    assert n == (1, 1, 0) and all(torch.equal(got[c].cpu(), want[c]) for c in ec.COORDS)
+
+
+@pytest.mark.parametrize("curve", [curves.BN254_G1, curves.GRUMPKIN], ids=["bn254", "grumpkin"])
+@pytest.mark.parametrize("c, W", [(2, 3), (3, 85), (4, 64), (10, 2)])
+def test_plane_tree_kernel_matches_plain(cuda, curve, c, W):
+    """The plane tree over buckets with empty ones, equal points and
+    negations among them, at each shape of its 128-thread block (several
+    planes a block at c = 2, 3 and 4, one at c = 10 with two positions a
+    thread), against bucket_planes_plain; one launch of the kernel and of
+    its instance."""
+    base = curve.base
+    bucket = chip_smoke.msm_edge_points(np, RNG, MJ, base.modulus, cuda, n=(W << c) + 1, curve=curve)
+    empty = ec.identity_point(1, cuda, base)
+    for r in (1, 2, 7, 1 << c):
+        for k in ec.COORDS:
+            bucket[k][r] = empty[k][0]
+    want = MJ.bucket_planes_plain(bucket, c, W, base)
+    inst = "plane_tree" + (".grumpkin" if base is Fr else "")
+    got, n = launches(lambda: no_sync(lambda: MJ.bucket_planes(bucket, c, W, base)), "plane_tree", inst)
+    assert n == (1, 1) and all(torch.equal(got[k], want[k]) for k in ec.COORDS)
+
+
+def test_msm_launches_one_plane_tree_and_no_ec_add(cuda):
+    """Each MSM's bit-plane tree is one plane_tree launch, and an MSM
+    launches no ec_add; the result equals the CPU's."""
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, FQ_MODULUS, 1 << 8)
+    pts = {k: Fq.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    scal = Fr.encode(rand_ints(Fr.modulus, 1 << 8))
+    card = ({k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda))
+    got, n = launches(lambda: ec.msm_list_to_affine_int([card, card]), "plane_tree", "msm_level", "ec_add")
+    assert n == (2, 18, 0) and got == [ec.msm_to_affine_int(pts, scal)] * 2
+
+
+def test_ladder_and_tree_raise_for_a_field_without_instance(cuda):
+    """A Pasta field (kernel_id None) raises in both new entries."""
+    spec = curves.Fp_pallas
+    pts = ec.identity_point(4, cuda, spec)
+    with pytest.raises(ValueError):
+        ec.ec_ladder(pts, 5, 8, spec)
+    with pytest.raises(ValueError):
+        ec.scalar_mul_bits(pts, [1, 0, 1], spec)
+    bucket = ec.identity_point(3 << 3, cuda, spec)
+    with pytest.raises(ValueError):
+        MJ.bucket_planes(bucket, 3, 3, spec)

@@ -235,3 +235,78 @@ def test_msm_level_refuses_what_the_kernel_cannot_read(fault):
         order = order.to(torch.int32)
     with pytest.raises(ValueError, match="msm_level"):
         MJ.msm_level(pts, digits, bucket, W, B, order=order)
+
+
+# The bit-plane tree: the plane tree (csrc/ec_add.cu, bucket_planes_plain)
+# adds only the buckets each plane keeps, in the nesting of the gathered
+# tree it replaced, whose other leaves were masked to the identity. The
+# complete add passes a non-identity operand through unchanged when the
+# other is the identity and gives (R, R, 0) for two identities, and every
+# identity among the buckets is (R, R, 0), so dropping the masked leaves
+# changes no plane sum, not even in its Jacobian limbs.
+
+
+def gathered_tree(bucket, c, W, base):
+    """The plane sums as the gathered tree computed them: 2^c c W rows, row
+    v c W + j W + w bucket w 2^c + v with z = 0 unless bit j of v is set,
+    halved c times (rows r and r + rows / 2) by the complete add."""
+    B = 1 << c
+    v = torch.arange(B)[:, None, None]
+    j = torch.arange(c)[None, :, None]
+    w = torch.arange(W)[None, None, :]
+    idx = (w * B + v).expand(B, c, W).reshape(-1)
+    keep = ((v >> j) & 1).bool().expand(B, c, W).reshape(-1, 1)
+    tree = {k: bucket[k][idx] for k in ec.COORDS}
+    tree["z"] = torch.where(keep, tree["z"], torch.zeros_like(tree["z"]))
+    rows = tree["x"].shape[0]
+    while rows > c * W:
+        rows //= 2
+        tree = ec.ec_add_plain({k: v[:rows] for k, v in tree.items()}, {k: v[rows:] for k, v in tree.items()}, base)
+    return tree
+
+
+@pytest.mark.parametrize("curve_name", ["BN254_G1", "GRUMPKIN"], ids=["bn254", "grumpkin"])
+@pytest.mark.parametrize("c, W", [(3, 3), (4, 2)])
+def test_plane_tree_order_matches_gathered_tree(curve_name, c, W):
+    """bucket_planes_plain bit for bit against the gathered tree over the
+    same buckets: empty buckets, equal points and negations among them."""
+    import chip_smoke
+    from halo2_lasso_tpu_torch.ops import curves
+
+    curve = getattr(curves, curve_name)
+    rng = np.random.RandomState(60 + c)
+    bucket = chip_smoke.msm_edge_points(np, rng, MJ, curve.base.modulus, "cpu", n=W << c, curve=curve)
+    empty = ec.identity_point(1, "cpu", curve.base)
+    for r in (1, 2, 7, (W << c) - 3):
+        for k in ec.COORDS:
+            bucket[k][r] = empty[k][0]
+    got = MJ.bucket_planes_plain(bucket, c, W, curve.base)
+    want = gathered_tree(bucket, c, W, curve.base)
+    assert all(torch.equal(got[k], want[k]) for k in ec.COORDS)
+    assert all(torch.equal(MJ.bucket_planes(bucket, c, W, curve.base)[k], got[k]) for k in ec.COORDS)
+
+
+def test_plane_tree_nesting_at_full_width():
+    """The same claim over symbolic labels at an MSM's c = 10 and W = 26,
+    None the identity and an add a pair (first operand, second): the
+    gathered tree with the masked leaves and the plane tree's halving over
+    the kept buckets give the same nested sums, with some buckets empty."""
+    c, W = 10, 26
+    B = 1 << c
+
+    def add(a, b):
+        return b if a is None else a if b is None else (a, b)
+
+    def halve(t):
+        while len(t) > 1:
+            h = len(t) // 2
+            t = [add(t[i], t[i + h]) for i in range(h)]
+        return t[0]
+
+    rows = MJ._tree_rows(c, W, "cpu").tolist()
+    for j in range(c):
+        for w in range(W):
+            label = [None if (w * 7 + v) % 37 == 0 else (w, v) for v in range(B)]  # some empty
+            old = halve([label[v] if (v >> j) & 1 else None for v in range(B)])
+            new = halve([label[r - w * B] for r in rows[j * W + w]])
+            assert old == new, (j, w)

@@ -212,16 +212,16 @@ def test_host_curve_arithmetic_matches_jax(name):
 
 def test_scalar_mul_bits_matches_host():
     """The ladder over four BN254 points (one the identity) with the bits
-    shared by every lane, and with per-lane bits, against host arithmetic:
-    its steps meet doubling (P + P) and identity lanes."""
+    shared by every lane (scalar_mul_bits), and with per-lane scalars as
+    limbs (ec_ladder), against host arithmetic: its steps meet doubling
+    (P + P) and identity lanes."""
     pts = [tuple(int(c) for c in pt) for pt in curves.hash_to_curve(curves.BN254_G1, b"ladder", 3)] + [(0, 0)]
     batch_pts = ec.affine_to_jacobian(pts)
     rng = np.random.RandomState(5)
     ks = [int(rng.randint(1, 1 << 62)) * (1 << 190) + 3 for _ in range(4)]
     shared = ec.scalar_mul_bits(batch_pts, [(ks[0] >> i) & 1 for i in range(254)])
     assert ec.jacobian_to_affine(shared) == [curves.host_mul(curves.BN254_G1, pt, ks[0]) for pt in pts]
-    bits = torch.tensor([[(k >> i) & 1 for i in range(254)] for k in ks], dtype=torch.uint8)
-    lanes = ec.scalar_mul_bits(batch_pts, bits)
+    lanes = ec.ec_ladder(batch_pts, F.from_numpy_u32(F.ints_to_u32(ks)), 254)
     assert ec.jacobian_to_affine(lanes) == [curves.host_mul(curves.BN254_G1, pt, k) for pt, k in zip(pts, ks)]
     assert ec.jacobian_to_affine(ec.ec_neg(batch_pts)) == [
         (0, 0) if pt == (0, 0) else (pt[0], (-pt[1]) % FQ_MODULUS) for pt in pts]
