@@ -90,8 +90,8 @@ Phases, each printing one line with its wall time:
      (range_table(16, 8), 8 lookups, SRS seed 3), each on the card and
      through the plain path on the CPU, hashing to the JAX package's proof
      (PCS_PLONK_SHA256, LASSO_GEMINI_SHA256); then phase 7's circuit at
-     nv = 16 under each of the four PCS, MultilinearHyrax at nv = 14 for the
-     smoke's time (SECONDARY_NUM_VARS; setup with IPA's hash_to_curve
+     nv = 16 under each of the four PCS, MultilinearHyrax and MultilinearIpa
+     at nv = 14 for the smoke's time (SECONDARY_NUM_VARS; setup with IPA's hash_to_curve
      timed apart, preprocess, prove, verify, stage times, the prove's
      launches, tamper, one profiled and one sync-counted prove), and
      phase 5's slice over Gemini (setup, prove, verify, tamper, the same
@@ -105,6 +105,18 @@ Phases, each printing one line with its wall time:
      one profiled and one sync-counted prove); each path must launch the
      Fq instances of sumcheck_round and fold_all and the grumpkin instances
      of ec_add and msm_level (native.counts counts them apart).
+ 14. Brakedown, the hash-based multilinear PCS: the nv = 3 vanilla plonk
+     proof (seeds 3, 103, setup seed 0) over MultilinearBrakedown on the
+     card and the CPU, hashing to the JAX package's proof
+     (PCS_PLONK_SHA256; tests/test_torch_hyperplonk_brakedown.py holds the
+     two packages to it); then phase 7's circuit over Brakedown at nv = 16
+     (setup, preprocess, prove, verify, stage times, launches, tamper, one
+     profiled and one sync-counted prove, and a summary line); then the
+     nv = 16 code's encode of 8 random rows on the card (timed) against the
+     same code's plain versions on the CPU, bit for bit on 2 of the rows.
+     The environment phase builds the native Keccak sponge
+     (halo2_lasso_tpu_torch/csrc/host/keccak.c, the host C compiler) and
+     times it; the run fails on any other sponge.
 The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
 nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
 the point, with identity lanes), and the field instances that phase 13 runs
@@ -124,7 +136,7 @@ and fail unless ec_add is the open's fold adds alone and ec_ladder twice
 that and one (on MultilinearIpa's, ec_add is nv).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, the two full-width paths of 10, 11, the five
-full-size paths of 12 and the two of 13) and read just after it; each path must
+full-size paths of 12, the two of 13 and the one of 14) and read just after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
@@ -183,8 +195,10 @@ ARX = {"circuit": "arx_chain_circuit", "num_vars": 19, "setup_seed": 0}
 # the two packages to them); then PLONK's circuit and the Lasso slice over them
 SECONDARY_PCS = ("Gemini", "Zeromorph", "MultilinearIpa", "MultilinearHyrax")
 # the smoke's time budget: phase 12's BN254 Hyrax path runs at a smaller nv
-# since phase 13 (its grumpkin twin keeps nv = 16 and the same launch pattern)
-SECONDARY_NUM_VARS = {"MultilinearHyrax": 14}
+# since phase 13, and its BN254 IPA path (its set-up's hash_to_curve of
+# 2^nv + 1 generators) since phase 14; their grumpkin twins keep nv = 16 and
+# the same launch pattern
+SECONDARY_NUM_VARS = {"MultilinearHyrax": 14, "MultilinearIpa": 14}
 PCS_PLONK_SMALL = {"circuit": "rand_vanilla_plonk_circuit", "num_vars": 3, "seeds": (3, 103), "setup_seed": 0}
 PCS_PLONK_SHA256 = {
     "Gemini": "7cb8ccdce443cd36147e7c8b0eb2a151bc749bbd7b7851396ae5658daae7085e",
@@ -193,6 +207,7 @@ PCS_PLONK_SHA256 = {
     "MultilinearHyrax": "3777c0d2f4663ae16cef31c4ce779f51b564ec939177f9f74170009399617560",
     "MultilinearIpaGrumpkin": "8950de0c769dc8902064b75ab32120c3d45c4acb7220186207a4fc9831e50677",
     "MultilinearHyraxGrumpkin": "bd50367754dda639ad9a4c00b7d2bb03031c1e114a553f392cb361400dba0cf1",
+    "MultilinearBrakedown": "8690c307bd655063f1a605dbb92fb17af3b995e6a3936b3b318db3d76028be3a",
 }
 # the grumpkin half of the BN254 2-cycle (hyperplonk.rs:422-423): the same
 # circuits over BN254 Fq under the grumpkin-backed IPA and Hyrax, their nv = 3
@@ -231,7 +246,16 @@ PATH_KERNELS = {
     # and the grumpkin instances of K3 among their launches
     **{f"plonk_{name}": HYPERPLONK_KERNELS + ("ec_ladder",) + GRUMPKIN_INSTANCES for name in GRUMPKIN_PCS},
     "lasso_gemini": PROOF_KERNELS + ("prefix_products",),
+    # HyperPlonk over Brakedown: no MSM; the code's sparse products and the
+    # opens' row combinations are K4 and its row sum
+    "plonk_MultilinearBrakedown": ("mont_mul", "sum_reduce", "fold_all", "sumcheck_round", "fix_var", "eq_xy",
+                                   "mont_pow", "prefix_products"),
 }
+# phase 14: HyperPlonk over Brakedown, phase 7's circuit at nv = 16, and the
+# rows of its code encoded on the card against the CPU
+BRAKEDOWN = {**PLONK, "pcs": "MultilinearBrakedown"}
+BRAKEDOWN_ENCODE_ROWS = 8  # a commit's rows at nv = 16; 2 of them are checked on the CPU
+SPONGE_MB = 64  # bytes absorbed to time the native sponge
 # K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
 # entries that replaced its caller loops (csrc/mont_chain.cu)
 K4_FAMILY = ("mont_mul", "sum_reduce", "mont_pow", "prefix_products", "eq_xy")
@@ -262,6 +286,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     stage("env", t0, f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} | {smi}")
+    sponge_line(np)
 
     # 2. build
     t0 = time.perf_counter()
@@ -323,7 +348,8 @@ def main() -> int:
     proof_gate(np, hyperplonk_proof, PLONK_SMALL, GOLDEN_SHA256, "plonk_small", "nv=3 vanilla")
 
     # 7. HyperPlonk at full size
-    run_hyperplonk_path(torch, np, launches, "hyperplonk", "plonk", "nv=16 vanilla plonk with lookup", PLONK)
+    path = run_hyperplonk_path(torch, np, launches, "hyperplonk", "plonk", "nv=16 vanilla plonk with lookup", PLONK)
+    sponge_ab(torch, path)
 
     # 8. two-operand Lasso at 2^16
     run_path(launches, "lasso_and", "lasso_and", "2^16 lookups and_table(32,8)",
@@ -386,6 +412,23 @@ def main() -> int:
         run_hyperplonk_path(torch, np, launches, f"plonk_{name}", f"plonk_{name}",
                             f"nv=16 vanilla plonk with lookup over BN254 Fq, {name}", {**PLONK, "pcs": name})
 
+    # 14. Brakedown: the nv = 3 proof against the JAX package's bytes, then
+    # phase 7's circuit over Brakedown and its code's encode on the card
+    # against the CPU
+    name = BRAKEDOWN["pcs"]
+    proof_gate(np, hyperplonk_proof, {**PCS_PLONK_SMALL, "pcs": name}, PCS_PLONK_SHA256[name],
+               f"plonk_small_{name}", f"nv=3 vanilla over {name}")
+    path = run_hyperplonk_path(torch, np, launches, f"plonk_{name}", f"plonk_{name}",
+                               f"nv={BRAKEDOWN['num_vars']} vanilla plonk with lookup over {name}", BRAKEDOWN)
+    ms = {}
+    for k, v in path["records"]:  # the first of each (the tamper's verify comes second)
+        ms.setdefault(k, v)
+    print(f"brakedown summary: nv={BRAKEDOWN['num_vars']} setup {ms['setup']:.1f}ms preprocess "
+          f"{ms['preprocess']:.1f}ms prove {ms['prove']:.1f}ms verify {ms['verify']:.1f}ms busy "
+          f"{100 * path['profile']['busy_share']:.1f}% syncs {sum(path['sync_sites'].values())} bytes "
+          f"{len(path['proof'])} | {smi}", flush=True)
+    check_brakedown_encode(torch, np, path["pp"].pcs)
+
     for path, counts in launches.items():
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         if missing:
@@ -433,14 +476,17 @@ def run_path(launches, path, name, label, run):
         raise SystemExit(f"the {path} path ran the plain carry pass on the card {F.norm_on_card} times")
     stage(name, t0, f"{label}: {len(proof)} bytes, verified, tamper rejected, no plain carry pass on the card")
     print_stages(records)
+    return proof, records
 
 
 def run_hyperplonk_path(torch, np, launches, path, name, label, cfg, cheat=False):
     """A full-size HyperPlonk main path, with `cheat` a proof of the
     circuit's cheating witness rejected (after the path's launches are
-    read), then ``profile_path``."""
+    read), then ``profile_path``. Returns what the path left: its params
+    (pp, vp), its proof, stage records, profile and sync sites."""
     extra = {}
-    run_path(launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
+    extra["proof"], extra["records"] = run_path(
+        launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
     if cfg.get("pcs") in IPA_PCS:
         # one IPA open a prove: a ladder for h', two a round (c_l h' and c_r
         # h' in one, xi b_r) and one ec_add a round (the fold); every MSM's
@@ -455,21 +501,120 @@ def run_hyperplonk_path(torch, np, launches, path, name, label, cfg, cheat=False
         rejects_cheat(np, cfg, extra["pp"], extra["vp"])
         print("  a proof of the cheating witness was rejected", flush=True)
     profile_path(torch, extra)
+    return extra
 
 
 def profile_path(torch, extra):
     """After a main path: the launches of its prove alone, then a second,
     profiled prove and a third with its host syncs counted by site (the
-    prove `extra["prove"]` runs)."""
+    prove `extra["prove"]` runs); their results kept in `extra` ("profile",
+    "sync_sites")."""
     print("  launches in prove: " + json.dumps(extra["prove_launches"]), flush=True)
-    prof = profile_prove(torch, extra["prove"])
+    prof = extra["profile"] = profile_prove(torch, extra["prove"])
     print("  second prove under torch.profiler: " + json.dumps(prof), flush=True)
-    sites = sync_sites(torch, extra["prove"])
+    sites = extra["sync_sites"] = sync_sites(torch, extra["prove"])
     print(f"  third prove, host syncs by site ({sum(sites.values())}): " + json.dumps(sites), flush=True)
+
+
+def sponge_line(np):
+    """The Keccak sponge the transcript runs, which must be the native one,
+    and its rates: SPONGE_MB absorbed in 1 MiB updates, and a commit's
+    leaves at nv = 16 (14,091 columns of 8 elements) in one batch call."""
+    from halo2_lasso_tpu_torch.ops import keccak
+
+    t0 = time.perf_counter()
+    sponge = keccak.sponge()
+    if sponge != "native":
+        raise SystemExit(f"the transcript runs the {sponge} Keccak sponge, not the native one")
+    chunk = np.random.RandomState(0).bytes(1 << 20)
+    h = keccak.Keccak256()
+    t1 = time.perf_counter()
+    for _ in range(SPONGE_MB):
+        h.update(chunk)
+    h.digest()
+    absorb_s = time.perf_counter() - t1
+    leaves = np.frombuffer(np.random.RandomState(1).bytes(14091 * 256), dtype=np.uint8).reshape(14091, 256)
+    t1 = time.perf_counter()
+    keccak.keccak256_rows(leaves)
+    rows_s = time.perf_counter() - t1
+    stage("sponge", t0, f"{sponge} ({os.path.relpath(keccak.SOURCE, os.path.dirname(os.path.abspath(__file__)))}): "
+          f"absorb {SPONGE_MB / absorb_s:.1f} MB/s; 14091 leaves of 256 B in one call {1e3 * rows_s:.2f}ms "
+          f"({leaves.nbytes / 2**20 / rows_s:.1f} MB/s)")
+
+
+def sponge_ab(torch, path):
+    """A main path's prove and verify with the native sponge and with the
+    pure-Python one, in turns (native, python, python, native; the
+    transcript module's sponge swapped, then restored), the proofs equal:
+    what the native sponge did to a path that hashes kilobytes."""
+    from halo2_lasso_tpu_torch import transcript
+    from halo2_lasso_tpu_torch.ops import keccak
+
+    t0 = time.perf_counter()
+    times, proofs = {"native": [], "python": []}, set()
+    try:
+        for sponge in ("native", "python", "python", "native"):
+            transcript.Keccak256 = keccak.NativeKeccak256 if sponge == "native" else keccak.PyKeccak256
+            t1 = time.perf_counter()
+            proof = path["prove"]()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            path["verify"](proof)
+            times[sponge].append((1e3 * (t2 - t1), 1e3 * (time.perf_counter() - t2)))
+            proofs.add(proof)
+    finally:
+        transcript.Keccak256 = keccak.Keccak256
+    if len(proofs) != 1:
+        raise SystemExit("the proofs differ between the native and the pure-Python sponge")
+    stage("sponge_ab", t0, "prove / verify ms, native then python sponge, in turns: " + "; ".join(
+        f"{k} " + ", ".join(f"{p:.1f} / {v:.1f}" for p, v in ts) for k, ts in times.items()) +
+        f"; {len(next(iter(proofs)))} bytes, equal")
+
+
+def check_brakedown_encode(torch, np, pp):
+    """The nv = 16 code's encode of BRAKEDOWN_ENCODE_ROWS random rows on the
+    card (one pass, timed by events) against the same code (its matrices
+    copied to the host) on the CPU's plain versions, bit for bit on the
+    first 2 rows; the card's launches a pass printed."""
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import Fr
+    from halo2_lasso_tpu_torch.pcs.brakedown import BrakedownCode, SparseMatrix
+    from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
+
+    t0 = time.perf_counter()
+    code = pp.code
+
+    def host(x):
+        return SparseMatrix(x.n, x.m, x.d, x.rows_idx, x.cols_idx, x.coeffs.cpu())
+
+    cpu_code = BrakedownCode(code.row_len, code.n_0, code.spec, [host(x) for x in code.a], [host(x) for x in code.b])
+    n = BRAKEDOWN_ENCODE_ROWS
+    rng = np.random.RandomState(14)
+    vals = [int.from_bytes(rng.bytes(40), "little") % Fr.modulus for _ in range(code.row_len * n)]
+    rows = F.from_numpy_u32(Fr.canonical_limbs(np.array(vals, dtype=object))).reshape(code.row_len, n, F.LIMBS)
+    dev_rows = rows.cuda()
+    before = dict(native.counts)
+    got = code.encode(dev_rows)
+    torch.cuda.synchronize()
+    per_pass = {k: native.counts[k] - before[k] for k in before if native.counts[k] != before[k]}
+    want = cpu_code.encode(rows[:, :2])
+    if not torch.equal(got[:, :2].cpu(), want):
+        raise SystemExit("the Brakedown encode on the card differs from the CPU's")
+    ms = cuda_ms(lambda: code.encode(dev_rows), 10)
+    mats = code.a + code.b
+    nnz = sum(len(x.rows_idx) for x in mats)
+    products = (nnz + code.vandermonde.shape[0] * code.vandermonde.shape[1]) * n
+    moved = (code.row_len + code.codeword_len) * n * 32 + nnz * (32 + 8)
+    bound, by = bound_ms(moved, products * IMAD_PER_MONT_MUL)
+    stage("brakedown_encode", t0, f"nv={pp.num_vars} code ({code.row_len} -> {code.codeword_len}, {nnz} matrix entries): "
+          f"{n} rows on the card == CPU plain on 2 rows; {ms:.4f}ms a pass of {n} rows by events (bound {bound:.5f}ms, "
+          f"{by}); launches a pass {json.dumps(per_pass)}")
 
 
 def pcs_class(cfg):
     """The port's PCS class a config names (multilinear KZG by default)."""
+    from halo2_lasso_tpu_torch.pcs.brakedown import MultilinearBrakedown
     from halo2_lasso_tpu_torch.pcs.gemini import Gemini
     from halo2_lasso_tpu_torch.pcs.hyrax import MultilinearHyrax, MultilinearHyraxGrumpkin
     from halo2_lasso_tpu_torch.pcs.ipa import MultilinearIpa, MultilinearIpaGrumpkin
@@ -477,7 +622,7 @@ def pcs_class(cfg):
     from halo2_lasso_tpu_torch.pcs.zeromorph import Zeromorph
 
     classes = (MultilinearKzg, Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax, MultilinearIpaGrumpkin,
-               MultilinearHyraxGrumpkin)
+               MultilinearHyraxGrumpkin, MultilinearBrakedown)
     return {c.__name__: c for c in classes}[cfg.get("pcs", "MultilinearKzg")]
 
 
@@ -698,7 +843,13 @@ def hyperplonk_proof(np, cfg, device, tamper=False, cheat=False, extra=None):
     before = dict(native.counts)
     backend.prove(pp, circuit, tw)
     if extra is not None:
-        extra.update(pp=pp, vp=vp, prove=lambda: backend.prove(pp, circuit, backend.transcript()),
+        def prove_again():
+            t = backend.transcript()
+            backend.prove(pp, circuit, t)
+            return t.into_proof()
+
+        extra.update(pp=pp, vp=vp, prove=prove_again,
+                     verify=lambda p: backend.verify(vp, circuit.instances(), backend.transcript(p)),
                      prove_launches={k: native.counts[k] - before[k] for k in before})
     proof = tw.into_proof()
     backend.verify(vp, circuit.instances(), backend.transcript(proof))

@@ -3,8 +3,9 @@ preprocess / prove / verify (the port of
 halo2_lasso_tpu/backend/hyperplonk/__init__.py;
 plonkish_backend/src/backend/hyperplonk.rs:85-369 semantics). ``HyperPlonk``
 runs over multilinear KZG; ``hyperplonk(pcs_cls)`` instantiates it over
-another PCS (Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax over BN254,
-MultilinearIpaGrumpkin, MultilinearHyraxGrumpkin over grumpkin), the
+another PCS (Gemini, Zeromorph, MultilinearIpa, MultilinearHyrax,
+MultilinearBrakedown over BN254, MultilinearIpaGrumpkin,
+MultilinearHyraxGrumpkin over grumpkin), the
 reference's ``HyperPlonk<Pcs>`` (hyperplonk.rs:398-427). The SNARK's field is
 the PCS's ``FIELD``: BN254 Fr, or Fq for the grumpkin-backed PCS.
 
@@ -121,12 +122,16 @@ def from_jax_hyperplonk_params(jpp, jvp, device="cuda", pcs=MultilinearKzg) -> T
     """The JAX package's HyperPlonkProverParam / HyperPlonkVerifierParam
     (limb arrays convertible to numpy, Python ints, its Expression trees)
     -> the port's, with the preprocessed polys on `device` and the PCS
-    params converted by the port's `pcs` class (``from_jax_params``). Each
-    Lasso lookup's table is rebuilt by the port's constructor of the same
-    name."""
+    params converted by the port's `pcs` class (``from_jax_params``), and
+    its prover-side commitments by ``from_jax_commitment`` where the PCS
+    keeps more than the verifier's form (Brakedown's codeword and tree).
+    Each Lasso lookup's table is rebuilt by the port's constructor of the
+    same name."""
 
     def poly(a):
         return F.from_jax_limbs(np.asarray(a), device)
+
+    comm = getattr(pcs, "from_jax_commitment", lambda c: c)
 
     pp = HyperPlonkProverParam(
         pcs=pcs.from_jax_params(jpp.pcs, device),
@@ -138,9 +143,9 @@ def from_jax_hyperplonk_params(jpp, jvp, device="cuda", pcs=MultilinearKzg) -> T
         num_vars=jpp.num_vars,
         expression=from_foreign(jpp.expression),
         preprocess_polys=[poly(a) for a in jpp.preprocess_polys],
-        preprocess_comms=list(jpp.preprocess_comms),
+        preprocess_comms=[comm(c) for c in jpp.preprocess_comms],
         permutation_polys=[(i, poly(a)) for i, a in jpp.permutation_polys],
-        permutation_comms=list(jpp.permutation_comms),
+        permutation_comms=[comm(c) for c in jpp.permutation_comms],
         lasso_lookups=_lasso_from_foreign(jpp.lasso_lookups),
     )
     vp = HyperPlonkVerifierParam(

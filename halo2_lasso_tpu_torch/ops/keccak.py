@@ -1,17 +1,79 @@
-"""Legacy Keccak-256 (pre-NIST padding 0x01), host-side pure Python.
+"""Legacy Keccak-256 (pre-NIST padding 0x01), host-side.
 
-The port's copy of halo2_lasso_tpu/ops/keccak.py without its native
-backend: the transcript hashes a few dozen bytes per round, and the port
-must not depend on a library that is built outside its checkout. The
-Fiat-Shamir transcript needs original Keccak (pad byte 0x01), not NIST SHA3
-(pad 0x06), so hashlib.sha3_256 cannot be used.
+The port's copy of halo2_lasso_tpu/ops/keccak.py:23-131: a native sponge
+(``NativeKeccak256`` over csrc/host/keccak.c, the port's own copy of the C
+source, built with the host C compiler on first use into build/host/ and
+named by a hash of its source and flags) and the pure-Python sponge
+(``PyKeccak256``), which stays only for a machine without a C compiler.
+``Keccak256()`` gives the native one wherever it can be built; a compile
+error of the source raises. ``keccak256_rows`` hashes n equal-length
+messages in one native call (Brakedown's codeword columns and Merkle
+levels). The Fiat-Shamir transcript needs original Keccak (pad byte 0x01),
+not NIST SHA3 (pad 0x06), so hashlib.sha3_256 cannot be used.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import List, Optional, Sequence
 
 import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "host", "keccak.c")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+CFLAGS = ["-O3", "-shared", "-fPIC"]
+BUILD_TIMEOUT_S = 120
+
+_native = None  # the loaded library; False where no C compiler exists
+
+
+def _build(cc: str) -> str:
+    """Compile csrc/host/keccak.c into build/host/ unless a library of the
+    same source and flags is there; returns its path."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CFLAGS).encode()).hexdigest()[:16]
+    lib = os.path.join(BUILD_DIR, f"libkeccak_{digest}.so")
+    if not os.path.exists(lib):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.run([cc, *CFLAGS, "-o", tmp, SOURCE], capture_output=True, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cc} failed on {SOURCE} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib
+
+
+def native() -> Optional[ctypes.CDLL]:
+    """The native sponge's library, built on first use; None where the
+    machine has no C compiler."""
+    global _native
+    if _native is None:
+        cc = shutil.which("cc") or shutil.which("gcc")
+        if cc is None:
+            _native = False
+        else:
+            dll = ctypes.CDLL(_build(cc))
+            dll.keccak256_absorb_blocks.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_char_p, ctypes.c_uint64]
+            dll.keccak256_finalize.argtypes = [
+                ctypes.POINTER(ctypes.c_uint64), ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+            ]
+            dll.keccak256_many.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p]
+            for fn in (dll.keccak256_absorb_blocks, dll.keccak256_finalize, dll.keccak256_many):
+                fn.restype = None
+            _native = dll
+    return _native or None
+
+
+def sponge() -> str:
+    """Which sponge ``Keccak256()`` gives: "native" or "python"."""
+    return "native" if native() is not None else "python"
+
 
 _ROUND_CONSTANTS = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -60,7 +122,41 @@ def _keccak_f(state):
     return state
 
 
-class Keccak256:
+class NativeKeccak256:
+    """ctypes-backed incremental legacy Keccak-256 (csrc/host/keccak.c)."""
+
+    RATE = 136
+    DIGEST_SIZE = 32
+
+    def __init__(self):
+        self._dll = native()
+        if self._dll is None:
+            raise RuntimeError("no C compiler: the native Keccak sponge cannot be built")
+        self._st = (ctypes.c_uint64 * 25)()
+        self._buffer = b""
+
+    def update(self, data: bytes) -> "NativeKeccak256":
+        buf = self._buffer + bytes(data)
+        nblocks = len(buf) // self.RATE
+        if nblocks:
+            self._dll.keccak256_absorb_blocks(self._st, buf[: nblocks * self.RATE], nblocks)
+            buf = buf[nblocks * self.RATE :]
+        self._buffer = buf
+        return self
+
+    def digest(self) -> bytes:
+        out = ctypes.create_string_buffer(self.DIGEST_SIZE)
+        self._dll.keccak256_finalize(self._st, self._buffer, len(self._buffer), out)
+        return out.raw
+
+    def finalize_reset(self) -> bytes:
+        d = self.digest()
+        ctypes.memset(self._st, 0, 25 * 8)
+        self._buffer = b""
+        return d
+
+
+class PyKeccak256:
     """Pure-python incremental legacy Keccak-256: rate 136, pad 0x01...0x80."""
 
     RATE = 136
@@ -70,7 +166,7 @@ class Keccak256:
         self._state = [[0] * 5 for _ in range(5)]
         self._buffer = b""
 
-    def update(self, data: bytes) -> "Keccak256":
+    def update(self, data: bytes) -> "PyKeccak256":
         self._buffer += data
         while len(self._buffer) >= self.RATE:
             self._absorb(self._buffer[: self.RATE])
@@ -114,46 +210,41 @@ class Keccak256:
         return d
 
 
+def Keccak256():
+    """An incremental legacy Keccak-256: the native sponge wherever a C
+    compiler exists, else the pure-Python one."""
+    return NativeKeccak256() if native() is not None else PyKeccak256()
+
+
 def keccak256(data: bytes) -> bytes:
     return Keccak256().update(data).digest()
 
 
-def _keccak_f_many(state: np.ndarray) -> np.ndarray:
-    """``_keccak_f`` over many states at once: state (5, 5, N) uint64 lanes
-    [x][y], every step one numpy operation across the N states."""
-    def rotl(v, n):
-        n %= 64
-        return v if n == 0 else (v << np.uint64(n)) | (v >> np.uint64(64 - n))
-
-    for rc in _ROUND_CONSTANTS:
-        c = state[:, 0] ^ state[:, 1] ^ state[:, 2] ^ state[:, 3] ^ state[:, 4]
-        d = np.roll(c, 1, axis=0) ^ rotl(np.roll(c, -1, axis=0), 1)
-        state = state ^ d[:, None]
-        b = np.empty_like(state)
-        for x in range(5):
-            for y in range(5):
-                b[y, (2 * x + 3 * y) % 5] = rotl(state[x, y], _ROTATIONS[x][y])
-        state = b ^ (~np.roll(b, -1, axis=0) & np.roll(b, -2, axis=0))
-        state[0, 0] ^= np.uint64(rc)
-    return state
+def keccak256_rows(data: np.ndarray) -> np.ndarray:
+    """``keccak256`` of each row of a (n, len) uint8 array: (n, 32) uint8
+    digests, in one call of the native batch entry (a loop of the
+    pure-Python sponge where there is no C compiler)."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if data.ndim != 2:
+        raise ValueError("keccak256_rows: a (n, len) uint8 array of messages")
+    n, size = data.shape
+    out = np.empty((n, 32), dtype=np.uint8)
+    dll = native()
+    if dll is None:
+        for i in range(n):
+            out[i] = np.frombuffer(PyKeccak256().update(data[i].tobytes()).digest(), np.uint8)
+    elif n:
+        dll.keccak256_many(data.ctypes.data, n, size, out.ctypes.data)
+    return out
 
 
 def keccak256_many(messages: Sequence[bytes]) -> List[bytes]:
-    """``keccak256`` of many messages of one length below the rate (one
-    block each), vectorised across them with numpy: the same digests."""
-    n = len(messages)
-    if n == 0:
+    """``keccak256`` of many messages of one length: the same digests."""
+    if not messages:
         return []
     size = len(messages[0])
-    if size >= Keccak256.RATE or any(len(m) != size for m in messages):
-        raise ValueError("keccak256_many: messages of one length below the rate")
-    pad_len = Keccak256.RATE - size
-    padding = b"\x81" if pad_len == 1 else b"\x01" + b"\x00" * (pad_len - 2) + b"\x80"
-    blocks = np.frombuffer(b"".join(m + padding for m in messages), dtype="<u8").reshape(n, 17)
-    state = np.zeros((5, 5, n), dtype=np.uint64)
-    for i in range(Keccak256.RATE // 8):
-        state[i % 5, i // 5] = blocks[:, i]
-    state = _keccak_f_many(state)
-    lanes = np.stack([state[i % 5, i // 5] for i in range(4)], axis=1).astype("<u8")
-    out = lanes.tobytes()
-    return [out[32 * j : 32 * j + 32] for j in range(n)]
+    if any(len(m) != size for m in messages):
+        raise ValueError("keccak256_many: messages of one length")
+    rows = np.frombuffer(b"".join(messages), dtype=np.uint8).reshape(len(messages), size)
+    out = keccak256_rows(rows).tobytes()
+    return [out[32 * j : 32 * j + 32] for j in range(len(messages))]

@@ -9,8 +9,13 @@ Matches the Rust reference's plonkish_backend/src/util/transcript.rs semantics:
     (repr reversed, transcript.rs:146-166);
   * commitments absorb x then y base-field coordinates (transcript.rs:176-186).
 
-Field elements cross this boundary as canonical python ints (host domain);
-device arrays are converted at the call sites.
+Field elements cross this boundary as canonical python ints (host domain),
+or in bulk as their canonical 32-byte little-endian reprs, a (n, 32) uint8
+array (``write_field_reprs`` / ``read_field_reprs``): a batch is absorbed in
+one ``update``, byte for byte what absorbing its elements one at a time
+gives. Hash outputs (Brakedown's Merkle roots and paths) are streamed
+without absorbing them (``write_hash``, ``write_stream``). Device arrays
+are converted at the call sites.
 """
 
 from __future__ import annotations
@@ -18,10 +23,10 @@ from __future__ import annotations
 import io
 from typing import List, Optional, Tuple
 
-from halo2_lasso_tpu_torch.ops.keccak import Keccak256
-
+import numpy as np
 
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
+from halo2_lasso_tpu_torch.ops.keccak import Keccak256
 
 
 class TranscriptError(Halo2LassoError):
@@ -92,8 +97,21 @@ class Keccak256Transcript:
         self._stream.write(int(fe).to_bytes(self._repr_bytes, "big"))
 
     def write_field_elements(self, fes):
-        for fe in fes:
-            self.write_field_element(fe)
+        le = b"".join(int(fe).to_bytes(self._repr_bytes, "little") for fe in fes)
+        self.write_field_reprs(np.frombuffer(le, dtype=np.uint8).reshape(-1, self._repr_bytes))
+
+    def common_field_reprs(self, le: bytes):
+        """Absorb field elements given as their concatenated canonical
+        little-endian reprs, in one update."""
+        self._state.update(le)
+
+    def write_field_reprs(self, le: np.ndarray):
+        """Write the field elements of a (n, 32) uint8 array of canonical
+        little-endian reprs: one update of the state, one write of their
+        big-endian reprs."""
+        le = np.ascontiguousarray(le, dtype=np.uint8).reshape(-1, self._repr_bytes)
+        self.common_field_reprs(le.tobytes())
+        self._stream.write(le[:, ::-1].tobytes())
 
     def write_commitment(self, comm: Tuple[int, int]):
         self.common_commitment(comm)
@@ -120,8 +138,20 @@ class Keccak256Transcript:
         self.common_field_element(fe)
         return fe
 
+    def read_field_reprs(self, n: int) -> np.ndarray:
+        """Read n field elements as a (n, 32) uint8 array of canonical
+        little-endian reprs, each checked below the modulus, absorbed in one
+        update."""
+        be = np.frombuffer(self._read_exact(n * self._repr_bytes), dtype=np.uint8).reshape(n, self._repr_bytes)
+        le = np.ascontiguousarray(be[:, ::-1])
+        if not below_modulus(le, self.scalar_modulus).all():
+            raise TranscriptError("invalid field element encoding in proof")
+        self.common_field_reprs(le.tobytes())
+        return le
+
     def read_field_elements(self, n: int) -> List[int]:
-        return [self.read_field_element() for _ in range(n)]
+        buf = self.read_field_reprs(n).tobytes()
+        return [int.from_bytes(buf[i : i + self._repr_bytes], "little") for i in range(0, len(buf), self._repr_bytes)]
 
     def read_commitment(self) -> Tuple[int, int]:
         x = int.from_bytes(self._read_exact(self._repr_bytes), "big")
@@ -139,7 +169,51 @@ class Keccak256Transcript:
     def read_commitments(self, n: int) -> List[Tuple[int, int]]:
         return [self.read_commitment() for _ in range(n)]
 
+    # ---- hash commitments (Brakedown merkle roots and paths) ----
+    # The reference streams hash outputs WITHOUT absorbing them
+    # (transcript.rs:241-263, the Output<Keccak256> impls); absorption
+    # happens only through explicit common_hash calls
+    # (halo2_lasso_tpu/transcript.py:150-170).
+
+    def write_hash(self, h: bytes):
+        if len(h) != 32:
+            raise ValueError("write_hash: a 32-byte hash")
+        self._stream.write(h)
+
+    def read_hash(self) -> bytes:
+        return self._read_exact(32)
+
+    def common_hash(self, h: bytes):
+        self._state.update(h)
+
+    def write_stream(self, data: bytes):
+        """Bytes to the proof stream without absorbing them: hashes, or the
+        big-endian reprs of elements the state already absorbed."""
+        self._stream.write(data)
+
+    def read_stream(self, n: int) -> bytes:
+        """The next n bytes of the proof stream, not absorbed."""
+        return self._read_exact(n)
+
+    def squeeze_challenge_idx(self, cap: int) -> int:
+        """Low 32 bits of a squeezed challenge, mod cap
+        (pcs/multilinear/brakedown.rs squeeze_challenge_idx)."""
+        return (self.squeeze_challenge() & 0xFFFFFFFF) % cap
+
     # ---- proof extraction ----
 
     def into_proof(self) -> bytes:
         return self._stream.getvalue()
+
+
+def below_modulus(le: np.ndarray, modulus: int) -> np.ndarray:
+    """Whether each row of a (n, 32) uint8 array of little-endian reprs is
+    below `modulus`, compared as four 64-bit words from the top."""
+    words = np.ascontiguousarray(le, dtype=np.uint8).view("<u8").reshape(-1, 4)
+    lt = np.zeros(words.shape[0], dtype=bool)
+    eq = np.ones(words.shape[0], dtype=bool)
+    for i in (3, 2, 1, 0):
+        w = np.uint64((modulus >> (64 * i)) & 0xFFFFFFFFFFFFFFFF)
+        lt |= eq & (words[:, i] < w)
+        eq &= words[:, i] == w
+    return lt
