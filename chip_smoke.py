@@ -74,7 +74,8 @@ Phases, each printing one line with its wall time:
      must be rejected; BUILDER_SHA256: the builder's copy circuit of
      tests/test_frontend.py::test_builder_e2e; setup seed 0 each); then the
      ARX chain at full width, arx_chain_circuit(ARX["num_vars"]) with 32-bit
-     words, 8-bit XOR chunks and rot 7 (BASELINE config 4's scale), its
+     words, 8-bit XOR chunks and rot 7 (BASELINE config 4's widths, at 2^18
+     rows), its
      shape checked, build, setup, preprocess, prove and verify with
      per-stage times, the prove's launches, tamper, one profiled prove and
      one with its host syncs counted by site; then rand_two_phase_circuit at
@@ -117,6 +118,21 @@ Phases, each printing one line with its wall time:
      The environment phase builds the native Keccak sponge
      (halo2_lasso_tpu_torch/csrc/host/keccak.c, the host C compiler) and
      times it; the run fails on any other sponge.
+ 15. multi-GPU sharding (halo2_lasso_tpu_torch/parallel/): on a mesh of
+     SHARDS virtual shards on the card (and on a mesh of the cards where
+     there are two or more; the line says which meshes ran), a round
+     message, a fold, a whole sumcheck, a coefficient sumcheck and an MSM
+     at 2^16 bit for bit against one device; then the proofs of phases 9
+     (nv = 16 Lasso-in-HyperPlonk, its pp), 5 (2^16 Lasso range) and 10
+     (the ARX chain) proved again under the virtual mesh, each byte-equal
+     to its unsharded proof, its launches counted as a path of its own
+     ("sharded_*") and K1 and K2 required to launch once a shard a split
+     round more than the unsharded prove (phase 9's also verified, and a
+     profiled prove of it: busy share, device times); the full-feature circuit at nv = 6 over the mesh
+     (dryrun_multichip), and in DRYRUN_PROCS processes of DRYRUN_SHARDS
+     shards on the card over gloo (scripts/dryrun_multiprocess.py, each
+     worker under its own time limit), its proof hashing to the JAX
+     package's (FULL_FEATURE_SHA256) in every process and on one device.
 The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
 nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
 the point, with identity lanes), and the field instances that phase 13 runs
@@ -136,7 +152,8 @@ and fail unless ec_add is the open's fold adds alone and ec_ladder twice
 that and one (on MultilinearIpa's, ec_add is nv).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, the two full-width paths of 10, 11, the five
-full-size paths of 12, the two of 13 and the one of 14) and read just after it; each path must
+full-size paths of 12, the two of 13, the one of 14 and the three sharded
+proves of 15) and read just after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
@@ -184,9 +201,11 @@ TWO_PHASE_SHA256 = "a36e9f29744a6f6938cca92eb53bd1e7408899781a8c2c81499c1bbb21ec
 TWO_PHASE_SMALL = {"circuit": "rand_two_phase_circuit", "num_vars": 3, "seeds": (103,), "setup_seed": 0}
 BUILDER_SHA256 = "5cb45859c055786dedda8a7d06b89282ec5ccd4632e73b3e58a03bed75bb4249"
 BUILDER_SMALL = {"circuit": "builder_copy_circuit", "num_vars": 3, "setup_seed": 0}
-# the ARX chain at BASELINE config 4's scale: 32-bit words, 8-bit XOR
-# chunks, rot 7 (arx_chain_circuit's defaults), 2^19 rows
-ARX = {"circuit": "arx_chain_circuit", "num_vars": 19, "setup_seed": 0}
+# the ARX chain at BASELINE config 4's widths: 32-bit words, 8-bit XOR
+# chunks, rot 7 (arx_chain_circuit's defaults), at 2^18 rows: config 4's 2^19
+# cut by one for the smoke's time since phase 15 proves it twice (the
+# kernel phase still holds the chain's programs and MSMs at 2^19)
+ARX = {"circuit": "arx_chain_circuit", "num_vars": 18, "setup_seed": 0}
 # HyperPlonk and Lasso over the secondary BN254 PCS: the nv = 3 vanilla
 # plonk proofs of tests/test_hyperplonk_pcs.py's seeds under each PCS and
 # the Lasso-over-Gemini proof of tests/test_lasso.py's shape, each hashing
@@ -259,6 +278,23 @@ SPONGE_MB = 64  # bytes absorbed to time the native sponge
 # K4 (csrc/mont_mul.cu: the elementwise kernel and its row sum) and the
 # entries that replaced its caller loops (csrc/mont_chain.cu)
 K4_FAMILY = ("mont_mul", "sum_reduce", "mont_pow", "prefix_products", "eq_xy")
+# phase 15: the proofs of phases 9, 5 and 10 again under a mesh of SHARDS
+# virtual shards on the card, each byte-equal to its unsharded proof, and the
+# multi-process dryrun (DRYRUN_PROCS processes of DRYRUN_SHARDS shards each,
+# gloo) of the full-feature circuit at FULL_FEATURE_NV, whose proof hashes to
+# the JAX package's (FULL_FEATURE_SHA256[nv]: rand_full_feature_circuit(nv),
+# seeds nv and 100 + nv, setup seed 0, on the CPU; tests/test_torch_distributed.py
+# and tests/test_torch_sharding_full_feature.py hold the port to nv = 5's)
+SHARDS = 4
+SHARDED_PATHS = {"sharded_lasso_hyperplonk": "lasso_hyperplonk", "sharded_lasso": "lasso", "sharded_arx": "arx"}
+DRYRUN_PROCS, DRYRUN_SHARDS, FULL_FEATURE_NV = 2, 2, 6
+FULL_FEATURE_SHA256 = {5: "ff6b46bcb0655ae34b71f34fc30bb15358fe0b49e74d3cece9cba043c4644977",
+                       6: "f14eb8172a76a4d9d809aa07d76b1c65b2e98d5359eb8fd7249b7d82cc7c65c9"}
+DRYRUN_TIMEOUT_S = 240  # each worker's, from its start
+# a sharded path is a prove alone: it launches what its unsharded path does
+# but ec_add, which runs in set-up (the fixed-base MSM's window tree)
+PATH_KERNELS.update({sharded: tuple(k for k in PATH_KERNELS[path] if k != "ec_add")
+                     for sharded, path in SHARDED_PATHS.items()})
 
 
 def stage(name, t0, msg=""):
@@ -341,8 +377,9 @@ def main() -> int:
 
     # 5. the Lasso slice
     launches = {}
-    run_path(launches, "lasso", "slice", "2^16 lookups range_table(16,16)",
-             lambda: lasso_proof(np, SLICE, "cuda", tamper=True))
+    slice_path = {}
+    slice_path["proof"], _ = run_path(launches, "lasso", "slice", "2^16 lookups range_table(16,16)",
+                                      lambda: lasso_proof(np, SLICE, "cuda", tamper=True, extra=slice_path))
 
     # 6. small HyperPlonk proof against the JAX package's golden bytes
     proof_gate(np, hyperplonk_proof, PLONK_SMALL, GOLDEN_SHA256, "plonk_small", "nv=3 vanilla")
@@ -358,8 +395,8 @@ def main() -> int:
     # 9. Lasso inside HyperPlonk: the small proof against the JAX package's
     # bytes, then the full-size circuit
     proof_gate(np, hyperplonk_proof, LASSO_PLONK_SMALL, LASSO_PLONK_SHA256, "lasso_plonk_small", "nv=3 Lasso lookups")
-    run_hyperplonk_path(torch, np, launches, "lasso_hyperplonk", "lasso_plonk",
-                        "nv=16 32-bit AND + 16-bit range Lasso lookups", LASSO_PLONK)
+    lasso_plonk_path = run_hyperplonk_path(torch, np, launches, "lasso_hyperplonk", "lasso_plonk",
+                                           "nv=16 32-bit AND + 16-bit range Lasso lookups", LASSO_PLONK)
 
     # 10. the circuit-builder frontend and multi-phase witnesses: the small
     # proofs against the JAX package's bytes, then the ARX chain and the
@@ -369,8 +406,8 @@ def main() -> int:
                TWO_PHASE_SHA256, "two_phase_small", "nv=3 two phases, cheating witness rejected")
     proof_gate(np, hyperplonk_proof, BUILDER_SMALL, BUILDER_SHA256, "builder_small", "builder copy circuit k=3")
     check_arx_shape(np, ARX)
-    run_hyperplonk_path(torch, np, launches, "arx", "arx",
-                        f"ARX chain k={ARX['num_vars']}, 32-bit words, 8-bit XOR chunks, rot 7", ARX)
+    arx_path = run_hyperplonk_path(torch, np, launches, "arx", "arx",
+                                   f"ARX chain k={ARX['num_vars']}, 32-bit words, 8-bit XOR chunks, rot 7", ARX)
     run_hyperplonk_path(torch, np, launches, "two_phase", "two_phase",
                         f"nv={TWO_PHASE['num_vars']} two phases", TWO_PHASE, cheat=True)
 
@@ -428,6 +465,13 @@ def main() -> int:
           f"{100 * path['profile']['busy_share']:.1f}% syncs {sum(path['sync_sites'].values())} bytes "
           f"{len(path['proof'])} | {smi}", flush=True)
     check_brakedown_encode(torch, np, path["pp"].pcs)
+
+    # 15. multi-GPU sharding: the sharded functions against one device's,
+    # then the proofs of phases 9, 5 and 10 under a mesh of SHARDS virtual
+    # shards (and of the real cards, where there are two or more), and the
+    # multi-process dryrun
+    run_sharded_phase(torch, np, launches, {"sharded_lasso_hyperplonk": lasso_plonk_path, "sharded_lasso": slice_path,
+                                            "sharded_arx": arx_path}, smi)
 
     for path, counts in launches.items():
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
@@ -514,6 +558,190 @@ def profile_path(torch, extra):
     print("  second prove under torch.profiler: " + json.dumps(prof), flush=True)
     sites = extra["sync_sites"] = sync_sites(torch, extra["prove"])
     print(f"  third prove, host syncs by site ({sum(sites.values())}): " + json.dumps(sites), flush=True)
+
+
+def run_sharded_phase(torch, np, launches, paths, smi):
+    """Phase 15. On each mesh (SHARDS virtual shards on the card, and every
+    card where there are two or more) the sharded functions against one
+    device's; then each earlier proof of `paths` (sharded path -> what its
+    unsharded path left) proved again under the virtual mesh, its launches
+    counted apart and its bytes equal to the unsharded proof's; then the
+    multi-process dryrun. Nothing is caught: a failing shard fails the run."""
+    from halo2_lasso_tpu_torch.parallel import sharding as sh
+    from halo2_lasso_tpu_torch.scripts import dryrun_multiprocess as dry
+
+    t0 = time.perf_counter()
+    meshes = [("%d virtual shards on cuda:0" % SHARDS, sh.Mesh([torch.device("cuda", 0)] * SHARDS))]
+    if torch.cuda.device_count() >= 2:
+        real = sh.make_mesh(1 << (torch.cuda.device_count().bit_length() - 1))  # a power of two of the cards
+        meshes.append((f"{real.size} cards " + ",".join(str(d) for d in real.devices), real))
+    for label, mesh in meshes:
+        check_sharded_functions(torch, np, mesh, paths["sharded_lasso_hyperplonk"]["pp"].pcs)
+    stage("sharded_functions", t0, "meshes: " + "; ".join(label for label, _ in meshes) + " | round, fold, "
+          "coefficient round, sumcheck and MSM at 2^16 bit-exact against one device")
+
+    mesh = meshes[0][1]
+    for path, extra in paths.items():
+        run_sharded_path(torch, launches, path, mesh, extra, full=path == "sharded_lasso_hyperplonk")
+
+    t0 = time.perf_counter()
+    dry.dryrun_multichip(SHARDS, mesh.devices, FULL_FEATURE_NV)
+    stage("dryrun_multichip", t0, f"full-feature nv={FULL_FEATURE_NV} over {SHARDS} virtual shards")
+
+    t0 = time.perf_counter()
+    results = dry.run(DRYRUN_PROCS, DRYRUN_SHARDS, FULL_FEATURE_NV, "cuda", DRYRUN_TIMEOUT_S)
+    pp, _, circuit = dry.full_feature(FULL_FEATURE_NV, torch.device("cuda", 0))
+    single, want = hashlib.sha256(dry.prove(pp, circuit)).hexdigest(), FULL_FEATURE_SHA256[FULL_FEATURE_NV]
+    if single != want or any(r["sha256"] != want for r in results):
+        raise SystemExit(f"dryrun proofs {[r['sha256'] for r in results]}, one device {single}, want {want}")
+    if any(r["msm"] != dry.msm_affine(*dry.msm_job(pp, FULL_FEATURE_NV)) for r in results):
+        raise SystemExit("the dryrun's MSM split over the processes differs from one device's")
+    stage("dryrun_multiprocess", t0, f"{DRYRUN_PROCS} processes x {DRYRUN_SHARDS} shards on one card (gloo), "
+          f"full-feature nv={FULL_FEATURE_NV}: {results[0]['bytes']} bytes sha256 {single[:16]} == JAX == one "
+          f"device, verified in each process, split MSM equal | {smi}")
+
+
+class ShardedRounds:
+    """While entered, counts the sumcheck rounds that ran split over a mesh
+    (``piop/sum_check.py``'s ``_Tables``): round messages by kind ("message":
+    one K1 launch a shard; "sums_of": the coefficient rounds) and, for each
+    split fold, its K2 launches a shard (one a FOLD_MAX_TABLES tables)."""
+
+    def __enter__(self):
+        from halo2_lasso_tpu_torch.piop import sum_check as SC
+        from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+        self.rounds, self.fold_launches = {"message": 0, "sums_of": 0}, 0
+        self._tables = SC._Tables
+        message, fold = SC._Tables.message, SC._Tables.fold
+        counter = self
+
+        def counted_message(tables, fn):
+            if tables.mesh is not None:
+                counter.rounds[fn.__name__] += 1
+            return message(tables, fn)
+
+        def counted_fold(tables, r):
+            if tables.mesh is not None:
+                counter.fold_launches += -(-len(tables.shards[0]) // mle.FOLD_MAX_TABLES)
+            return fold(tables, r)
+
+        self._saved = (message, fold)
+        SC._Tables.message, SC._Tables.fold = counted_message, counted_fold
+        return self
+
+    def __exit__(self, *exc):
+        self._tables.message, self._tables.fold = self._saved
+        return False
+
+
+def run_sharded_path(torch, launches, path, mesh, extra, full=False):
+    """An earlier main path's prove under `mesh`: counts reset just before
+    and read just after (kept in `launches[path]`), its proof equal to the
+    unsharded one's, K1 and K2 once a shard a split round more than the
+    unsharded prove; with `full`, the proof verified and one more prove
+    profiled under the mesh (its busy share and device times)."""
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.parallel import sharding as sh
+
+    t0 = time.perf_counter()
+    native.reset_counts()
+    F.norm_on_card = 0
+    with sh.use_mesh(mesh), ShardedRounds() as split:
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        proof = extra["prove"]()
+        torch.cuda.synchronize()
+        prove_ms = (time.perf_counter() - tp) * 1e3
+    launches[path] = counts = dict(native.counts)
+    if F.norm_on_card:
+        raise SystemExit(f"the {path} path ran the plain carry pass on the card {F.norm_on_card} times")
+    if proof != extra["proof"]:
+        raise SystemExit(f"the {path} proof differs from its unsharded proof")
+    if full:
+        extra["verify"](proof)
+    single = extra["prove_launches"]
+    want = {"sumcheck_round": single["sumcheck_round"] + (mesh.size - 1) * split.rounds["message"],
+            "fold_all": single["fold_all"] + (mesh.size - 1) * split.fold_launches}
+    if any(counts[k] != v for k, v in want.items()) or not split.rounds["message"]:
+        raise SystemExit(f"the {path} prove launched K1 {counts['sumcheck_round']} and K2 {counts['fold_all']} "
+                         f"times, want {want} ({split.rounds} split rounds, {mesh.size} shards)")
+    stage(path, t0, f"{len(proof)} bytes == unsharded{', verified' if full else ''}; prove {prove_ms:.1f}ms on "
+          f"{mesh.size} shards; K1 {counts['sumcheck_round']} (unsharded {single['sumcheck_round']}, "
+          f"{split.rounds['message']} split rounds x {mesh.size}), K2 {counts['fold_all']} (unsharded "
+          f"{single['fold_all']}), {split.rounds['sums_of']} split coefficient rounds")
+    print("  launches in sharded prove: " + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
+    print("  launches in unsharded prove: " + json.dumps({k: v for k, v in single.items() if v}), flush=True)
+    if full:
+        with sh.use_mesh(mesh):
+            prof = profile_prove(torch, extra["prove"])
+        print("  sharded prove under torch.profiler: " + json.dumps(prof), flush=True)
+
+
+def check_sharded_functions(torch, np, mesh, kzg_pp, k=16):
+    """At 2^k (2^16 on the card) on `mesh`, bit for bit against one device: a round message
+    (K1 a shard, combined), a fold (K2 a shard), a whole sumcheck and a
+    coefficient sumcheck under ``use_mesh``, and an MSM split over the mesh
+    (``msm_planes`` a shard) of the SRS's 2^k points. A small k rehearses it
+    on a mesh of CPU shards."""
+    from halo2_lasso_tpu_torch.expression import Expression
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
+    from halo2_lasso_tpu_torch.parallel import sharding as sh
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+    from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+    dev = mesh.first
+    rng = np.random.RandomState(15)
+
+    def rand(n):
+        return [int.from_bytes(rng.bytes(40), "little") % Fr.modulus for _ in range(n)]
+
+    polys = [Fr.encode(rand(1 << k), dev) for _ in range(3)]
+    y, chal, r = rand(k), rand(1), rand(1)[0]
+    expr = ((Expression.poly(0) + Expression.challenge(0)) * Expression.poly(1) * Expression.poly(2)
+            + Expression.challenge(0) * 3 + Expression.constant(5)) * Expression.eq_xy(0)
+    keys = SC._leaf_keys(expr, 3)
+    tables = polys + [mle.eq_xy(Fr, y, dev)]
+    program = SC.lower_expression(expr, keys)
+    chal_t = Fr.encode(chal, dev)
+    shards = [list(t) for t in zip(*(mesh.split(t) for t in tables))]
+    got = mesh.combine(Fr, [SC.round_message(Fr, t, program, chal_t.to(t[0].device), expr.degree) for t in shards])
+    if got != Fr.decode_ints(SC.round_message(Fr, tables, program, chal_t, expr.degree)):
+        raise SystemExit("the sharded round message differs from one device's")
+    folded = [mle.fold_all(Fr, t, r) for t in shards]
+    whole = mle.fold_all(Fr, tables, r)
+    if not all(torch.equal(mesh.gather([f[i] for f in folded]), whole[i]) for i in range(len(tables))):
+        raise SystemExit("the sharded fold differs from one device's")
+
+    def proofs(run):
+        out = []
+        for m in (mesh, None):
+            tw = Keccak256Transcript(Fr.modulus, base_modulus=FQ_MODULUS, curve_b=3)
+            if m is None:
+                res = run(tw)
+            else:
+                with sh.use_mesh(m):
+                    res = run(tw)
+            out.append((tw.into_proof(), res))
+        return out
+
+    vp = SC.VirtualPolynomial(expr, polys, chal, [y])
+    (p1, r1), (p2, r2) = proofs(lambda tw: SC.prove(Fr, k, vp, 0, tw))
+    if p1 != p2 or r1 != r2:
+        raise SystemExit("the sumcheck under the mesh differs from one device's")
+    terms = [(s, mle.eq_xy(Fr, rand(k), dev), p) for s, p in zip(rand(3), polys)]
+    (p1, r1), (p2, r2) = proofs(lambda tw: SC.prove_coeff_products(Fr, k, terms, 0, tw))
+    if p1 != p2 or r1[0] != r2[0] or [Fr.decode_ints(f) for f in r1[1]] != [Fr.decode_ints(f) for f in r2[1]]:
+        raise SystemExit("the coefficient sumcheck under the mesh differs from one device's")
+    points = kzg_pp.eqs[k]
+    scal = Fr.encode(rand(1 << k), dev)
+    split = MJ.host_batch_affine([sh.sharded_msm(mesh, points, scal)], FQ_MODULUS)
+    if split != MJ.host_batch_affine([MJ.msm(points, scal)], FQ_MODULUS):
+        raise SystemExit("the MSM split over the mesh differs from one device's")
+    torch.cuda.synchronize()
 
 
 def sponge_line(np):
@@ -903,7 +1131,8 @@ def lasso_proof(np, cfg, device, tamper=False, extra=None):
     """Setup, prove and verify one standalone Lasso proof over the PCS the
     config names; returns (proof bytes, stage records). With `tamper`, a
     proof with one flipped byte must fail. `extra`, a dict, receives the
-    prover's kernel launches and a second prove."""
+    prover's kernel launches, a second prove (returning its proof) and the
+    verifier."""
     from halo2_lasso_tpu_torch.lasso import prove, verify
     from halo2_lasso_tpu_torch.ops import native
     from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
@@ -926,7 +1155,12 @@ def lasso_proof(np, cfg, device, tamper=False, extra=None):
     before = dict(native.counts)
     prove(pp, table, indices, tw, pcs=pcs, device=device)
     if extra is not None:
-        extra.update(prove=lambda: prove(pp, table, indices, transcript(), pcs=pcs, device=device),
+        def prove_again():
+            t = transcript()
+            prove(pp, table, indices, t, pcs=pcs, device=device)
+            return t.into_proof()
+
+        extra.update(prove=prove_again, verify=lambda p: verify(vp, table, nv_m, transcript(p), pcs=pcs),
                      prove_launches={k: native.counts[k] - before[k] for k in before})
     proof = tw.into_proof()
     verify(vp, table, nv_m, transcript(proof), pcs=pcs)

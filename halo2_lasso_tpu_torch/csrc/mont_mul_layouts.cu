@@ -83,12 +83,16 @@ extern "C" int h2l_mont_mul_limbs_first(const void* a, const void* b, void* out,
 extern "C" int h2l_mont_mul_tiled(const void* a, const void* b, void* out, long long n,
                                   void* stream) {
   if (n <= 0) return 0;
-  static bool smem_set = false;  // the 64 KiB opt-in, once per process (one card)
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(mont_mul_tiled_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+  // the 64 KiB opt-in, once per process and card (an attribute of the current device)
+  static unsigned long long smem_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!(smem_set >> dev & 1)) {
+    err = cudaFuncSetAttribute(mont_mul_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    smem_set |= 1ull << dev;
   }
   long long blocks = (n + kTile - 1) / kTile;
   mont_mul_tiled_kernel<<<blocks, kTileThreads, kTileSmem, (cudaStream_t)stream>>>(

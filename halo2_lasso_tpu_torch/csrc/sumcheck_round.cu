@@ -196,18 +196,22 @@ round_kernel(const __grid_constant__ RoundParams p, uint32_t* partials, unsigned
 template <class P, int D>
 int launch(const RoundParams& p, int stack, int threads, int blocks, void* partials, void* ticket,
            void* out, cudaStream_t s) {
-  static bool optin = false;  // the shared-memory opt-in, once per process and instance (one card)
-  if (!optin) {
-    int dev = 0, most = 0;
+  // the shared-memory opt-in, once per process, instance and card (an attribute of the current device)
+  static unsigned long long optin = 0;
+  int dev = 0;
+  cudaError_t d = cudaGetDevice(&dev);
+  if (d != cudaSuccess) return (int)d;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!(optin >> dev & 1)) {
+    int most = 0;
     cudaFuncAttributes attr;
-    cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     cudaError_t e = cudaFuncGetAttributes(&attr, round_kernel<P, D>);
     if (e != cudaSuccess) return (int)e;
     e = cudaFuncSetAttribute(round_kernel<P, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most - (int)attr.sharedSizeBytes);
     if (e != cudaSuccess) return (int)e;
-    optin = true;
+    optin |= 1ull << dev;
   }
   const size_t smem = (size_t)stack * D * 32 * threads;
   round_kernel<P, D><<<blocks, threads, smem, s>>>(p, (uint32_t*)partials, (unsigned int*)ticket,

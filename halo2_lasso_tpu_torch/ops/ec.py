@@ -183,10 +183,9 @@ def ec_add(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
         raise ValueError("ec_add: coordinates must be (n, 8) tensors of one length")
     native.require_cuda("ec_add", *ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
-    rc = native.lib().h2l_ec_add(
-        spec.kernel_id, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n, native.stream()
+    native.launch(
+        "ec_add", ins[0].device, spec.kernel_id, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n,
     )
-    native.check(rc, "ec_add")
     native.count("ec_add", instance)
     return dict(zip(COORDS, outs))
 
@@ -257,11 +256,10 @@ def ec_ladder(p: Points, scalar, nbits: int, spec: FieldSpec = Fq) -> Points:
     outs = [torch.empty_like(ins[0]) for _ in COORDS]
     if n:
         words = np.ascontiguousarray(F.ints_to_u32([scalar if shared else 0])[0])
-        rc = native.lib().h2l_ec_ladder(
-            spec.kernel_id, *[t.data_ptr() for t in ins], None if shared else scalar.data_ptr(),
-            words.ctypes.data, nbits, *[t.data_ptr() for t in outs], n, native.stream(),
+        native.launch(
+            "ec_ladder", ins[0].device, spec.kernel_id, *[t.data_ptr() for t in ins],
+            None if shared else scalar.data_ptr(), words.ctypes.data, nbits, *[t.data_ptr() for t in outs], n,
         )
-        native.check(rc, "ec_ladder")
         native.count("ec_ladder", instance)
     return dict(zip(COORDS, outs))
 

@@ -357,11 +357,10 @@ def _ew(spec: FieldSpec, op: int, a: torch.Tensor, b: Optional[Operand] = None, 
             strides += (0, 0)
             vals.append(spec.to_mont_int(int(x) % spec.modulus).to_bytes(32, "little"))
     if outer * inner:
-        rc = native.lib().h2l_mont_mul(
-            spec.kernel_id, op, _PTRS3(*ptrs), _STRIDES6(*strides), b"".join(vals), out.data_ptr(), outer, inner,
-            native.stream(),
+        native.launch(
+            "mont_mul", device, spec.kernel_id, op, _PTRS3(*ptrs), _STRIDES6(*strides), b"".join(vals), out.data_ptr(),
+            outer, inner,
         )
-        native.check(rc, "mont_mul")
         native.counts["mont_mul"] += 1
     return out
 
@@ -494,10 +493,9 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     words, nbits = _exponent(exponent)
     out = torch.empty_like(a)
     if n:
-        rc = native.lib().h2l_mont_pow(
-            spec.kernel_id, a.data_ptr(), out.data_ptr(), n, words.ctypes.data, nbits, native.stream()
+        native.launch(
+            "mont_pow", a.device, spec.kernel_id, a.data_ptr(), out.data_ptr(), n, words.ctypes.data, nbits,
         )
-        native.check(rc, "mont_pow")
         native.counts["mont_pow"] += 1
     return out
 
@@ -513,10 +511,10 @@ def prefix_products(spec: FieldSpec, x: torch.Tensor, reverse: bool = False) -> 
     if n:
         nb = -(-n // SCAN_TILE)
         scratch = torch.empty((3 * nb + 2, LIMBS), dtype=torch.int32, device=x.device)
-        rc = native.lib().h2l_prefix_products(
-            spec.kernel_id, x.data_ptr(), out.data_ptr(), n, int(reverse), scratch.data_ptr(), native.stream()
+        native.launch(
+            "prefix_products", x.device, spec.kernel_id, x.data_ptr(), out.data_ptr(), n, int(reverse),
+            scratch.data_ptr(),
         )
-        native.check(rc, "prefix_products")
         native.counts["prefix_products"] += 1 if nb == 1 else 3
     return out
 
@@ -534,11 +532,10 @@ def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     if n:
         nb = -(-n // SCAN_TILE)
         scratch = torch.empty((3 * nb + 2, LIMBS), dtype=torch.int32, device=a.device)
-        rc = native.lib().h2l_batch_inv(
-            spec.kernel_id, a.data_ptr(), out.data_ptr(), n, scratch.data_ptr(), words.ctypes.data, nbits,
-            native.stream(),
+        native.launch(
+            "batch_inv", a.device, spec.kernel_id, a.data_ptr(), out.data_ptr(), n, scratch.data_ptr(),
+            words.ctypes.data, nbits,
         )
-        native.check(rc, "batch_inv")
         native.counts["prefix_products"] += 2 if nb == 1 else 3
         native.counts["mont_pow"] += 1
     return out
@@ -580,10 +577,9 @@ def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
     nb = max(1, min(-(-n // (4 * SUM_THREADS)), SUM_MAX_BLOCKS // m))
     partials = torch.empty((m * nb if nb > 1 else 0, LIMBS), dtype=torch.int32, device=a.device)
-    rc = native.lib().h2l_sum_reduce(
-        spec.kernel_id, t.data_ptr(), n, m, t.stride(0) // LIMBS, t.stride(1) // LIMBS, nb, partials.data_ptr(),
-        native.ticket("sum_reduce", a.device).data_ptr(), out.data_ptr(), native.stream(),
+    native.launch(
+        "sum_reduce", a.device, spec.kernel_id, t.data_ptr(), n, m, t.stride(0) // LIMBS, t.stride(1) // LIMBS, nb,
+        partials.data_ptr(), native.ticket("sum_reduce", a.device).data_ptr(), out.data_ptr(),
     )
-    native.check(rc, "sum_reduce")
     native.counts["sum_reduce"] += 1
     return out.reshape(cols + (LIMBS,))

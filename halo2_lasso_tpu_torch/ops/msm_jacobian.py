@@ -25,6 +25,10 @@ plain torch, for CPU tensors and as the kernel's oracle. The TPU's
 2^18-point slicing, index-scatter detour, whole-bucket add per level and
 bit-reversed slot storage are policies of that machine and are not carried
 over.
+
+Under a mesh (``parallel/sharding.py``) a BN254 G1 MSM of at least
+SHARD_MIN_POINTS points a shard is split over the shards: steps 1-3 run on
+each shard's points, and step 4 adds the shards' totals (``msm_many``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
+from halo2_lasso_tpu_torch.parallel import sharding
 
 
 def best_c(n: int) -> int:
@@ -62,7 +67,12 @@ def digits_all(scal: torch.Tensor, c: int, num_windows: int) -> torch.Tensor:
 
 def _pad_pow2(points: ec.Points, scal: torch.Tensor, base: FieldSpec):
     n = scal.shape[0]
-    target = max(2, 1 << (n - 1).bit_length())
+    return _pad(points, scal, base, max(2, 1 << (n - 1).bit_length()))
+
+
+def _pad(points: ec.Points, scal: torch.Tensor, base: FieldSpec, target: int):
+    """Identity points with zero scalars up to `target` rows."""
+    n = scal.shape[0]
     if target == n:
         return points, scal
     idp = ec.identity_point(target - n, scal.device, base)
@@ -151,12 +161,11 @@ def msm_level(
     device = dig.device
     out = [torch.empty((W * pairs, F.LIMBS), dtype=torch.int32, device=device) for _ in ec.COORDS]
     odig = torch.empty(W * pairs, dtype=torch.int32, device=device)
-    rc = native.lib().h2l_msm_level(
-        base.kernel_id, *[t.data_ptr() for t in coords[:3]], dig.data_ptr(), None if order is None else order.data_ptr(),
+    native.launch(
+        "msm_level", device, base.kernel_id, *[t.data_ptr() for t in coords[:3]], dig.data_ptr(),
+        None if order is None else order.data_ptr(),
         pairs, W, B, *[t.data_ptr() for t in coords[3:]], *[t.data_ptr() for t in out], odig.data_ptr(),
-        native.stream(),
     )
-    native.check(rc, "msm_level")
     native.count("msm_level", instance)
     return dict(zip(ec.COORDS, out)), odig
 
@@ -242,9 +251,8 @@ def bucket_planes(bucket: ec.Points, c: int, W: int, base: FieldSpec = Fq) -> ec
     if any(t.data_ptr() % 16 for t in coords):
         raise ValueError("plane_tree: coordinates must start on 16-byte boundaries")
     out = [torch.empty((c * W, F.LIMBS), dtype=torch.int32, device=coords[0].device) for _ in ec.COORDS]
-    rc = native.lib().h2l_plane_tree(base.kernel_id, *[t.data_ptr() for t in coords], c, W, *[t.data_ptr() for t in out],
-                                     native.stream())
-    native.check(rc, "plane_tree")
+    native.launch("plane_tree", coords[0].device, base.kernel_id, *[t.data_ptr() for t in coords], c, W,
+                  *[t.data_ptr() for t in out])
     native.count("plane_tree", instance)
     return dict(zip(ec.COORDS, out))
 
@@ -255,20 +263,57 @@ def msm(points: ec.Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
     return msm_many([(points, scalars_mont)], base, scalar)[0]
 
 
+# points a shard at least before an MSM is split over the active mesh (a
+# policy of the card's occupancy; the result is the same point either way)
+SHARD_MIN_POINTS = 4096
+
+
+def _job_mesh(n: int, base: FieldSpec):
+    """The active mesh where a BN254 G1 MSM of n points is split over it."""
+    mesh = sharding.active_mesh()
+    if mesh is None or base is not Fq or n < SHARD_MIN_POINTS * mesh.size:
+        return None
+    return mesh
+
+
 def msm_many(jobs: Sequence[Tuple[ec.Points, torch.Tensor]], base: FieldSpec = Fq,
-             scalar: FieldSpec = Fr) -> List[Tuple[int, int, int]]:
+             scalar: FieldSpec = Fr, mesh=None) -> List[Tuple[int, int, int]]:
     """Independent MSMs -> Jacobian canonical ints, with one read of the card
-    for all of them."""
-    planes = [msm_planes(points, scal, base, scalar) for points, scal in jobs]
+    for all of them. Under `mesh`, or under the active mesh for a BN254 G1
+    job of at least SHARD_MIN_POINTS points a shard, a job is split over the
+    mesh's shards (the port of sharding.py:298-322): ``msm_planes`` on each
+    shard's points and scalars, the shards' Jacobian totals added on the
+    host, across processes too. The planes of every job and shard come to
+    one device for that one read."""
+    planes, meshes = [], []  # planes: (job, plane sums, c, W) a job or a shard
+    for i, (points, scal) in enumerate(jobs):
+        m = mesh if mesh is not None else _job_mesh(scal.shape[0], base)
+        meshes.append(m)
+        if m is None:
+            planes.append((i, *msm_planes(points, scal, base, scalar)))
+            continue
+        n = scal.shape[0]
+        points, scal = _pad(points, scal, base, -(-n // m.size) * m.size)
+        parts = {k: m.split(v) for k, v in points.items()}
+        for j, s in enumerate(m.split(scal)):
+            planes.append((i, *msm_planes({k: parts[k][j] for k in ec.COORDS}, s, base, scalar)))
     if not planes:
         return []
-    flat = base.decode_ints(torch.cat([u[k] for u, _, _ in planes for k in ec.COORDS]))
-    out, at = [], 0
-    for _, c, W in planes:
+    first = planes[0][1]["x"].device
+    flat = base.decode_ints(torch.cat([u[k].to(first) for _, u, _, _ in planes for k in ec.COORDS]))
+    out, at = [(0, 0, 0)] * len(jobs), 0
+    for i, _, c, W in planes:
         cw = c * W
         xs, ys, zs = flat[at : at + cw], flat[at + cw : at + 2 * cw], flat[at + 2 * cw : at + 3 * cw]
         at += 3 * cw
-        out.append(finish_host(list(zip(xs, ys, zs)), c, W, base.modulus))
+        out[i] = host_jac_add(out[i], finish_host(list(zip(xs, ys, zs)), c, W, base.modulus), base.modulus)
+    across = [i for i, m in enumerate(meshes) if m is not None and m.world > 1]  # one mesh: given or active
+    if across:
+        everyone = meshes[across[0]].gather_ints([v for i in across for v in out[i]])
+        for j, i in enumerate(across):
+            out[i] = (0, 0, 0)
+            for vals in everyone:
+                out[i] = host_jac_add(out[i], tuple(vals[3 * j : 3 * j + 3]), base.modulus)
     return out
 
 

@@ -107,11 +107,11 @@ _tickets = {}
 
 
 def ticket(name: str, device: torch.device) -> torch.Tensor:
-    """The block counter of kernel `name` on this device and stream: at 0
-    between launches (the kernel's last block resets it)."""
-    key = (name, device.index, stream())
+    """The block counter of kernel `name` on this device and its current
+    stream: at 0 between launches (the kernel's last block resets it)."""
+    key = (name, _index(device), stream(device))
     if key not in _tickets:
-        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", key[1]))
     return _tickets[key]
 
 
@@ -189,10 +189,25 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
-def stream() -> int:
-    """The current device's current CUDA stream as a raw pointer (without
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as a raw pointer (without
     building a torch.cuda.Stream: a few microseconds less a launch)."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry point ``h2l_<entry>`` with `args` and the current
+    stream of `device`, that device current while it launches (so a kernel
+    given another card's tensors runs on that card, whichever is current),
+    and raise if the launch failed."""
+    with torch.cuda.device(_index(device)):
+        rc = getattr(lib(), "h2l_" + entry)(*args, stream(device))
+    check(rc, entry)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

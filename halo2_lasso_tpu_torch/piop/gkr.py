@@ -10,6 +10,14 @@ skips all p-side work while writing the same transcript bytes.
 
 Every layer stays on the device; the reference's host-built small layers
 (ops/host_field.py) are a TPU latency policy and are not carried over.
+
+Under a mesh (``parallel/sharding.py``) a layer whose quadrants hold at
+least two rows a shard is split over the mesh's shards (the port of
+_place_sharded, gkr.py:166-176): its products run on each shard, and each
+half of the next layer, which spans half the shards, is split over all of
+them again. Smaller layers are gathered to the first device. With no host
+tail, every layer large enough to split runs split (the reference caps its
+host tail below 2D rows for the same reason, :206-217).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from halo2_lasso_tpu_torch.errors import Halo2LassoError
 from halo2_lasso_tpu_torch.expression import Expression, Query
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
+from halo2_lasso_tpu_torch.parallel import sharding
 from halo2_lasso_tpu_torch.piop import sum_check
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 
@@ -85,20 +94,62 @@ def _layer_down_claim(evals: Sequence[int], mu: int, p: int) -> Tuple[List[int],
     return p_xs, q_xs
 
 
-def _halves(st: torch.Tensor):
-    """(b, m, 8) -> low and high halves on the highest variable."""
+def _halves(st: torch.Tensor, mesh=None):
+    """(b, m, 8) -> low and high halves on the highest variable, each split
+    over the mesh where it stays split (``_place``)."""
     mid = st.shape[1] // 2
-    return st[:, :mid], st[:, mid:]
+    return _place(st[:, :mid], mesh), _place(st[:, mid:], mesh)
 
 
-def _layer_up(layer: Tuple[torch.Tensor, ...], pure: bool):
-    """One layer step over stacked (b, m, 8) quadrants."""
+def _place(st: torch.Tensor, mesh):
+    """A stacked (b, m, 8) quadrant, split over the mesh's shards on axis 1
+    while each shard holds at least one pair of rows (the port of
+    _place_sharded, gkr.py:166-176)."""
+    if mesh is None or not mesh.holds(st.shape[1]):
+        return st
+    return sharding.Shards(mesh.split(st, 1))
+
+
+def _width(st, mesh) -> int:
+    """m of a (b, m, 8) quadrant, whole or split."""
+    return st[0].shape[1] * mesh.size if isinstance(st, sharding.Shards) else st.shape[1]
+
+
+def _products(layer, pure: bool):
+    """The next layer's stacks (p', q'), or (q',) for a pure grand product,
+    from one layer's quadrants on one device."""
     if pure:
         ql, qr = layer
-        return _halves(F.mont_mul(Fr, ql, qr))
+        return (F.mont_mul(Fr, ql, qr),)
     pl, pr, ql, qr = layer
-    p_new = F.mul_add(Fr, pl, qr, F.mont_mul(Fr, pr, ql))
-    return (*_halves(p_new), *_halves(F.mont_mul(Fr, ql, qr)))
+    return F.mul_add(Fr, pl, qr, F.mont_mul(Fr, pr, ql)), F.mont_mul(Fr, ql, qr)
+
+
+def _layer_up(layer: Tuple, pure: bool, mesh):
+    """One layer step over stacked (b, m, 8) quadrants, on each shard where
+    they are split. A product's halves on the highest variable each span
+    half the shards: each is split over all of them again
+    (``Mesh.halves``), or gathered to the first device where it would not
+    stay split."""
+    if not isinstance(layer[0], sharding.Shards):
+        return tuple(h for st in _products(layer, pure) for h in _halves(st, mesh))
+    out = []
+    for parts in zip(*[_products(quads, pure) for quads in zip(*layer)]):
+        if mesh.holds(parts[0].shape[1] * mesh.size // 2):
+            out.extend(sharding.Shards(h) for h in mesh.halves(parts, 1))
+        else:
+            out.extend(_halves(mesh.gather(parts, 1)))
+    return tuple(out)
+
+
+def _flat(layer, num_batching: int) -> List:
+    """A layer's tables in wire order, its quadrants a batch element: (m, 8)
+    views of the stacks, or of their shards."""
+    return [
+        sharding.Shards(part[i] for part in st) if isinstance(st, sharding.Shards) else st[i]
+        for i in range(num_batching)
+        for st in layer
+    ]
 
 
 def prove_fractional_sum_check(
@@ -117,16 +168,14 @@ def prove_fractional_sum_check(
     pure = all(x is None for x in ps)
     assert pure or all(x is not None for x in ps), "mixed zero/nonzero ps unsupported"
     nq = 2 if pure else 4  # quadrants per batch element
+    mesh = sharding.active_mesh()
 
-    layer = _halves(torch.stack(list(qs)))
+    layer = _halves(torch.stack(list(qs)), mesh)
     if not pure:
-        layer = _halves(torch.stack(list(ps))) + layer
+        layer = _halves(torch.stack(list(ps)), mesh) + layer
     layers = [layer]
-    while layers[-1][0].shape[1] > 1:
-        layers.append(_layer_up(layers[-1], pure))
-
-    def flat(st):
-        return [st[j][i] for i in range(num_batching) for j in range(nq)]
+    while _width(layers[-1][0], mesh) > 1:
+        layers.append(_layer_up(layers[-1], pure, mesh))
 
     # top-layer claims
     top = Fr.decode_ints(torch.stack([st[:, 0] for st in layers[-1]], dim=1).reshape(-1, F.LIMBS))
@@ -148,9 +197,9 @@ def prove_fractional_sum_check(
     claimed_p_ys, claimed_q_ys = p_0s, q_0s
     y: List[int] = []
     for layer_idx in range(len(layers) - 1, -1, -1):
-        polys = flat(layers[layer_idx])
+        nv = _width(layers[layer_idx][0], mesh).bit_length() - 1
+        polys = _flat(layers[layer_idx], num_batching)
         layers[layer_idx] = None
-        nv = polys[0].shape[0].bit_length() - 1
         if nv == 0:
             x = []
             evals = Fr.decode_ints(torch.cat(polys))

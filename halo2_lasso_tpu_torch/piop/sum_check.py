@@ -20,6 +20,14 @@ ops. The TPU policies of the reference
 (host tail rounds, PALLAS_MIN, the 40-leaf cap, term chunking) are dropped:
 every round of every size goes through the kernel and the proof bytes are
 unchanged.
+
+Under a mesh (``parallel/sharding.py``'s ``use_mesh``) the leaf tables are
+built whole and split by their high index bits over the mesh's shards;
+while each shard holds at least one pair of rows, a round launches the
+kernel once a shard on its own rows and the partials are added exactly, and
+a fold binds X_0 on each shard. Below that the tables are gathered to the
+mesh's first device and the rounds go on there. The coefficient prover
+splits the same way. The bytes do not change.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
+from halo2_lasso_tpu_torch.parallel import sharding
 from halo2_lasso_tpu_torch.poly import multilinear as mle
 from halo2_lasso_tpu_torch.poly.bh import BooleanHypercube
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
@@ -277,13 +286,12 @@ def round_message(
     out = torch.empty((degree, F.LIMBS), dtype=torch.int32, device=device)
     ops, consts = program.kernel_args(spec)
     leaves = (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables])
-    rc = native.lib().h2l_sumcheck_round(
-        spec.kernel_id, ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops), consts.ctypes.data,
-        len(program.consts), None if challenges is None else challenges.data_ptr(), h, degree,
+    native.launch(
+        "sumcheck_round", device, spec.kernel_id, ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops),
+        consts.ctypes.data, len(program.consts), None if challenges is None else challenges.data_ptr(), h, degree,
         program.max_stack, threads, blocks, partials.data_ptr(), native.ticket("sumcheck_round", device).data_ptr(),
-        out.data_ptr(), native.stream(),
+        out.data_ptr(),
     )
-    native.check(rc, "sumcheck_round")
     native.count("sumcheck_round", "fq" if spec.kernel_id == 1 else "")
     return out
 
@@ -336,7 +344,11 @@ def _leaf_table(spec: FieldSpec, key, vp: VirtualPolynomial, num_vars: int, devi
     n = 1 << num_vars
     if kind == "poly":
         poly = vp.polys[key[1]]
-        return mle.rotate_evals(spec, poly, key[2]) if key[2] else poly
+        if not key[2]:
+            return poly
+        if isinstance(poly, sharding.Shards):
+            raise SumcheckError("a rotated query of a table already split over the mesh")
+        return mle.rotate_evals(spec, poly, key[2])
     if kind == "eq":
         return mle.eq_xy(spec, vp.ys[key[1]], device)
     if kind == "identity":
@@ -363,26 +375,67 @@ def prove(
     degree = expression.degree
     p = spec.modulus
     assert num_vars > 0 and expression.max_used_rotation_distance() <= num_vars
-    device = virtual_poly.polys[0].device
+    mesh = sharding.active_mesh()
+    first = virtual_poly.polys[0]
+    device = first[0].device if isinstance(first, sharding.Shards) else first.device
     keys = _leaf_keys(expression, len(virtual_poly.polys))
-    tables = [_leaf_table(spec, k, virtual_poly, num_vars, device) for k in keys]
+    tables = _Tables(spec, [_leaf_table(spec, k, virtual_poly, num_vars, device) for k in keys], num_vars, mesh)
     program = lower_expression(expression, keys)
     chal = spec.encode(virtual_poly.challenges, device) if virtual_poly.challenges else None
+
+    def message(tabs: List[torch.Tensor]) -> torch.Tensor:
+        return round_message(spec, tabs, program, None if chal is None else chal.to(tabs[0].device), degree)
 
     challenges: List[int] = []
     current_sum = sum_ % p
     points = list(range(degree + 1))
     weights = barycentric_weights(p, points)
     for _ in range(num_vars):
-        msg_tail = spec.decode_ints(round_message(spec, tables, program, chal, degree))
+        msg_tail = tables.message(message)
         evals = [(current_sum - msg_tail[0]) % p] + msg_tail
         transcript.write_field_elements(evals)
         r = transcript.squeeze_challenge()
         challenges.append(r)
         current_sum = barycentric_interpolate(p, weights, points, evals, r)
-        tables = mle.fold_all(spec, tables, r)
+        tables.fold(r)
     n_polys = len(virtual_poly.polys)
-    return challenges, spec.decode_ints(torch.cat([t[:1] for t in tables[:n_polys]]))
+    return challenges, spec.decode_ints(torch.cat([t[:1] for t in tables.whole()[:n_polys]]))
+
+
+class _Tables:
+    """A sumcheck's tables: whole on one device, or under a mesh split over
+    its shards while each shard holds at least one pair of rows (a table may
+    come already split, ``sharding.Shards``). A round message is each
+    shard's (one kernel launch a shard) combined exactly; a fold binds X_0
+    on each shard (``fold_all``, no exchange); when a shard would hold a
+    single row the tables are gathered to the mesh's first device and the
+    rounds go on there."""
+
+    def __init__(self, spec: FieldSpec, tables: Sequence, num_vars: int, mesh):
+        self.spec = spec
+        self.mesh = mesh if mesh is not None and mesh.holds(1 << num_vars) else None
+        if self.mesh is None:
+            if any(isinstance(t, sharding.Shards) for t in tables):
+                raise SumcheckError("tables split over a mesh that is not active")
+            self.shards = [list(tables)]
+        else:
+            split = [t if isinstance(t, sharding.Shards) else self.mesh.split(t) for t in tables]
+            self.shards = [list(s) for s in zip(*split)]
+
+    def message(self, fn) -> List[int]:
+        outs = [fn(tabs) for tabs in self.shards]
+        return self.spec.decode_ints(outs[0]) if self.mesh is None else self.mesh.combine(self.spec, outs)
+
+    def fold(self, r: int) -> None:
+        self.shards = [mle.fold_all(self.spec, tabs, r) for tabs in self.shards]
+        if self.mesh is not None and self.shards[0][0].shape[0] < 2:
+            whole = self.mesh.gather([torch.stack(tabs) for tabs in self.shards], 1)
+            self.shards, self.mesh = [list(whole.unbind(0))], None
+
+    def whole(self) -> List[torch.Tensor]:
+        if self.mesh is not None:
+            raise SumcheckError("the tables are still split over the mesh")
+        return self.shards[0]
 
 
 # ---------------------------------------------------------------------------
@@ -403,18 +456,23 @@ def prove_coeff_products(
     poly). Returns (challenges, final folded polys, each (1, 8))."""
     p = spec.modulus
     T = len(terms)
-    tables = [t[1] for t in terms] + [t[2] for t in terms]
+    tables = _Tables(spec, [t[1] for t in terms] + [t[2] for t in terms], num_vars, sharding.active_mesh())
     scalars = [t[0] % p for t in terms]
-    challenges: List[int] = []
-    current_sum = sum_ % p
-    for _ in range(num_vars):
-        st = torch.stack(tables)  # (2T, n, 8): eq tables, then polys
+
+    def sums_of(tabs: List[torch.Tensor]) -> torch.Tensor:
+        """(2T, 8): the c0 and c2 column sums of each term over these rows."""
+        st = torch.stack(tabs)  # (2T, n, 8): eq tables, then polys
         lo = st[:, 0::2]
         diff = F.sub(spec, st[:, 1::2], lo)  # (2T, h, 8), the strided halves read in place
         prods = torch.empty((2 * T,) + lo.shape[1:], dtype=torch.int32, device=st.device)
         F.mont_mul(spec, lo[:T], lo[T:], out=prods[:T])  # c0 terms: e0 * p0
         F.mont_mul(spec, diff[:T], diff[T:], out=prods[T:])  # c2 terms: (e1 - e0)(p1 - p0)
-        sums = spec.decode_ints(F.sum_reduce(spec, prods.transpose(0, 1)))
+        return F.sum_reduce(spec, prods.transpose(0, 1))
+
+    challenges: List[int] = []
+    current_sum = sum_ % p
+    for _ in range(num_vars):
+        sums = tables.message(sums_of)
         c0 = sum(s * v for s, v in zip(scalars, sums[:T])) % p
         c2 = sum(s * v for s, v in zip(scalars, sums[T:])) % p
         c1 = (current_sum - 2 * c0 - c2) % p
@@ -422,8 +480,8 @@ def prove_coeff_products(
         r = transcript.squeeze_challenge()
         challenges.append(r)
         current_sum = (c0 + c1 * r + c2 * r * r) % p
-        tables = mle.fold_all(spec, tables, r)
-    return challenges, tables[T:]
+        tables.fold(r)
+    return challenges, tables.whole()[T:]
 
 
 def verify_coeff(

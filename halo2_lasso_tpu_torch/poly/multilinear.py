@@ -84,11 +84,10 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
     for g in range(0, len(tables), FOLD_MAX_TABLES):
         ins = tables[g : g + FOLD_MAX_TABLES]
         ins_p = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
-        rc = native.lib().h2l_fold_all(
-            spec.kernel_id, ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS, len(ins), h, h if last else 1,
-            x_host, x_dev, native.stream(),
+        native.launch(
+            "fold_all", tables[0].device, spec.kernel_id, ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS,
+            len(ins), h, h if last else 1, x_host, x_dev,
         )
-        native.check(rc, "fold_all")
         native.count("fold_all", "fq" if spec.kernel_id == 1 else "")
     return list(out.unbind(0))
 
@@ -153,12 +152,10 @@ def fix_var_chain(spec: FieldSpec, evals: torch.Tensor, point, last: bool, quoti
     out = torch.empty((n >> j, F.LIMBS), dtype=torch.int32, device=device)
     mid = torch.empty((min(n, 1 << TAIL_BITS), F.LIMBS), dtype=torch.int32, device=device)
     quot = torch.empty((n - 1, F.LIMBS), dtype=torch.int32, device=device) if quotients else None
-    rc = native.lib().h2l_fix_var(
-        spec.kernel_id, evals.data_ptr(), n, j, int(last), x_host, x_dev, mid.data_ptr(),
+    native.launch(
+        "fix_var", device, spec.kernel_id, evals.data_ptr(), n, j, int(last), x_host, x_dev, mid.data_ptr(),
         None if quot is None else quot.data_ptr(), out.data_ptr(), native.ticket("fix_var", device).data_ptr(),
-        native.stream(),
     )
-    native.check(rc, "fix_var")
     native.counts["fix_var"] += 1
     return out, quot
 
@@ -206,8 +203,7 @@ def eq_xy(spec: FieldSpec, y, device=None) -> torch.Tensor:
         native.require_cuda("eq_xy", y)
         y_host, y_dev = None, y.data_ptr()
     out = torch.empty((1 << k, F.LIMBS), dtype=torch.int32, device=device)
-    rc = native.lib().h2l_eq_xy(spec.kernel_id, y_host, y_dev, k, out.data_ptr(), native.stream())
-    native.check(rc, "eq_xy")
+    native.launch("eq_xy", out.device, spec.kernel_id, y_host, y_dev, k, out.data_ptr())
     native.counts["eq_xy"] += 1
     return out
 

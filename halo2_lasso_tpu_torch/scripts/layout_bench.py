@@ -52,11 +52,10 @@ def mont_mul_tiled_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mont_mul_limbs_first_plain(a.reshape(F.LIMBS, -1), b.reshape(F.LIMBS, -1)).reshape(a.shape)
 
 
-def _launch(name: str, fn: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     native.require_cuda(name, a, b)
     out = torch.empty_like(a)
-    rc = getattr(native.lib(), fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // F.LIMBS, native.stream())
-    native.check(rc, name)
+    native.launch(name, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // F.LIMBS)
     native.counts[name] += 1
     return out
 
@@ -69,7 +68,7 @@ def mont_mul_limbs_first(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mont_mul_limbs_first: want two (8, n) tensors, got {tuple(a.shape)} and {tuple(b.shape)}")
     if a.device.type == "cpu":
         return mont_mul_limbs_first_plain(a, b)
-    return _launch("mont_mul_limbs_first", "h2l_mont_mul_limbs_first", a, b)
+    return _launch("mont_mul_limbs_first", a, b)
 
 
 def mont_mul_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -80,7 +79,7 @@ def mont_mul_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mont_mul_tiled: want two (8, n/128, 128) tensors, got {tuple(a.shape)} and {tuple(b.shape)}")
     if a.device.type == "cpu":
         return mont_mul_tiled_plain(a, b)
-    return _launch("mont_mul_tiled", "h2l_mont_mul_tiled", a, b)
+    return _launch("mont_mul_tiled", a, b)
 
 
 def rand_rows(rng: np.random.RandomState, n: int, device, edges=()) -> torch.Tensor:

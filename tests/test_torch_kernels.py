@@ -504,3 +504,55 @@ def test_ladder_and_tree_raise_for_a_field_without_instance(cuda):
     bucket = ec.identity_point(3 << 3, cuda, spec)
     with pytest.raises(ValueError):
         MJ.bucket_planes(bucket, 3, 3, spec)
+
+
+# sharding: a kernel launches on the card of the tensors it is given, and a
+# sharded proof on the card is the unsharded one
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: launches on a card that is not current")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_the_card_of_their_tensors(two_cards):
+    """K1, K2 and msm_planes given cuda:1 tensors while cuda:0 is current
+    launch on cuda:1 (its stream, its block counter) and match the plain
+    version; cuda:0 stays current."""
+    first, second = two_cards
+    expr, n_polys = _degree_expr(3)
+    keys = sc._leaf_keys(expr, n_polys)
+    prog = sc.lower_expression(expr, keys)
+    cpu_tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 12)) for _ in keys]
+    chals = Fr.encode(rand_ints(Fr.modulus, 3))
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, FQ_MODULUS, 1 << 10)
+    pts = {k: Fq.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    scal = Fr.encode(rand_ints(Fr.modulus, 1 << 10))
+    with torch.cuda.device(first):
+        tables = [t.to(second) for t in cpu_tables]
+        msg, n1 = launches(lambda: sc.round_message(Fr, tables, prog, chals.to(second), expr.degree), "sumcheck_round")
+        folded, n2 = launches(lambda: mle.fold_all(Fr, tables, 12345), "fold_all")
+        (planes, c, W), n3 = launches(lambda: MJ.msm_planes({k: v.to(second) for k, v in pts.items()},
+                                                            scal.to(second)), "plane_tree")
+        torch.cuda.synchronize(second)
+        assert torch.cuda.current_device() == first.index
+    assert (n1, n2, n3) == ((1,), (1,), (1,))
+    assert msg.device == second and all(t.device == second for t in folded) and planes["x"].device == second
+    assert torch.equal(msg.cpu(), sc.round_message_plain(Fr, cpu_tables, prog, chals, expr.degree))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(folded, mle.fold_all(Fr, cpu_tables, 12345)))
+    want, wc, wW = MJ.msm_planes(pts, scal)
+    assert (c, W) == (wc, wW) and all(torch.equal(planes[k].cpu(), want[k]) for k in ec.COORDS)
+
+
+def test_small_proofs_under_a_mesh_of_virtual_shards_on_card(cuda):
+    """The nv = 3 Lasso-in-HyperPlonk and the small Lasso proofs under a
+    mesh of 4 virtual shards on the card hash as the unsharded ones."""
+    from halo2_lasso_tpu_torch.parallel import sharding as sh
+
+    with sh.use_mesh(sh.Mesh([cuda] * 4)):
+        plonk, _ = chip_smoke.hyperplonk_proof(np, chip_smoke.LASSO_PLONK_SMALL, cuda)
+        small, _ = chip_smoke.lasso_proof(np, chip_smoke.SMALL, cuda)
+    assert hashlib.sha256(plonk).hexdigest() == chip_smoke.LASSO_PLONK_SHA256
+    assert hashlib.sha256(small).hexdigest() == chip_smoke.SMALL_PROOF_SHA256
