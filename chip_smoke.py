@@ -101,7 +101,8 @@ Phases, each printing one line with its wall time:
      over BN254 Fq (seeds 3, 103, setup seed 0) under MultilinearIpaGrumpkin
      and MultilinearHyraxGrumpkin on the card and the CPU, hashing to the
      JAX package's proofs (PCS_PLONK_SHA256), then phase 7's circuit over
-     BN254 Fq at nv = 16 under each (setup with grumpkin's hash_to_curve
+     BN254 Fq at nv = 14 (SECONDARY_NUM_VARS; nv = 16 before phase 16, for
+     the smoke's time) under each (setup with grumpkin's hash_to_curve
      timed apart, preprocess, prove, verify, stage times, launches, tamper,
      one profiled and one sync-counted prove); each path must launch the
      Fq instances of sumcheck_round and fold_all and the grumpkin instances
@@ -133,6 +134,18 @@ Phases, each printing one line with its wall time:
      shards on the card over gloo (scripts/dryrun_multiprocess.py, each
      worker under its own time limit), its proof hashing to the JAX
      package's (FULL_FEATURE_SHA256) in every process and on one device.
+ 16. K1 past its compiled limits, parameter files and the comparison MSM
+     engines (run_support_phase): a GKR batch of 100 grand products at
+     nv = 16, whose round program (201 leaves) is cut into chunks of whole
+     terms, K1 launched chunks x rounds, each chunk's program bit-exact
+     against round_message_plain, its nv = 6 proof hashing to the JAX
+     package's (SPLIT_SHA256); phase 7's pp/vp and phase 5's Lasso set-up
+     saved, loaded back onto the card and proved again, byte-equal, and
+     phase 6's golden circuit from reloaded params; one 2^16 MSM on
+     bench.py:100's inputs through the production MSM, msm_affine and the
+     scan MSM, and an nv = 16 open's quotient MSMs with and without the
+     segmented grouping (SEG_LANES), the points equal, with their launches
+     and device ms from a fresh process.
 The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
 nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
 the point, with identity lanes), and the field instances that phase 13 runs
@@ -152,13 +165,15 @@ and fail unless ec_add is the open's fold adds alone and ec_ladder twice
 that and one (on MultilinearIpa's, ec_add is nv).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, the two full-width paths of 10, 11, the five
-full-size paths of 12, the two of 13, the one of 14 and the three sharded
-proves of 15) and read just after it; each path must
+full-size paths of 12, the two of 13, the one of 14, the three sharded
+proves of 15 and the eight paths of 16) and read just after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
-tensor fails the run. The profiled proves (the full-size HyperPlonk paths
-and Lasso over Gemini) also count their host syncs by the port function
+tensor fails the run. A profiled prove fails the run unless the profiler
+records each hand kernel's launches as the prove counted them (a session
+that lost a record is repeated). The profiled proves (the full-size
+HyperPlonk paths and Lasso over Gemini) also count their host syncs by the port function
 that made them (a third prove, under torch.cuda.set_sync_debug_mode("warn")).
 
 The last lines are a JSON object with every kernel's and instance's numbers, the
@@ -215,9 +230,10 @@ ARX = {"circuit": "arx_chain_circuit", "num_vars": 18, "setup_seed": 0}
 SECONDARY_PCS = ("Gemini", "Zeromorph", "MultilinearIpa", "MultilinearHyrax")
 # the smoke's time budget: phase 12's BN254 Hyrax path runs at a smaller nv
 # since phase 13, and its BN254 IPA path (its set-up's hash_to_curve of
-# 2^nv + 1 generators) since phase 14; their grumpkin twins keep nv = 16 and
-# the same launch pattern
-SECONDARY_NUM_VARS = {"MultilinearHyrax": 14, "MultilinearIpa": 14}
+# 2^nv + 1 generators) since phase 14; their grumpkin twins of phase 13
+# since phase 16, with the same launch pattern
+SECONDARY_NUM_VARS = {"MultilinearHyrax": 14, "MultilinearIpa": 14, "MultilinearIpaGrumpkin": 14,
+                      "MultilinearHyraxGrumpkin": 14}
 PCS_PLONK_SMALL = {"circuit": "rand_vanilla_plonk_circuit", "num_vars": 3, "seeds": (3, 103), "setup_seed": 0}
 PCS_PLONK_SHA256 = {
     "Gemini": "7cb8ccdce443cd36147e7c8b0eb2a151bc749bbd7b7851396ae5658daae7085e",
@@ -269,6 +285,17 @@ PATH_KERNELS = {
     # opens' row combinations are K4 and its row sum
     "plonk_MultilinearBrakedown": ("mont_mul", "sum_reduce", "fold_all", "sumcheck_round", "fix_var", "eq_xy",
                                    "mont_pow", "prefix_products"),
+    # phase 16: the split GKR batch (its layers' products, eq tables, K1 a
+    # chunk and the chunks' sums); the proves from reloaded params (a prove
+    # alone: no set-up window tree); the MSM engines and the quotient MSMs
+    "split_gkr": ("sumcheck_round", "fold_all", "mont_mul", "eq_xy", "sum_reduce"),
+    "files_plonk": tuple(k for k in HYPERPLONK_KERNELS if k != "ec_add"),
+    "files_lasso": tuple(k for k in PROOF_KERNELS if k != "ec_add"),
+    "msm_msm": ("msm_level", "plane_tree"),
+    "msm_affine": ("mont_mul", "prefix_products", "mont_pow", "ec_add"),
+    "msm_scan": ("ec_add", "mont_mul"),
+    "msm_quotients": ("msm_level", "plane_tree"),
+    "msm_quotients_grouped": ("msm_level", "plane_tree"),
 }
 # phase 14: HyperPlonk over Brakedown, phase 7's circuit at nv = 16, and the
 # rows of its code encoded on the card against the CPU
@@ -291,6 +318,16 @@ DRYRUN_PROCS, DRYRUN_SHARDS, FULL_FEATURE_NV = 2, 2, 6
 FULL_FEATURE_SHA256 = {5: "ff6b46bcb0655ae34b71f34fc30bb15358fe0b49e74d3cece9cba043c4644977",
                        6: "f14eb8172a76a4d9d809aa07d76b1c65b2e98d5359eb8fd7249b7d82cc7c65c9"}
 DRYRUN_TIMEOUT_S = 240  # each worker's, from its start
+# phase 16: a GKR batch of SPLIT_GKR["products"] pure grand products, whose
+# round program (2 leaves a product and the eq table) passes the round
+# kernel's limits and is split into chunks of whole terms; its proof at nv = 6
+# hashes to the JAX package's (SPLIT_SHA256, tests/test_torch_round_split.py)
+SPLIT_GKR = {"products": 100, "num_vars": 16, "seed": 11}
+SPLIT_SHA256 = "6d8566f486c9b7146ce09500a6d02e95871b97705aca31e19e5df0aaab7ed4ec"
+# the lane budget of phase 16's grouped quotient MSMs
+# (HALO2_LASSO_TPU_MSM_GROUP_LANES): the nv = 16 open's 16 MSMs in three
+# segmented pipelines (2^15 and 2^14; 2^13 .. 2^5; the rest)
+SEG_LANES = 1 << 21
 # a sharded path is a prove alone: it launches what its unsharded path does
 # but ec_add, which runs in set-up (the fixed-base MSM's window tree)
 PATH_KERNELS.update({sharded: tuple(k for k in PATH_KERNELS[path] if k != "ec_add")
@@ -377,7 +414,7 @@ def main() -> int:
 
     # 5. the Lasso slice
     launches = {}
-    slice_path = {}
+    slice_path = {"cfg": SLICE}
     slice_path["proof"], _ = run_path(launches, "lasso", "slice", "2^16 lookups range_table(16,16)",
                                       lambda: lasso_proof(np, SLICE, "cuda", tamper=True, extra=slice_path))
 
@@ -385,8 +422,9 @@ def main() -> int:
     proof_gate(np, hyperplonk_proof, PLONK_SMALL, GOLDEN_SHA256, "plonk_small", "nv=3 vanilla")
 
     # 7. HyperPlonk at full size
-    path = run_hyperplonk_path(torch, np, launches, "hyperplonk", "plonk", "nv=16 vanilla plonk with lookup", PLONK)
-    sponge_ab(torch, path)
+    plonk_path = run_hyperplonk_path(torch, np, launches, "hyperplonk", "plonk", "nv=16 vanilla plonk with lookup",
+                                     PLONK)
+    sponge_ab(torch, plonk_path)
 
     # 8. two-operand Lasso at 2^16
     run_path(launches, "lasso_and", "lasso_and", "2^16 lookups and_table(32,8)",
@@ -446,8 +484,10 @@ def main() -> int:
         proof_gate(np, hyperplonk_proof, {**PCS_PLONK_SMALL, "pcs": name}, PCS_PLONK_SHA256[name],
                    f"plonk_small_{name}", f"nv=3 vanilla over BN254 Fq, {name}")
     for name in GRUMPKIN_PCS:
+        nv = SECONDARY_NUM_VARS.get(name, PLONK["num_vars"])
         run_hyperplonk_path(torch, np, launches, f"plonk_{name}", f"plonk_{name}",
-                            f"nv=16 vanilla plonk with lookup over BN254 Fq, {name}", {**PLONK, "pcs": name})
+                            f"nv={nv} vanilla plonk with lookup over BN254 Fq, {name}",
+                            {**PLONK, "pcs": name, "num_vars": nv})
 
     # 14. Brakedown: the nv = 3 proof against the JAX package's bytes, then
     # phase 7's circuit over Brakedown and its code's encode on the card
@@ -472,6 +512,11 @@ def main() -> int:
     # multi-process dryrun
     run_sharded_phase(torch, np, launches, {"sharded_lasso_hyperplonk": lasso_plonk_path, "sharded_lasso": slice_path,
                                             "sharded_arx": arx_path}, smi)
+
+    # 16. K1 past its compiled limits (a GKR batch split into chunks), the
+    # parameter files of phases 7, 5 and 6 reloaded onto the card, and the
+    # comparison MSM engines at 2^16
+    run_support_phase(torch, np, launches, plonk_path, slice_path, smi)
 
     for path, counts in launches.items():
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
@@ -526,9 +571,9 @@ def run_path(launches, path, name, label, run):
 def run_hyperplonk_path(torch, np, launches, path, name, label, cfg, cheat=False):
     """A full-size HyperPlonk main path, with `cheat` a proof of the
     circuit's cheating witness rejected (after the path's launches are
-    read), then ``profile_path``. Returns what the path left: its params
-    (pp, vp), its proof, stage records, profile and sync sites."""
-    extra = {}
+    read), then ``profile_path``. Returns what the path left: its config,
+    params (pp, vp), proof, stage records, profile and sync sites."""
+    extra = {"cfg": cfg}
     extra["proof"], extra["records"] = run_path(
         launches, path, name, label, lambda: hyperplonk_proof(np, cfg, "cuda", tamper=True, extra=extra))
     if cfg.get("pcs") in IPA_PCS:
@@ -883,39 +928,60 @@ def sync_sites(torch, prove):
     return dict(sites.most_common())
 
 
+# kernels launched (torch's own, never counted) inside a profiler session
+# before the profiled prove: late in the smoke's process the profiler
+# dropped a few K4 launches of a prove (5 of 128 in phase 7, 6 of 444 in
+# phase 9, the same in every session, whatever the idle margin around the
+# prove), which a fresh process recorded whole
+PROFILE_WARMUP_LAUNCHES = 256
+
+
 def profile_prove(torch, prove):
     """One more prove under torch.profiler: its wall time, the card's busy
     time, each hand kernel's device time and launches, the device-to-host
-    and host-to-device copies, and the heaviest other device rows. A failure
-    of the prove or of the profiler fails the run."""
+    and host-to-device copies, and the heaviest other device rows. Each hand
+    kernel's launches in the profiler's rows must equal the prove's own
+    count (``native.counts``): a session that saw no device time or lost a
+    launch record is repeated, as utils/bench.py's device_ms does, and the
+    run fails if none of PROFILER_SESSIONS is whole. A failure of the prove
+    or of the profiler fails the run."""
     from halo2_lasso_tpu_torch.ops import native
 
     from halo2_lasso_tpu_torch.utils.bench import PROFILER_SESSIONS
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(PROFILER_SESSIONS):  # as utils/bench.py's device_ms, a session that saw nothing is repeated
+    seen = []
+    for _ in range(PROFILER_SESSIONS):
         with torch.profiler.profile(activities=acts) as prof:
+            pad = torch.zeros(1, device="cuda")
+            for _ in range(PROFILE_WARMUP_LAUNCHES):
+                pad.add_(1)
             torch.cuda.synchronize()
+            before = dict(native.counts)
             t0 = time.perf_counter()
             prove()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = {k: native.counts[k] - before[k] for k in native.KERNELS}
         # device-side rows only (kernels, copies, memsets): one stream, so
         # their sum is the time the card was busy
         dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        if busy_ms > 0:
+        hand, other = {k: [0.0, 0] for k in native.KERNELS}, []
+        for e in dev:
+            name = next((k for k, sym in native.SYMBOLS.items() if re.search(rf"(^|\W){sym}\s*[<(]", e.key)), None)
+            if name is None:
+                other.append(e)
+            else:
+                hand[name][0] += e.self_device_time_total / 1e3
+                hand[name][1] += e.count
+        lost = {k: (hand[k][1], n) for k, n in counted.items() if hand[k][1] != n}
+        seen.append(lost)
+        if busy_ms > 0 and not lost:
             break
     else:
-        raise SystemExit("the profiler saw no device time in the prove")
-    hand, other = {k: [0.0, 0] for k in native.KERNELS}, []
-    for e in dev:
-        name = next((k for k, sym in native.SYMBOLS.items() if re.search(rf"(^|\W){sym}\s*[<(]", e.key)), None)
-        if name is None:
-            other.append(e)
-        else:
-            hand[name][0] += e.self_device_time_total / 1e3
-            hand[name][1] += e.count
+        raise SystemExit(f"the profiler saw no device time, or other launch counts than the prove's "
+                         f"(profiler, counted) by session: {seen}")
     copies = {d: [0.0, 0] for d in ("DtoH", "HtoD")}
     for e in dev:
         for d in copies:
@@ -924,7 +990,7 @@ def profile_prove(torch, prove):
                 copies[d][1] += e.count
     top = sorted(other, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {
-        "wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+        "wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms, "sessions": len(seen),
         "hand_kernels": {k: {"ms": v[0], "launches": v[1]} for k, v in hand.items()},
         "copies": {d: {"ms": v[0], "count": v[1]} for d, v in copies.items()},
         "top_other": [{"key": e.key[:64], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top],
@@ -1161,12 +1227,253 @@ def lasso_proof(np, cfg, device, tamper=False, extra=None):
             return t.into_proof()
 
         extra.update(prove=prove_again, verify=lambda p: verify(vp, table, nv_m, transcript(p), pcs=pcs),
-                     prove_launches={k: native.counts[k] - before[k] for k in before})
+                     prove_launches={k: native.counts[k] - before[k] for k in before}, param=param, table=table,
+                     indices=indices, transcript=transcript)
     proof = tw.into_proof()
     verify(vp, table, nv_m, transcript(proof), pcs=pcs)
     if tamper:
         rejects_flipped_byte(lambda bad: verify(vp, table, nv_m, transcript(bad), pcs=pcs), proof)
     return proof, timed.records()
+
+
+def run_support_phase(torch, np, launches, plonk_path, slice_path, smi, device="cuda", n=1 << 16, split=None):
+    """Phase 16: (1) a GKR batch past K1's compiled limits at nv = 16 on the
+    card, cut into chunks of whole terms: K1 launched chunks x rounds, each
+    chunk's program bit-exact against ``round_message_plain`` at the first
+    round's shape, the nv = 6 proof the JAX package's; (2) phase 7's nv = 16 KZG params and phase 5's Lasso set-up saved
+    and loaded back onto the card, their proves equal to those phases'
+    proofs and verified under the reloaded params, and phase 6's golden
+    circuit proved from reloaded params; (3) one 2^16 MSM on bench.py:100's
+    inputs through the production MSM, ``msm_affine`` and the scan MSM, and
+    an nv = 16 KZG open's quotient MSMs with and without the segmented
+    grouping: the same points, with their launches and device ms (a fresh
+    process). A CPU rehearsal passes device "cpu", a small `n` and a small
+    `split` config, and takes no device time."""
+    import tempfile
+
+    from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
+    from halo2_lasso_tpu_torch.lasso import prove as lasso_prove
+    from halo2_lasso_tpu_torch.lasso import verify as lasso_verify
+    from halo2_lasso_tpu_torch.ops import ec, msm_affine, msm_scan, native
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops.bn254 import G1_GEN, Fq, Fr
+    from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
+    from halo2_lasso_tpu_torch.piop import gkr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.utils import serialize as ser
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (1) the split GKR batch: K1 once a chunk a round
+    cfg = split or SPLIT_GKR
+    expr = gkr.sum_check_expression_pure(cfg["products"])
+    keys = SC._leaf_keys(expr, 2 * cfg["products"])
+    plan = SC.plan_round(expr, keys, Fr.modulus, 1)
+    if plan.program is not None:
+        raise SystemExit("the split GKR batch fits the round kernel: nothing is split")
+    rounds = []
+    real_prove = SC.prove
+
+    def counting_prove(spec, num_vars, *args):
+        rounds.append(num_vars)
+        return real_prove(spec, num_vars, *args)
+
+    t0 = time.perf_counter()
+    native.reset_counts()
+    SC.prove = counting_prove
+    try:
+        proof, _ = split_gkr_proof(np, cfg, device)
+    finally:
+        SC.prove = real_prove
+    sync()
+    launches["split_gkr"] = counts = dict(native.counts)
+    want = len(plan.chunks) * sum(rounds)
+    if on_card and counts["sumcheck_round"] != want:
+        raise SystemExit(f"the split GKR batch launched K1 {counts['sumcheck_round']} times, not {len(plan.chunks)} "
+                         f"chunks x {sum(rounds)} rounds = {want}")
+    stage("split_gkr", t0, f"{cfg['products']} grand products at nv={cfg['num_vars']}: {len(keys)} leaves a round "
+          f"in {len(plan.chunks)} chunks ({', '.join(f'{len(c.leaves)} leaves {len(c.program.ops)} ops' for c in plan.chunks)}), "
+          f"K1 {counts['sumcheck_round']} = chunks x {sum(rounds)} rounds, sum_reduce {counts['sum_reduce']}, "
+          f"{len(proof)} bytes, verified")
+    h = 1 << (cfg["num_vars"] - 2)  # the first round of the largest layer: 2^(nv-1) rows, 2^(nv-2) pairs
+    rng = np.random.RandomState(16)
+    chal = rand_field_rows(np, Fr, rng, len(plan.challenge_rows(Fr.modulus, [1])), dev)
+    tables = [rand_field_rows(np, Fr, rng, 2 * h, dev) for _ in keys]
+    for i, chunk in enumerate(plan.chunks):
+        leaves = [tables[j] for j in chunk.leaves]
+        got = SC.round_message(Fr, leaves, chunk.program, chal, expr.degree)
+        if not torch.equal(got, SC.round_message_plain(Fr, leaves, chunk.program, chal, expr.degree)):
+            raise SystemExit(f"K1 disagrees with its plain version on chunk {i} of the split GKR batch")
+    del tables
+    sha = hashlib.sha256(split_gkr_proof(np, cfg, device, 6)[0]).hexdigest()
+    if sha != SPLIT_SHA256:  # tests/test_torch_round_split.py holds the CPU's to it
+        raise SystemExit(f"split GKR nv=6 proof mismatch: {sha}")
+    print(f"  each chunk's program bit-exact against round_message_plain at 2^{h.bit_length() - 1} pairs; nv=6 proof "
+          f"sha256 {sha[:16]} == JAX", flush=True)
+
+    # (2) parameter files, reloaded onto the card
+    t_files = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "plonk")
+        t0 = time.perf_counter()
+        ser.save_hyperplonk_params(base, plonk_path["pp"], plonk_path["vp"])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pp, vp = ser.load_hyperplonk_params(base, device)
+        sync()
+        load_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(base + e) for e in (".npz", ".json"))
+        _, circuit = make_circuit(np, plonk_path["cfg"])
+        native.reset_counts()
+        tw = new_transcript()
+        HyperPlonk.prove(pp, circuit, tw)
+        launches["files_plonk"] = dict(native.counts)
+        if tw.into_proof() != plonk_path["proof"]:
+            raise SystemExit("the prove from reloaded nv=16 params differs from phase 7's proof")
+        HyperPlonk.verify(vp, circuit.instances(), new_transcript(plonk_path["proof"]))
+        print(f"  files: phase 7's nv=16 pp/vp {nbytes} bytes, save {save_s:.2f}s, load onto the card "
+              f"{load_s:.2f}s; the reloaded prove == phase 7's proof, verified under the reloaded vp", flush=True)
+
+        base = os.path.join(tmp, "lasso")
+        cfg5 = slice_path["cfg"]
+        t0 = time.perf_counter()
+        ser.save_lasso_setup(base, slice_path["table"], slice_path["param"])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table, param = ser.load_lasso_setup(base, device)
+        sync()
+        load_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(base + e) for e in (".npz", ".json", ".lasso.json"))
+        nv_m = cfg5["lookups"].bit_length() - 1
+        nv = max(nv_m, table.memories[0].subtable.index_bits)
+        lpp, lvp = MultilinearKzg.trim(param, 1 << nv)
+        native.reset_counts()
+        tw = slice_path["transcript"]()
+        lasso_prove(lpp, table, slice_path["indices"], tw, pcs=MultilinearKzg, device=device)
+        launches["files_lasso"] = dict(native.counts)
+        if tw.into_proof() != slice_path["proof"]:
+            raise SystemExit("the prove from the reloaded Lasso set-up differs from phase 5's proof")
+        lasso_verify(lvp, table, nv_m, slice_path["transcript"](slice_path["proof"]), pcs=MultilinearKzg)
+        print(f"  files: phase 5's Lasso set-up ({table.spec}) {nbytes} bytes, save {save_s:.2f}s, load "
+              f"{load_s:.2f}s; the reloaded prove == phase 5's proof, verified under the reloaded params", flush=True)
+
+        base = os.path.join(tmp, "golden")
+        ci, circuit = make_circuit(np, PLONK_SMALL)
+        gpp, gvp = HyperPlonk.preprocess(HyperPlonk.setup(ci, np.random.RandomState(PLONK_SMALL["setup_seed"]),
+                                                          device=device), ci)
+        ser.save_hyperplonk_params(base, gpp, gvp)
+        gpp, gvp = ser.load_hyperplonk_params(base, device)
+        tw = new_transcript()
+        HyperPlonk.prove(gpp, circuit, tw)
+        golden = tw.into_proof()
+        HyperPlonk.verify(gvp, circuit.instances(), new_transcript(golden))
+        if hashlib.sha256(golden).hexdigest() != GOLDEN_SHA256:
+            raise SystemExit("the nv=3 golden circuit proved from reloaded params does not hash to GOLDEN_SHA256")
+        print(f"  files: the nv=3 golden circuit from reloaded params: sha256 {GOLDEN_SHA256[:16]} == JAX", flush=True)
+    stage("files", t_files, "phase 7's params, phase 5's set-up and phase 6's golden circuit through files")
+
+    # (3) the MSM engines on bench.py:100's inputs
+    t_engines = time.perf_counter()
+    rng = np.random.RandomState(5)
+    ms = [int(v) for v in rng.randint(1, 1 << 30, size=n)]
+    points = ec.fixed_base_msm(G1_GEN, Fr.encode(ms, dev))
+    scal = Fr.encode([int.from_bytes(rng.bytes(40), "little") % Fr.modulus for _ in range(n)], dev)
+    engines = {"msm": lambda: MJ.msm_planes(points, scal, Fq, Fr),
+               "affine": lambda: msm_affine.msm_affine(points, scal, Fq, Fr),
+               "scan": lambda: msm_scan.msm_pallas(points, scal, Fq, Fr)}
+    want = ec.msm_to_affine_int(points, scal)
+    fresh = FreshDeviceTimes()
+    report = {}
+    for name, call in engines.items():
+        t0 = time.perf_counter()
+        native.reset_counts()
+        out = call()
+        sync()
+        launches[f"msm_{name}"] = counts = dict(native.counts)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = want if name == "msm" else ec.jacobian_to_affine(out)[0]
+        if got != want:
+            raise SystemExit(f"the {name} MSM engine's point differs from the production MSM's")
+        expect = {native.SYMBOLS[k]: counts[k] for k in native.KERNELS if counts[k]}
+        fresh.add(name, name, {"points": points, "scal": scal, "base": Fq.kernel_id}, expect)
+        report[name] = {"wall_ms": wall_ms, "launches": {k: counts[k] for k in native.KERNELS if counts[k]}}
+
+    # the quotient MSMs of an nv = 16 KZG open, ungrouped and grouped
+    kzg_pp = plonk_path["pp"].pcs
+    rng = np.random.RandomState(17)
+    kv = kzg_pp.num_vars
+    quotients, _ = MultilinearKzg.quotient_polys(rand_field_rows(np, Fr, rng, 1 << kv, dev),
+                                                 [int(v) for v in rng.randint(1, 1 << 62, size=kv)])
+    jobs = [(kzg_pp.eqs[i], q) for i, q in quotients]
+    for name, budget in (("quotients", 0), ("quotients_grouped", SEG_LANES)):
+        os.environ["HALO2_LASSO_TPU_MSM_GROUP_LANES"] = str(budget)
+        try:
+            t0 = time.perf_counter()
+            native.reset_counts()
+            got = ec.msm_list_to_affine_int(jobs)
+            launches[f"msm_{name}"] = counts = dict(native.counts)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            os.environ.pop("HALO2_LASSO_TPU_MSM_GROUP_LANES")
+        if name == "quotients":
+            want_q = got
+        elif got != want_q:
+            raise SystemExit("the grouped quotient MSMs' points differ from the ungrouped ones'")
+        expect = {native.SYMBOLS[k]: counts[k] for k in native.KERNELS if counts[k]}
+        fresh.add(name, "msm_list", {"jobs": jobs, "budget": budget, "base": Fq.kernel_id}, expect)
+        report[name] = {"wall_ms": wall_ms, "launches": {k: counts[k] for k in native.KERNELS if counts[k]}}
+    stage("engines", t_engines, "three engines and the quotient MSMs run and compared")
+    t_fresh = time.perf_counter()
+    if on_card:
+        fresh.run(torch)
+    stage("engine_device_times", t_fresh, "a fresh process")
+    for name, r in report.items():
+        r["device_ms"] = fresh.results.get(name, {})
+        print(f"  engine {name}: wall {r['wall_ms']:.1f}ms, device (fresh process) "
+              + ", ".join(f"{k} {v:.4f}ms" for k, v in r["device_ms"].items())
+              + f"; launches {json.dumps(r['launches'])} | {smi}", flush=True)
+    stage("support", t_phase, f"split GKR, files, engines: the production, affine and scan MSMs' 2^16 points "
+          f"equal; {len(jobs)} quotient MSMs equal grouped (budget {SEG_LANES} lanes) and not")
+
+
+def rand_field_rows(np, spec, rng, n, device):
+    """n random field elements below 2^62 from `rng`, Montgomery form on
+    `device` (``F.encode_dev``)."""
+    from halo2_lasso_tpu_torch.ops import field as F
+
+    return F.encode_dev(spec, rng.randint(1, 1 << 62, size=n, dtype=np.int64), device)
+
+
+def split_gkr_inputs(np, cfg, num_vars):
+    """The q polys of a split GKR batch: cfg["products"] rows of 2^num_vars
+    values below 2^62 from RandomState(cfg["seed"])."""
+    rng = np.random.RandomState(cfg["seed"])
+    return rng.randint(1, 1 << 62, size=(cfg["products"], 1 << num_vars), dtype=np.int64)
+
+
+def split_gkr_proof(np, cfg, device, num_vars=None):
+    """Prove and verify the pure grand products of a split GKR batch
+    (``gkr.prove_fractional_sum_check``, every p None) on `device`; returns
+    (proof bytes, the q tables)."""
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops.bn254 import Fr
+    from halo2_lasso_tpu_torch.piop import gkr
+    from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+    nv = cfg["num_vars"] if num_vars is None else num_vars
+    b = cfg["products"]
+    qs = list(F.encode_dev(Fr, split_gkr_inputs(np, cfg, nv), device).unbind(0))
+    tw = Keccak256Transcript(Fr.modulus)
+    gkr.prove_fractional_sum_check([0] * b, [None] * b, [None] * b, qs, tw)
+    proof = tw.into_proof()
+    gkr.verify_fractional_sum_check(nv, [0] * b, [None] * b, Keccak256Transcript(Fr.modulus, proof=proof))
+    return proof, qs
 
 
 def check_kernels(torch, np, dev):
@@ -2048,13 +2355,16 @@ class FreshDeviceTimes:
     --device-times``) at the end of the kernel phase: late in a long
     process a profiler session now and then loses the records of some
     launches, where a fresh process recorded every one. A job is one call,
-    ``ec.ec_ladder`` ("ladder") or ``msm_jacobian.msm_planes`` ("msm"), on
+    ``ec.ec_ladder`` ("ladder"), ``msm_jacobian.msm_planes`` ("msm"),
+    ``msm_affine.msm_affine`` ("affine"), ``msm_scan.msm_pallas`` ("scan")
+    or ``ec.msm_list_to_affine_int`` under a lane budget ("msm_list"), on
     card inputs saved for it under build/, with the launches a call makes
     of each kernel whose time is read; the phase fails unless a profiler
-    session records every one of them."""
+    session records every one of them. ``results`` keeps each job's device
+    ms a call, by kernel symbol and in all ("all")."""
 
     def __init__(self):
-        self.jobs, self.sinks = {}, []
+        self.jobs, self.sinks, self.results = {}, [], {}
 
     def add(self, key, call, args, expect):
         """Job `key`: `call` on `args` (the coordinate field as "base", its
@@ -2077,7 +2387,7 @@ class FreshDeviceTimes:
             os.remove(path)
         if proc.returncode != 0:
             raise SystemExit(f"the device times' process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        self.results = got = json.loads(proc.stdout.strip().splitlines()[-1])
         for key, symbol, record, field in self.sinks:
             record[field] = got[key][symbol]
 
@@ -2089,7 +2399,7 @@ def device_times(path) -> int:
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import ec, msm_affine, msm_scan
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
     from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
     from halo2_lasso_tpu_torch.utils.bench import device_ms
@@ -2101,6 +2411,13 @@ def device_times(path) -> int:
         base, scalar = fields[a["base"]]
         if job["call"] == "ladder":
             fn = functools.partial(ec.ec_ladder, a["pts"], a["k"], a["nbits"], base)
+        elif job["call"] == "affine":
+            fn = functools.partial(msm_affine.msm_affine, a["points"], a["scal"], base, scalar)
+        elif job["call"] == "scan":
+            fn = functools.partial(msm_scan.msm_pallas, a["points"], a["scal"], base, scalar)
+        elif job["call"] == "msm_list":
+            os.environ["HALO2_LASSO_TPU_MSM_GROUP_LANES"] = str(a["budget"])
+            fn = functools.partial(ec.msm_list_to_affine_int, a["jobs"], base, scalar)
         else:
             fn = functools.partial(MJ.msm_planes, a["points"], a["scal"], base, scalar)
         for attempt in range(3):
@@ -2110,7 +2427,8 @@ def device_times(path) -> int:
             except RuntimeError:
                 if attempt == 2:
                     raise
-        out[key] = {sym: ms[sym] for sym in expect}
+        out[key] = {"all": ms["all"], **{sym: ms[sym] for sym in expect}}
+        os.environ.pop("HALO2_LASSO_TPU_MSM_GROUP_LANES", None)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -9,9 +9,12 @@ DistributePowers (expr0 + sum_{i>=1} base^i * expr_i).
 `evaluate_host` evaluates over Python ints (the verifier); `evaluate_torch`
 over field tensors (the prover), with `hypercube_leaves` supplying the leaf
 tables over all rows; `from_foreign` rebuilds a tree made by the
-JAX package (for parameters carried across). The sumcheck round kernel
-does not walk this tree: piop/sum_check.py lowers it to a postfix program
-once per `structural_key`.
+JAX package (for parameters carried across); `expression_to_obj` /
+`expression_from_obj` write and read the JAX package's JSON tree
+(utils/serialize.py). The sumcheck round kernel does not walk this tree:
+piop/sum_check.py lowers it to a postfix program once per
+`structural_key`, and past the kernel's limits splits it into
+challenge-weighted terms first (`split_challenge_terms`).
 
 Constants/scalars are canonical python ints (mod p applied by the evaluators).
 """
@@ -259,6 +262,98 @@ class Expression:
         return (k,) + tuple(a.structural_key for a in self.args)
 
 
+    @functools.cached_property
+    def mul_count(self) -> int:
+        """Number of field multiplications one evaluation of this expression
+        performs (the JAX package's proxy for a chunk's size)."""
+        return self.evaluate(
+            lambda _: 0,
+            lambda _: 0,
+            lambda _: 0,
+            lambda _: 0,
+            lambda a: a,
+            lambda a, b: a + b,
+            lambda a, b: a + b + 1,
+            lambda a, _: a + 1,
+        )
+
+    def is_challenge_only(self) -> bool:
+        """True if the expression references no polynomial/common leaves, so it
+        can be evaluated on host from the challenges alone."""
+        return (
+            not self.used_query
+            and not self.used_eq_xy
+            and not self.used_lagrange
+            and not self.used_identity
+        )
+
+    def simplified(self, p: int) -> "Expression":
+        """Constant-folded copy mod p (reference: Expression::simplified,
+        util/expression.rs:326-486 — semantics only; this is a plain
+        bottom-up fold): constant arithmetic collapsed, 0/1-identities
+        eliminated, nested Scaled merged."""
+
+        def const(v):
+            return Expression.constant(v % p)
+
+        def is_const(e):
+            return e.kind == "const"
+
+        def cval(e):
+            return e.args[0] % p
+
+        def neg(a):
+            if is_const(a):
+                return const(-cval(a))
+            return Expression("neg", (a,))
+
+        def add(a, b):
+            if is_const(a) and cval(a) == 0:
+                return b
+            if is_const(b) and cval(b) == 0:
+                return a
+            if is_const(a) and is_const(b):
+                return const(cval(a) + cval(b))
+            return Expression("sum", (a, b))
+
+        def mul(a, b):
+            if is_const(a):
+                a, b = b, a
+            if is_const(b):
+                v = cval(b)
+                if v == 0:
+                    return const(0)
+                if v == 1:
+                    return a
+                if is_const(a):
+                    return const(cval(a) * v)
+                return scale(a, v)
+            return Expression("product", (a, b))
+
+        def scale(a, s):
+            s = s % p
+            if s == 0 or (is_const(a) and cval(a) == 0):
+                return const(0)
+            if s == 1:
+                return a
+            if is_const(a):
+                return const(cval(a) * s)
+            if a.kind == "scaled":
+                return scale(a.args[0], a.args[1] * s)
+            return Expression("scaled", (a, s))
+
+        return self.evaluate(
+            lambda v: const(v),
+            lambda e: e,
+            lambda q: Expression("poly", (q,)),
+            lambda c: Expression.challenge(c),
+            neg,
+            add,
+            mul,
+            scale,
+        )
+
+
 def from_foreign(e) -> Expression:
     """An expression tree of the same shape built by another package (the
     JAX package's Expression: `kind`, `args`, queries with `poly` and
@@ -273,6 +368,123 @@ def from_foreign(e) -> Expression:
     if k == "powers":
         return Expression(k, (tuple(from_foreign(x) for x in args[0]), from_foreign(args[1])))
     return Expression(k, tuple(from_foreign(a) for a in args))
+
+
+def split_challenge_terms(expr: Expression, p: int):
+    """Decompose `expr` into [(coeff, term)] with expr == sum_i coeff_i * term_i,
+    where every coeff is a challenge-only Expression (host-evaluable) and the
+    terms are the individual constraint polynomials.
+
+    This undoes the alpha-batching of DistributePowers at the TOP of the
+    composed zero-check expression (backend/hyperplonk/preprocessor.rs:25-60
+    builds alpha-powers of [lookup h sums, eq * alpha-powers of constraints]):
+    the sumcheck round message is linear in the terms, so a program past the
+    round kernel's limits is cut into chunks of whole terms, each chunk's
+    message weighted by its coefficients and the messages added
+    (piop/sum_check.py ``plan_round``; the JAX package's reason was its
+    compile size, the port's is csrc/sumcheck_round.cu's fixed limits).
+    """
+    out = []
+
+    def go(e: Expression, coeff: Expression):
+        k = e.kind
+        if k == "sum":
+            go(e.args[0], coeff)
+            go(e.args[1], coeff)
+        elif k == "neg":
+            go(e.args[0], Expression("scaled", (coeff, -1)))
+        elif k == "scaled":
+            go(e.args[0], Expression("scaled", (coeff, e.args[1])))
+        elif k == "powers" and e.args[1].is_challenge_only():
+            exprs, base = e.args
+            power = Expression.constant(1)
+            for i, sub in enumerate(exprs):
+                if i > 0:
+                    power = Expression("product", (power, base))
+                go(sub, Expression("product", (coeff, power)))
+        elif k == "product":
+            a, b = e.args
+            if a.is_challenge_only() and not b.is_challenge_only():
+                go(b, Expression("product", (coeff, a)))
+            elif b.is_challenge_only() and not a.is_challenge_only():
+                go(a, Expression("product", (coeff, b)))
+            elif a.kind == "powers" and a.args[1].is_challenge_only():
+                exprs, base = a.args
+                power = Expression.constant(1)
+                for i, sub in enumerate(exprs):
+                    if i > 0:
+                        power = Expression("product", (power, base))
+                    go(
+                        Expression("product", (sub, b)),
+                        Expression("product", (coeff, power)),
+                    )
+            elif b.kind == "powers" and b.args[1].is_challenge_only():
+                go(Expression("product", (b, a)), coeff)
+            else:
+                out.append((coeff, e))
+        else:
+            out.append((coeff, e))
+
+    go(expr, Expression.constant(1))
+    simplified = [(c.simplified(p), t.simplified(p)) for c, t in out]
+    # structurally-zero terms (e.g. the const-0 p-slot placeholders of the
+    # pure-grand-product GKR expression) contribute nothing to any message
+    return [
+        (c, t)
+        for c, t in simplified
+        if not (c.kind == "const" and c.args[0] % p == 0)
+        and not (t.kind == "const" and t.args[0] % p == 0)
+    ]
+
+
+def expression_to_obj(e: Expression):
+    """Expression -> JSON-serializable tree, the JAX package's format
+    (utils/serialize.py; the Rust params are serde/bincode,
+    backend.rs:18-19)."""
+    k = e.kind
+    if k == "const":
+        return {"k": k, "v": str(e.args[0])}
+    if k == "identity":
+        return {"k": k}
+    if k in ("lagrange", "eq_xy", "challenge"):
+        return {"k": k, "i": e.args[0]}
+    if k == "poly":
+        q = e.args[0]
+        return {"k": k, "p": q.poly, "r": q.rotation}
+    if k == "scaled":
+        return {"k": k, "a": expression_to_obj(e.args[0]), "s": str(e.args[1])}
+    if k == "powers":
+        exprs, base = e.args
+        return {
+            "k": k,
+            "es": [expression_to_obj(x) for x in exprs],
+            "b": expression_to_obj(base),
+        }
+    return {"k": k, "as": [expression_to_obj(a) for a in e.args]}
+
+
+def expression_from_obj(o) -> Expression:
+    k = o["k"]
+    if k == "const":
+        return Expression.constant(int(o["v"]))
+    if k == "identity":
+        return Expression.identity()
+    if k == "lagrange":
+        return Expression.lagrange(o["i"])
+    if k == "eq_xy":
+        return Expression.eq_xy(o["i"])
+    if k == "challenge":
+        return Expression.challenge(o["i"])
+    if k == "poly":
+        return Expression.poly(o["p"], o["r"])
+    if k == "scaled":
+        return Expression("scaled", (expression_from_obj(o["a"]), int(o["s"])))
+    if k == "powers":
+        return Expression(
+            "powers",
+            (tuple(expression_from_obj(x) for x in o["es"]), expression_from_obj(o["b"])),
+        )
+    return Expression(k, tuple(expression_from_obj(a) for a in o["as"]))
 
 
 def _coerce(v) -> Expression:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -187,6 +188,23 @@ def _eq_mle(b: int):
 # ---------------------------------------------------------------------------
 
 
+def _serializable(factory):
+    """Record the (factory name, bound kwargs) spec on the built table, as
+    the JAX package does (lasso/tables.py:189), so that a Lasso set-up
+    round-trips through utils/serialize.py in either package: structured
+    tables carry no arrays, the spec is the serialization."""
+
+    @functools.wraps(factory)
+    def wrapped(*args, **kwargs):
+        table = factory(*args, **kwargs)
+        bound = inspect.signature(factory).bind(*args, **kwargs)
+        bound.apply_defaults()
+        object.__setattr__(table, "spec", {"factory": factory.__name__, "kwargs": dict(bound.arguments)})
+        return table
+
+    return wrapped
+
+
 @functools.lru_cache(maxsize=None)
 def identity_subtable(index_bits: int) -> Subtable:
     """Shared identity subtable (range tables; Surge range memories)."""
@@ -207,6 +225,7 @@ def _weighted_sum(alpha: int, weight_bits: int) -> Expression:
     return acc
 
 
+@_serializable
 @functools.lru_cache(maxsize=None)
 def range_table(index_bits: int, chunk_bits: int = 16) -> LassoTable:
     """T[r] = r  (range check into [0, 2^index_bits))."""
@@ -251,21 +270,25 @@ def _operand_table(name: str, op, operand_bits: int, chunk_bits: int, mle_eval=N
     )
 
 
+@_serializable
 @functools.lru_cache(maxsize=None)
 def and_table(operand_bits: int = 32, chunk_bits: int = 8) -> LassoTable:
     return _operand_table("and", lambda x, y: x & y, operand_bits, chunk_bits, _and_mle(chunk_bits))
 
 
+@_serializable
 @functools.lru_cache(maxsize=None)
 def xor_table(operand_bits: int = 32, chunk_bits: int = 8) -> LassoTable:
     return _operand_table("xor", lambda x, y: x ^ y, operand_bits, chunk_bits, _xor_mle(chunk_bits))
 
 
+@_serializable
 @functools.lru_cache(maxsize=None)
 def or_table(operand_bits: int = 32, chunk_bits: int = 8) -> LassoTable:
     return _operand_table("or", lambda x, y: x | y, operand_bits, chunk_bits, _or_mle(chunk_bits))
 
 
+@_serializable
 @functools.lru_cache(maxsize=None)
 def lt_table(operand_bits: int = 32, chunk_bits: int = 8) -> LassoTable:
     """T[x||y] = 1 if x < y else 0 (unsigned).

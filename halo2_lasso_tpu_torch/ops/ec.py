@@ -21,6 +21,7 @@ leave the device as affine (x, y) canonical ints, (0, 0) for the identity.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -294,34 +295,181 @@ def split_points(pts: Points, sizes: Sequence[int]) -> List[Points]:
 # ---------------------------------------------------------------------------
 
 
+SMALL_MSM_MAX = 1 << 9  # the JAX package's bound of the per-lane ladder MSM (ops/ec.py:265)
+
+
+def _scalar_mul_lanes(points: Points, scalars_canonical: torch.Tensor, nbits: int, spec: FieldSpec = Fq) -> Points:
+    """(M,) points x (M, 8) canonical scalars -> (M,) per-lane s_i * P_i
+    (reference ops/ec.py:287): one launch of K3's ladder, a scalar a lane."""
+    return ec_ladder(points, scalars_canonical, nbits, spec)
+
+
+def _row_sum(pts_flat: Points, B: int, n: int, spec: FieldSpec = Fq) -> Points:
+    """(B n,) flat point batch -> (B,) row sums, a K3 add a column
+    (reference :302)."""
+    rows = {k: v.view(B, n, F.LIMBS) for k, v in pts_flat.items()}
+    acc = identity_point(B, pts_flat["x"].device, spec)
+    for i in range(n):
+        acc = ec_add(acc, {k: v[:, i] for k, v in rows.items()}, spec)
+    return acc
+
+
+def _msm_small(points: Points, scalars_canonical: torch.Tensor, spec: FieldSpec = Fq, nbits: int = None) -> Points:
+    """(n,) points and (B, n, 8) canonical scalars -> (B,) points
+    (reference :316): every lane's multiple in one ladder over the B n
+    lanes (at least 64, padded with the identity), then the row sums."""
+    nbits = nbits or Fr.num_bits
+    B, n = scalars_canonical.shape[:2]
+    device = scalars_canonical.device
+    M = max(64, B * n)
+    pts = {k: v.expand(B, n, F.LIMBS).reshape(B * n, F.LIMBS) for k, v in points.items()}
+    scal = scalars_canonical.reshape(B * n, F.LIMBS)
+    if M != B * n:
+        pts = cat_points(pts, identity_point(M - B * n, device, spec))
+        scal = torch.cat([scal, scal.new_zeros((M - B * n, F.LIMBS))])
+    per_lane = {k: v[: B * n] for k, v in _scalar_mul_lanes(pts, scal, nbits, spec).items()}
+    return _row_sum(per_lane, B, n, spec)
+
+
+def _pad_msm_inputs(points: Points, scalars_mont: torch.Tensor, min_n: int = 16, spec: FieldSpec = Fq):
+    """Identity points and zero scalars up to a power of two, at least
+    min_n (reference :411)."""
+    n = scalars_mont.shape[0]
+    target = max(min_n, 1 << (n - 1).bit_length()) if n > 1 else min_n
+    if target == n:
+        return points, scalars_mont
+    pad = target - n
+    return (cat_points(points, identity_point(pad, scalars_mont.device, spec)),
+            torch.cat([scalars_mont, scalars_mont.new_zeros((pad, F.LIMBS))]))
+
+
+def _msm_engine() -> str:
+    """The JAX package's switch of the large-MSM engine (ops/ec.py:461):
+    HALO2_LASSO_TPU_MSM=affine takes ops/msm_affine.py; unset, the
+    production Jacobian MSM."""
+    return os.environ.get("HALO2_LASSO_TPU_MSM", "")
+
+
+def variable_base_msm(points: Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
+                      scalar: FieldSpec = Fr) -> Points:
+    """sum_i s_i P_i as a one-point Jacobian batch (reference :440, msm.rs:84
+    semantics), the inputs padded to a power of two (at least 16): above
+    SMALL_MSM_MAX points the production Jacobian MSM, or under
+    HALO2_LASSO_TPU_MSM=affine the batched-affine one; at most that, the
+    per-lane ladder and a row sum."""
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+
+    points, scalars_mont = _pad_msm_inputs(points, scalars_mont, spec=base)
+    n = scalars_mont.shape[0]
+    if n > SMALL_MSM_MAX:
+        if _msm_engine() == "affine":
+            from halo2_lasso_tpu_torch.ops.msm_affine import msm_affine
+
+            return msm_affine(points, scalars_mont, base, scalar)
+        X, Y, Z = MJ.msm(points, scalars_mont, base, scalar)
+        device = scalars_mont.device
+        return {k: base.encode([v], device) for k, v in zip(COORDS, (X, Y, Z))}
+    return _msm_small(points, F.from_mont(scalar, scalars_mont)[None], base, scalar.num_bits)
+
+
+def batch_msm(points: Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
+              scalar: FieldSpec = Fr) -> List[Tuple[int, int]]:
+    """B MSMs over one point set, scalars (B, n, 8) Montgomery -> B affine
+    (x, y) ints (reference :492): padded to a power of two (at least 16),
+    up to SMALL_MSM_MAX points one ladder over all B n lanes and the row
+    sums, above it the production MSMs with one read for all."""
+    B, n = scalars_mont.shape[:2]
+    if B == 0:
+        return []
+    target = max(16, 1 << (n - 1).bit_length()) if n > 1 else 16
+    if target != n:
+        points = cat_points(points, identity_point(target - n, scalars_mont.device, base))
+        scalars_mont = torch.cat([scalars_mont, scalars_mont.new_zeros((B, target - n, F.LIMBS))], 1)
+    if target <= SMALL_MSM_MAX:
+        return jacobian_to_affine(_msm_small(points, F.from_mont(scalar, scalars_mont), base, scalar.num_bits), base)
+    return msm_list_to_affine_int([(points, s) for s in scalars_mont.unbind(0)], base, scalar)
+
+
 def msm_to_affine_int(points: Points, scalars_mont: torch.Tensor, base: FieldSpec = Fq,
                       scalar: FieldSpec = Fr) -> Tuple[int, int]:
     """sum_i s_i * P_i for (n,) points over `base` and (n, 8) Montgomery
-    scalars over `scalar` (BN254 G1 and Fr by default; grumpkin: Fr, Fq)."""
+    scalars over `scalar` (BN254 G1 and Fr by default; grumpkin: Fr, Fq).
+    Under HALO2_LASSO_TPU_MSM=affine through ``variable_base_msm``, as the
+    JAX package routes it."""
+    if _msm_engine() == "affine":
+        return jacobian_to_affine(variable_base_msm(points, scalars_mont, base, scalar), base)[0]
     return msm_list_to_affine_int([(points, scalars_mont)], base, scalar)[0]
 
 
 def msm_list_to_affine_int(jobs: Sequence[Tuple[Points, torch.Tensor]], base: FieldSpec = Fq,
                            scalar: FieldSpec = Fr) -> List[Tuple[int, int]]:
-    """Independent MSMs (any sizes) -> affine ints, one inversion in all."""
+    """Independent MSMs (any sizes) -> affine ints, one inversion in all.
+    With HALO2_LASSO_TPU_MSM_GROUP_LANES set above 0 (the JAX package's
+    switch, ops/ec.py:584-640; 0 by default), jobs padded to powers of two
+    are grouped, largest first, while a group's W * n_pad * members stays
+    within that many lanes, and each group of two or more runs as one
+    segmented pipeline (``msm_jacobian.device_partials_seg``); the rest, and
+    every job under an active mesh, go through ``msm_jacobian.msm_many``."""
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.parallel import sharding
 
-    return MJ.host_batch_affine(MJ.msm_many(jobs, base, scalar), base.modulus)
+    budget = int(os.environ.get("HALO2_LASSO_TPU_MSM_GROUP_LANES", "0"))
+    if budget <= 0 or sharding.active_mesh() is not None:
+        return MJ.host_batch_affine(MJ.msm_many(jobs, base, scalar), base.modulus)
+    w_est = -(-scalar.num_bits // 10)
+    sized = sorted(((i, *MJ._pad_pow2(p, s, base)) for i, (p, s) in enumerate(jobs)),
+                   key=lambda t: -t[2].shape[0])
+    groups: List[List] = []
+    singles: List = []
+    for job in sized:
+        n = job[2].shape[0]
+        if w_est * n > budget:
+            singles.append(job)
+            continue
+        for g in groups:  # the first member of a group is its largest
+            if w_est * g[0][2].shape[0] * (len(g) + 1) <= budget:
+                g.append(job)
+                break
+        else:
+            groups.append([job])
+    singles += [g[0] for g in groups if len(g) == 1]
+    totals = [None] * len(jobs)
+    for g in (g for g in groups if len(g) > 1):
+        for i, t in zip([j[0] for j in g], MJ.msm_segments([(p, s) for _, p, s in g], base, scalar)):
+            totals[i] = t
+    for i, t in zip([j[0] for j in singles], MJ.msm_many([(p, s) for _, p, s in singles], base, scalar)):
+        totals[i] = t
+    return MJ.host_batch_affine(totals, base.modulus)
+
+
+# the windowed gather materialises Wp * n rows of each coordinate: at most
+# this many a slice (2^26 rows of 96 bytes, 6.4 GB of the card's 80 GB; the
+# JAX package's (1 << 23) // Wp bound was the TPU's HBM, ops/ec.py:720)
+FIXED_BASE_GATHER_ROWS = 1 << 26
 
 
 def fixed_base_msm(base_xy: Tuple[int, int], scalars_mont: torch.Tensor, c: int = 8, base: FieldSpec = Fq,
                    scalar: FieldSpec = Fr) -> Points:
     """[s_i] * G for (n, 8) Montgomery scalars (msm.rs:67 semantics): a
     per-base window table T[w, v] = v * 2^(c w) * G built once on the host,
-    one gather per window and a halving tree of adds over the windows."""
+    one gather per window and a halving tree of adds over the windows, in
+    slices of at most FIXED_BASE_GATHER_ROWS gathered rows. The identity
+    base ((0, 0), no affine form) takes the per-lane ladder, as the
+    reference's ``_fixed_base_msm_impl`` (ops/ec.py:677) does."""
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 
     device = scalars_mont.device
+    n = scalars_mont.shape[0]
+    if tuple(base_xy) == (0, 0):
+        return ec_ladder(identity_point(n, device, base), F.from_mont(scalar, scalars_mont), scalar.num_bits, base)
     W = -(-scalar.num_bits // c)
     Wp = 1 << (W - 1).bit_length()
+    limit = max(64, FIXED_BASE_GATHER_ROWS // Wp)
+    if n > limit:
+        return cat_points(*(fixed_base_msm(base_xy, scalars_mont[off : off + limit], c, base, scalar)
+                            for off in range(0, n, limit)))
     table = MJ.fixed_base_table(base_xy, c, W, Wp, str(device), base)
     digits = MJ.digits_all(F.from_mont(scalar, scalars_mont), c, Wp)  # (Wp, n)
-    n = scalars_mont.shape[0]
     woff = (torch.arange(Wp, device=device) << c)[:, None]
     idx = (digits + woff).reshape(-1)
     pts = {k: table[k][idx] for k in COORDS}

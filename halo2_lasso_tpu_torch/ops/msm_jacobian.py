@@ -317,6 +317,72 @@ def msm_many(jobs: Sequence[Tuple[ec.Points, torch.Tensor]], base: FieldSpec = F
     return out
 
 
+# ---------------------------------------------------------------------------
+# the segmented pipeline: S MSMs as S W windows of one pipeline
+# ---------------------------------------------------------------------------
+
+
+def prologue_seg(points: ec.Points, scalars_mont: torch.Tensor, c: int, W: int, S: int, n_pad: int,
+                 scalar: FieldSpec = Fr) -> Tuple[ec.Points, torch.Tensor]:
+    """The segmented prologue (the port of msm_jacobian.py:557
+    ``_prologue_seg_fn``): S MSMs of n_pad points each, concatenated, as S W
+    windows; window row s W + w holds segment s's digits of window w,
+    sorted descending. Returns the S W n_pad slots (gathered through each
+    row's sort, a digit-0 slot made the identity) and their digits."""
+    digits = digits_all(F.from_mont(scalar, scalars_mont), c, W)  # (W, S n_pad)
+    d = digits.view(W, S, n_pad).transpose(0, 1).reshape(S * W, n_pad)
+    order = torch.argsort(-d, dim=1, stable=True)
+    seg_off = (torch.arange(S * W, device=d.device) // W * n_pad)[:, None]
+    flat = (order + seg_off).reshape(-1)
+    dig = torch.gather(d, 1, order).reshape(-1).to(torch.int32)
+    pts = {k: points[k][flat] for k in ec.COORDS}
+    pts["z"] = torch.where((dig == 0)[:, None], 0, pts["z"])
+    return pts, dig
+
+
+def device_partials_seg(jobs: Sequence[Tuple[ec.Points, torch.Tensor]], base: FieldSpec, scalar: FieldSpec,
+                        n_pad: int) -> Tuple[ec.Points, int, int]:
+    """S MSMs, each padded to n_pad points, through ONE pipeline of S W
+    windows (the port of msm_jacobian.py:591 ``_device_partials_seg``):
+    the prologue, the halving levels and the final flush in ``msm_level``
+    launches at W' = S W, and the bit-plane tree in one ``plane_tree``
+    launch. Returns the c S W plane sums, plane-major ([j S W + s W + w]),
+    with c and W. One pipeline's launches stand for S."""
+    S = len(jobs)
+    c = best_c(n_pad)
+    B = 1 << c
+    W = -(-scalar.num_bits // c)
+    Wt = S * W
+    padded = [_pad({k: v.contiguous() for k, v in p.items()}, s, base, n_pad) for p, s in jobs]
+    points = ec.cat_points(*(p for p, _ in padded))
+    scal = torch.cat([s for _, s in padded])
+    pts, dig = prologue_seg(points, scal, c, W, S, n_pad, scalar)
+    bucket = ec.identity_point(Wt * B + 1, scal.device, base)
+    while dig.shape[0] > Wt:
+        pts, dig = msm_level(pts, dig, bucket, Wt, B, base=base)
+    msm_level(pts, dig, bucket, Wt, B, base=base)  # final flush
+    return bucket_planes(bucket, c, Wt, base), c, W
+
+
+def finish_host_segments(u: List[Tuple[int, int, int]], c: int, W: int, S: int, mod: int):
+    """Each segment's power-of-two recombination from a segmented plane
+    stack [j S W + s W + w] (the port of msm_jacobian.py:645): segment s
+    reads the (c, W) sub-grid of its windows."""
+    Wt = S * W
+    return [finish_host([u[j * Wt + s * W + w] for j in range(c) for w in range(W)], c, W, mod) for s in range(S)]
+
+
+def msm_segments(jobs: Sequence[Tuple[ec.Points, torch.Tensor]], base: FieldSpec = Fq,
+                 scalar: FieldSpec = Fr) -> List[Tuple[int, int, int]]:
+    """Independent MSMs through one segmented pipeline, padded to the
+    largest power of two among them -> Jacobian canonical ints, one read."""
+    n_pad = max(2, max(1 << (s.shape[0] - 1).bit_length() for _, s in jobs))
+    planes, c, W = device_partials_seg(jobs, base, scalar, n_pad)
+    flat = base.decode_ints(torch.cat([planes[k] for k in ec.COORDS]))
+    m = len(flat) // 3
+    return finish_host_segments(list(zip(flat[:m], flat[m : 2 * m], flat[2 * m :])), c, W, len(jobs), base.modulus)
+
+
 def finish_host(u: List[Tuple[int, int, int]], c: int, W: int, mod: int) -> Tuple[int, int, int]:
     """sum_{w,j} 2^(c w + j) U_{w,j}, U in plane-major order [j * W + w]:
     the sequential power-of-two recombination, in host ints."""

@@ -17,9 +17,14 @@ constants and the leaf pointers by value (no host-to-device copy). On a
 CUDA tensor the wrapper launches the kernel or raises; only CPU tensors
 take ``round_message_plain``, which runs the same program with plain field
 ops. The TPU policies of the reference
-(host tail rounds, PALLAS_MIN, the 40-leaf cap, term chunking) are dropped:
-every round of every size goes through the kernel and the proof bytes are
-unchanged.
+(host tail rounds, PALLAS_MIN, the 40-leaf cap) are dropped: every round of
+every size goes through the kernel and the proof bytes are unchanged. A
+program past the kernel's compiled limits (MAX_LEAVES, MAX_OPS,
+MAX_CONSTS, MAX_STACK) is split as the JAX package chunks its terms
+(``plan_round``): chunks of whole challenge-weighted terms, one launch a
+chunk, the messages added on the device before the round's one read. A
+degree past MAX_DEGREE is refused at set-up on the card
+(``check_degree``).
 
 Under a mesh (``parallel/sharding.py``'s ``use_mesh``) the leaf tables are
 built whole and split by their high index bits over the mesh's shards;
@@ -34,13 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
-from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host
+from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host, split_challenge_terms
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
@@ -149,20 +154,35 @@ class RoundProgram:
 _PROGRAMS: Dict[Tuple, RoundProgram] = {}
 
 
-def lower_expression(expression: Expression, keys: Sequence[Tuple]) -> RoundProgram:
-    """Lower the expression to a postfix program over the leaf tables in
-    `keys` order, cached on its structural key. DistributePowers becomes
-    Horner's rule: e0 + b(e1 + b(e2 + ...))."""
-    cache_key = (expression.structural_key, tuple(keys))
-    prog = _PROGRAMS.get(cache_key)
-    if prog is not None:
-        return prog
-    leaf_index = {k: i for i, k in enumerate(keys)}
-    ops: List[Tuple[int, int]] = []
-    consts: Dict[int, int] = {}  # value -> its slot, so a repeated constant takes one of MAX_CONSTS
+def _stack_need(e: Expression, memo: Dict[int, int]) -> int:
+    """Stack slots the postfix program of `e` needs, children of a sum or
+    product emitted deeper first (Sethi-Ullman)."""
+    got = memo.get(id(e))
+    if got is not None:
+        return got
+    k = e.kind
+    if k in ("neg", "scaled"):
+        need = _stack_need(e.args[0], memo)
+    elif k in ("sum", "product"):
+        a, b = (_stack_need(x, memo) for x in e.args)
+        need = max(a, b) + (a == b)
+    elif k == "powers":
+        exprs, base = e.args
+        need = max([_stack_need(exprs[-1], memo), 1 + _stack_need(base, memo)]
+                   + [1 + _stack_need(x, memo) for x in exprs[:-1]])
+    else:
+        need = 1
+    memo[id(e)] = need
+    return need
 
-    def const(v: int) -> int:
-        return consts.setdefault(int(v), len(consts))
+
+def _emit(expression: Expression, leaf_index: Dict[Tuple, int], ops: List[Tuple[int, int]], const) -> None:
+    """Append the postfix program of `expression` to `ops`. DistributePowers
+    becomes Horner's rule: e0 + b(e1 + b(e2 + ...)); of a sum's or a
+    product's children the one that needs the deeper stack comes first
+    (both ops commute), so a right-deep tree needs no more stack than a
+    left-deep one."""
+    memo: Dict[int, int] = {}
 
     def emit(e: Expression):
         k = e.kind
@@ -183,8 +203,11 @@ def lower_expression(expression: Expression, keys: Sequence[Tuple]) -> RoundProg
             emit(e.args[0])
             ops.append((OP_NEG, 0))
         elif k in ("sum", "product"):
-            emit(e.args[0])
-            emit(e.args[1])
+            a, b = e.args
+            if _stack_need(b, memo) > _stack_need(a, memo):
+                a, b = b, a
+            emit(a)
+            emit(b)
             ops.append((OP_ADD if k == "sum" else OP_MUL, 0))
         elif k == "scaled":
             emit(e.args[0])
@@ -201,15 +224,175 @@ def lower_expression(expression: Expression, keys: Sequence[Tuple]) -> RoundProg
             raise ValueError(f"unknown kind {k}")
 
     emit(expression)
+
+
+def _program(ops: List[Tuple[int, int]], consts: Dict[int, int]) -> RoundProgram:
     depth = max_depth = 0
     for op, _ in ops:
         depth += 1 if op in (OP_LEAF, OP_CONST, OP_CHAL) else (-1 if op in (OP_ADD, OP_MUL) else 0)
         max_depth = max(max_depth, depth)
-    if max_depth > MAX_STACK:
-        raise SumcheckError(f"expression needs a stack of {max_depth} > {MAX_STACK}")
-    prog = RoundProgram(tuple(ops), tuple(consts), max_depth)
+    return RoundProgram(tuple(ops), tuple(consts), max_depth)
+
+
+def _lower(expression: Expression, keys: Sequence[Tuple]) -> RoundProgram:
+    """The postfix program of the expression over the leaf tables in `keys`
+    order, whatever its size."""
+    ops: List[Tuple[int, int]] = []
+    consts: Dict[int, int] = {}  # value -> its slot, so a repeated constant takes one of MAX_CONSTS
+    _emit(expression, {k: i for i, k in enumerate(keys)}, ops, lambda v: consts.setdefault(int(v), len(consts)))
+    return _program(ops, consts)
+
+
+def lower_expression(expression: Expression, keys: Sequence[Tuple]) -> RoundProgram:
+    """Lower the expression to a postfix program over the leaf tables in
+    `keys` order, cached on its structural key (see ``_emit``). Raises if
+    the program needs more than the kernel's MAX_STACK slots."""
+    cache_key = (expression.structural_key, tuple(keys))
+    prog = _PROGRAMS.get(cache_key)
+    if prog is not None:
+        return prog
+    prog = _lower(expression, keys)
+    if prog.max_stack > MAX_STACK:
+        raise SumcheckError(
+            f"expression of depth {_depth(expression)} needs a stack of {prog.max_stack} > {MAX_STACK}"
+        )
     _PROGRAMS[cache_key] = prog
     return prog
+
+
+def _depth(e: Expression) -> int:
+    """Nodes on the longest path from the root to a leaf."""
+    if e.kind == "powers":
+        return 1 + max(_depth(x) for x in (*e.args[0], e.args[1]))
+    if e.kind in ("neg", "scaled"):
+        return 1 + _depth(e.args[0])
+    if e.kind in ("sum", "product"):
+        return 1 + max(_depth(x) for x in e.args)
+    return 1
+
+
+def _fits(prog: RoundProgram, leaves: int) -> bool:
+    return (leaves <= MAX_LEAVES and len(prog.ops) <= MAX_OPS and len(prog.consts) <= MAX_CONSTS
+            and prog.max_stack <= MAX_STACK)
+
+
+@dataclasses.dataclass
+class RoundChunk:
+    """One launch of a split round: its program over the leaf tables
+    `leaves` (indices into the round's tables) computes sum_j c_j * t_j over
+    its terms, each coefficient c_j read as the challenge row
+    ``num_challenges + term index`` (see ``RoundPlan.challenge_rows``)."""
+
+    program: RoundProgram
+    leaves: Tuple[int, ...]
+
+
+@dataclasses.dataclass
+class RoundPlan:
+    """How a sumcheck's round message is computed. Within the kernel's
+    limits: one program over every leaf table, one launch a round. Past
+    them: the expression split into challenge-weighted terms
+    (``split_challenge_terms``), packed into chunks of whole terms that each
+    fit every limit, one launch a chunk; the coefficients are challenge-only
+    expressions evaluated on the host, as the JAX package does
+    (piop/sum_check.py:555-560), and the chunks' messages are added on the
+    device (a stack, one ``sum_reduce``) before the round's one read."""
+
+    program: Optional[RoundProgram]
+    chunks: Tuple[RoundChunk, ...] = ()
+    coeffs: Tuple[Expression, ...] = ()
+
+    def challenge_rows(self, p: int, challenges: Sequence[int]) -> List[int]:
+        """The challenges the launches read: the sumcheck's own and, for a
+        split round, each term's coefficient after them."""
+        def leaf(kind, arg):
+            raise ValueError("coefficient expressions must be challenge-only")
+
+        return list(challenges) + [evaluate_host(c, p, leaf, list(challenges)) for c in self.coeffs]
+
+
+_PLANS: Dict[Tuple, RoundPlan] = {}
+
+
+def plan_round(expression: Expression, keys: Sequence[Tuple], p: int, num_challenges: int) -> RoundPlan:
+    """The round plan of a sumcheck (see ``RoundPlan``), cached on the
+    expression's structural key. Decided on the host the same way on every
+    device. Raises where one term alone passes a limit."""
+    cache_key = (expression.structural_key, tuple(keys), p, num_challenges)
+    plan = _PLANS.get(cache_key)
+    if plan is not None:
+        return plan
+    whole = _lower(expression, keys)
+    if _fits(whole, len(keys)):
+        plan = RoundPlan(_PROGRAMS.setdefault((expression.structural_key, tuple(keys)), whole))
+    else:
+        plan = _split_plan(expression, keys, p, num_challenges)
+    _PLANS[cache_key] = plan
+    return plan
+
+
+def _split_plan(expression: Expression, keys: Sequence[Tuple], p: int, num_challenges: int) -> RoundPlan:
+    terms = split_challenge_terms(expression, p)
+    index = {k: i for i, k in enumerate(keys)}
+
+    def reads(term: Expression) -> set:
+        used = {("poly", q.poly, q.rotation) for q in term.used_query}
+        used |= {("eq", i) for i in term.used_eq_xy} | {("lagrange", i) for i in term.used_lagrange}
+        if term.used_identity:
+            used.add(("identity",))
+        return {index[k] for k in used}
+
+    def lower(members: List[int]):
+        leaves = sorted(set().union(*(reads(terms[j][1]) for j in members))) or [0]
+        local = {keys[g]: i for i, g in enumerate(leaves)}
+        ops: List[Tuple[int, int]] = []
+        consts: Dict[int, int] = {}
+        for n, j in enumerate(members):
+            _emit(terms[j][1], local, ops, lambda v: consts.setdefault(int(v), len(consts)))
+            ops += [(OP_CHAL, num_challenges + j), (OP_MUL, 0)] + ([(OP_ADD, 0)] if n else [])
+        return RoundChunk(_program(ops, consts), tuple(leaves))
+
+    chunks: List[RoundChunk] = []
+    members: List[int] = []
+    for j in range(len(terms)):
+        trial = lower(members + [j])
+        if _fits(trial.program, len(trial.leaves)):
+            members.append(j)
+            continue
+        if not members:
+            raise SumcheckError(
+                f"a term of depth {_depth(terms[j][1])} alone passes the round kernel's limits "
+                f"({len(trial.leaves)} leaves, {len(trial.program.ops)} ops, {len(trial.program.consts)} "
+                f"constants, a stack of {trial.program.max_stack}; at most {MAX_LEAVES}, {MAX_OPS}, "
+                f"{MAX_CONSTS} and {MAX_STACK})"
+            )
+        chunks.append(lower(members))
+        members = [j]
+    if members:
+        chunks.append(lower(members))
+    return RoundPlan(None, tuple(chunks), tuple(c for c, _ in terms))
+
+
+def round_message_planned(spec: FieldSpec, tables: Sequence[torch.Tensor], plan: RoundPlan,
+                          challenges: Optional[torch.Tensor], degree: int) -> torch.Tensor:
+    """(degree, 8): the round message by `plan`, one ``round_message`` a
+    chunk (one for a plan within the limits), the chunks' messages added on
+    the tables' device with one ``sum_reduce``."""
+    if plan.program is not None:
+        return round_message(spec, tables, plan.program, challenges, degree)
+    outs = [round_message(spec, [tables[i] for i in c.leaves], c.program, challenges, degree) for c in plan.chunks]
+    return F.sum_reduce(spec, torch.stack(outs))
+
+
+def check_degree(degree: int, device, what: str) -> None:
+    """Raise before any prove work where the sumcheck of `what`, of
+    `degree`, would run on a CUDA device past the round kernel's
+    MAX_DEGREE: a degree is not split by terms. On the CPU the plain path
+    proves any degree."""
+    if torch.device(device).type == "cuda" and degree > MAX_DEGREE:
+        raise SumcheckError(
+            f"{what} has degree {degree}; the round kernel (csrc/sumcheck_round.cu) takes at most {MAX_DEGREE}"
+        )
 
 
 def round_message_plain(
@@ -380,11 +563,12 @@ def prove(
     device = first[0].device if isinstance(first, sharding.Shards) else first.device
     keys = _leaf_keys(expression, len(virtual_poly.polys))
     tables = _Tables(spec, [_leaf_table(spec, k, virtual_poly, num_vars, device) for k in keys], num_vars, mesh)
-    program = lower_expression(expression, keys)
-    chal = spec.encode(virtual_poly.challenges, device) if virtual_poly.challenges else None
+    plan = plan_round(expression, keys, p, len(virtual_poly.challenges))
+    rows = plan.challenge_rows(p, virtual_poly.challenges)
+    chal = spec.encode(rows, device) if rows else None
 
     def message(tabs: List[torch.Tensor]) -> torch.Tensor:
-        return round_message(spec, tabs, program, None if chal is None else chal.to(tabs[0].device), degree)
+        return round_message_planned(spec, tabs, plan, None if chal is None else chal.to(tabs[0].device), degree)
 
     challenges: List[int] = []
     current_sum = sum_ % p

@@ -233,6 +233,44 @@ def evaluate_many(spec: FieldSpec, evals: torch.Tensor, xs) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MLE wrapper
+# ---------------------------------------------------------------------------
+
+
+class MLE:
+    """Thin wrapper (the port of halo2_lasso_tpu/poly/multilinear.py:181):
+    (2^k, 8) Montgomery evals on a device and their field; ops return new
+    MLEs. ``from_ints`` puts the evals on the card unless the caller asks
+    for the CPU."""
+
+    __slots__ = ("spec", "evals", "num_vars")
+
+    def __init__(self, spec: FieldSpec, evals: torch.Tensor):
+        n = evals.shape[0]
+        if n & (n - 1) or n == 0 or evals.shape[1:] != (F.LIMBS,):
+            raise ValueError("MLE: evals must be (2^k, 8) field rows")
+        self.spec = spec
+        self.num_vars = n.bit_length() - 1
+        self.evals = evals
+
+    @staticmethod
+    def from_ints(spec: FieldSpec, values: Sequence[int], device="cuda") -> "MLE":
+        return MLE(spec, spec.encode(list(values), device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.evals.device
+
+    def to_ints(self) -> List[int]:
+        return self.spec.decode_ints(self.evals)
+
+    def evaluate_ints(self, x: Sequence[int]) -> int:
+        """The MLE at the host point x, as a canonical int (one
+        ``fix_var_chain`` launch on the card)."""
+        return self.spec.decode_ints(evaluate(self.spec, self.evals, [int(v) for v in x])[None])[0]
+
+
+# ---------------------------------------------------------------------------
 # host-side scalar helpers (python ints mod p) — verifier-domain math
 # ---------------------------------------------------------------------------
 

@@ -260,7 +260,7 @@ def test_round_kernel_matches_plain(cuda, expr, n_polys, pairs):
 
 def test_round_kernel_on_the_lasso_zero_check(cuda):
     """The nv = 16 Lasso-in-HyperPlonk zero check's expression (37 leaves,
-    degree 3, stack 5) at 2^12."""
+    degree 3, stack 3 with the deeper operand first) at 2^12."""
     from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
 
     ci, _ = fixtures.rand_lasso_circuit(16, np.random.RandomState(16), np.random.RandomState(516),
@@ -269,7 +269,7 @@ def test_round_kernel_on_the_lasso_zero_check(cuda):
     n_polys = ci.num_poly() + preprocessor.num_lasso_polys(ci) + len(ci.permutation_polys()) + 2 * len(ci.lookups) + nz
     keys = sc._leaf_keys(expr, n_polys)
     prog = sc.lower_expression(expr, keys)
-    assert (len(keys), expr.degree, prog.max_stack) == (37, 3, 5)
+    assert (len(keys), expr.degree, prog.max_stack) == (37, 3, 3)
     tables = [Fr.encode(rand_ints(Fr.modulus, 1 << 12), cuda) for _ in keys]
     chals = Fr.encode(rand_ints(Fr.modulus, 3), cuda)
     got = sc.round_message(Fr, tables, prog, chals, expr.degree)

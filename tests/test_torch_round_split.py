@@ -1,0 +1,221 @@
+"""Round programs past the round kernel's limits (piop/sum_check.py
+``plan_round``) against the JAX package on the CPU: with MAX_LEAVES,
+MAX_OPS or MAX_CONSTS set low the nv = 4 vanilla zero check and a GKR batch
+are cut into chunks of whole terms and prove byte-equal; a GKR batch past
+the real limits (100 grand products, 201 leaves) is byte-equal at nv = 4,
+and at nv = 6 hashes to chip_smoke.SPLIT_SHA256, the JAX package's proof;
+a right-deep expression lowers within the stack; a gate of degree 9 is
+refused at set-up on a CUDA device, before any prove work."""
+
+import hashlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from halo2_lasso_tpu.backend.hyperplonk import fixtures as jfixtures
+from halo2_lasso_tpu.backend.hyperplonk import preprocessor as jpreprocessor
+from halo2_lasso_tpu.expression import Expression as JExpression
+from halo2_lasso_tpu.ops.bn254 import Fr as JFr
+from halo2_lasso_tpu.piop import gkr as jgkr
+from halo2_lasso_tpu.piop import sum_check as jsc
+from halo2_lasso_tpu.transcript import Keccak256Transcript as JTranscript
+from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, fixtures, preprocessor
+from halo2_lasso_tpu_torch.expression import Expression, from_foreign
+from halo2_lasso_tpu_torch.ops import field as F
+from halo2_lasso_tpu_torch.ops.bn254 import Fr
+from halo2_lasso_tpu_torch.pcs.multilinear_kzg import KzgParams
+from halo2_lasso_tpu_torch.piop import gkr
+from halo2_lasso_tpu_torch.piop import sum_check as sc
+from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+P = Fr.modulus
+NV = 4
+torch.set_num_threads(1)  # tiny tensors; the suite's workers share the cores
+RNG = np.random.RandomState(1607)
+
+# limits below the nv = 4 vanilla zero check's (17 leaves, 93 ops, 4
+# constants; its largest term 10 leaves, 60 ops, 2 constants) and a GKR
+# batch of 6's (13 leaves, 53 ops)
+ZERO_CHECK_LIMITS = [("MAX_LEAVES", 12), ("MAX_OPS", 64), ("MAX_CONSTS", 2)]
+GKR_LIMITS = [("MAX_LEAVES", 8), ("MAX_OPS", 20)]
+
+
+def rand_fes(n):
+    return [int.from_bytes(RNG.bytes(40), "little") % P for _ in range(n)]
+
+
+@pytest.fixture
+def low_limit(request, monkeypatch):
+    """One of the kernel's limits set low, and the plan cache emptied."""
+    name, value = request.param
+    monkeypatch.setattr(sc, name, value)
+    monkeypatch.setattr(sc, "_PLANS", {})
+    return request.param
+
+
+def zero_check_case():
+    """The nv = 4 vanilla plonk circuit's composed zero-check expression in
+    both packages, with random polys, challenges and point."""
+    jci, _ = jfixtures.rand_vanilla_plonk_circuit(NV, np.random.RandomState(42), np.random.RandomState(43))
+    _, jexpr = jpreprocessor.compose(jci)
+    ci, _ = fixtures.rand_vanilla_plonk_circuit(NV, np.random.RandomState(42), np.random.RandomState(43))
+    _, expr = preprocessor.compose(ci)
+    assert expr.structural_key == jexpr.structural_key
+    n_polys = 1 + max(q.poly for q in expr.used_query)
+    n_chal = 1 + max(expr.used_challenge)
+    return expr, jexpr, n_polys, n_chal
+
+
+def sumcheck_both(expr, jexpr, n_polys, n_chal, k=NV):
+    """(port proof, JAX proof) of one sumcheck on the same random inputs;
+    the port's also verified by both packages' verifiers."""
+    polys = [rand_fes(1 << k) for _ in range(n_polys)]
+    chals, y, claim = rand_fes(n_chal), rand_fes(k), rand_fes(1)[0]
+    jt = JTranscript(P)
+    jpolys = [jnp.asarray(JFr.encode(v)) for v in polys]
+    jout = jsc.prove(JFr, k, jsc.VirtualPolynomial(jexpr, jpolys, chals, [y]), claim, jt)
+    tt = Keccak256Transcript(P)
+    tpolys = [F.from_jax_limbs(np.asarray(v)) for v in jpolys]
+    out = sc.prove(Fr, k, sc.VirtualPolynomial(expr, tpolys, chals, [y]), claim, tt)
+    assert out == jout
+    return tt.into_proof(), jt.into_proof()
+
+
+def gkr_both(b, k=NV, seed=5):
+    """(port proof, JAX proof) of a pure grand-product GKR batch of b."""
+    rng = np.random.RandomState(seed)
+    vals = rng.randint(1, 1 << 62, size=(b, 1 << k), dtype=np.int64)
+    jt = JTranscript(P)
+    jqs = [jnp.asarray(JFr.encode([int(v) for v in row])) for row in vals]
+    jout = jgkr.prove_fractional_sum_check([0] * b, [None] * b, [None] * b, jqs, jt)
+    tt = Keccak256Transcript(P)
+    out = gkr.prove_fractional_sum_check([0] * b, [None] * b, [None] * b, list(F.encode_dev(Fr, vals)), tt)
+    assert out == jout
+    proof = tt.into_proof()
+    assert gkr.verify_fractional_sum_check(k, [0] * b, [None] * b, Keccak256Transcript(P, proof=proof))[:3] == out[:3]
+    return proof, jt.into_proof()
+
+
+@pytest.mark.parametrize("low_limit", ZERO_CHECK_LIMITS, indirect=True, ids=lambda v: v[0])
+def test_split_zero_check_matches_jax(low_limit):
+    expr, jexpr, n_polys, n_chal = zero_check_case()
+    plan = sc.plan_round(expr, sc._leaf_keys(expr, n_polys), P, n_chal)
+    assert plan.program is None and len(plan.chunks) > 1
+    for c in plan.chunks:
+        assert len(c.leaves) <= sc.MAX_LEAVES and len(c.program.ops) <= sc.MAX_OPS
+        assert len(c.program.consts) <= sc.MAX_CONSTS and c.program.max_stack <= sc.MAX_STACK
+    proof, jproof = sumcheck_both(expr, jexpr, n_polys, n_chal)
+    assert proof == jproof
+
+
+@pytest.mark.parametrize("low_limit", GKR_LIMITS, indirect=True, ids=lambda v: v[0])
+def test_split_gkr_batch_matches_jax(low_limit):
+    expr = gkr.sum_check_expression_pure(6)
+    assert len(sc.plan_round(expr, sc._leaf_keys(expr, 12), P, 1).chunks) > 1
+    proof, jproof = gkr_both(6)
+    assert proof == jproof
+
+
+def test_gkr_batch_past_the_real_limits_matches_jax():
+    """100 grand products: 201 leaves and 1,000 ops a round, two chunks."""
+    expr = gkr.sum_check_expression_pure(100)
+    keys = sc._leaf_keys(expr, 200)
+    assert len(keys) > sc.MAX_LEAVES and len(sc._lower(expr, keys).ops) > sc.MAX_OPS
+    plan = sc.plan_round(expr, keys, P, 1)
+    assert plan.program is None and len(plan.chunks) == 2
+    proof, jproof = gkr_both(100)
+    assert proof == jproof
+
+
+def test_split_golden_is_the_jax_packages():
+    """The smoke's split GKR batch at nv = 6: the JAX package's proof hash
+    is chip_smoke.SPLIT_SHA256, and the port's CPU proof is the same."""
+    cfg = chip_smoke.SPLIT_GKR
+    vals = chip_smoke.split_gkr_inputs(np, cfg, 6)
+    b = cfg["products"]
+    jt = JTranscript(P)
+    jgkr.prove_fractional_sum_check([0] * b, [None] * b, [None] * b,
+                                    [jnp.asarray(JFr.encode([int(v) for v in row])) for row in vals], jt)
+    assert hashlib.sha256(jt.into_proof()).hexdigest() == chip_smoke.SPLIT_SHA256
+    proof, _ = chip_smoke.split_gkr_proof(np, cfg, "cpu", 6)
+    assert hashlib.sha256(proof).hexdigest() == chip_smoke.SPLIT_SHA256
+
+
+def _left_first_stack(e) -> int:
+    """The stack the program of `e` needs with every child emitted left
+    first (the order before the deeper-first rule)."""
+    if e.kind in ("neg", "scaled"):
+        return _left_first_stack(e.args[0])
+    if e.kind in ("sum", "product"):
+        return max(_left_first_stack(e.args[0]), 1 + _left_first_stack(e.args[1]))
+    return 1
+
+
+def right_deep(E):
+    """eq * (p0 q0 + (p1 q1 + (... + p7 q7))): right-deep, degree 3."""
+    acc = E.poly(14) * E.poly(15)
+    for i in range(6, -1, -1):
+        acc = E.poly(2 * i) * E.poly(2 * i + 1) + acc
+    return E.eq_xy(0) * acc
+
+
+def test_right_deep_expression_fits_the_stack():
+    expr, jexpr = right_deep(Expression), right_deep(JExpression)
+    assert _left_first_stack(expr) == 10
+    prog = sc.lower_expression(expr, sc._leaf_keys(expr, 16))
+    assert prog.max_stack <= sc.MAX_STACK
+    assert sc.plan_round(expr, sc._leaf_keys(expr, 16), P, 0).program is prog
+    proof, jproof = sumcheck_both(expr, jexpr, 16, 0)
+    assert proof == jproof
+
+
+def test_too_deep_term_is_reported(monkeypatch):
+    """A program that still needs more than MAX_STACK (set to 2 here) is
+    refused with its depth named, and a term that alone does not fit ends
+    the split."""
+    monkeypatch.setattr(sc, "MAX_STACK", 2)
+    monkeypatch.setattr(sc, "_PLANS", {})
+    expr = right_deep(Expression)
+    E = Expression
+    with pytest.raises(sc.SumcheckError, match="depth 3 needs a stack of 3"):
+        sc.lower_expression(E.poly(0) * E.poly(1) + E.poly(2) * E.poly(3), [("poly", i, 0) for i in range(4)])
+    with pytest.raises(sc.SumcheckError, match="alone passes"):
+        sc.plan_round(expr, sc._leaf_keys(expr, 16), P, 0)
+
+
+def degree9_circuit():
+    """The nv = 3 vanilla circuit with its first gate raised to degree 9."""
+    ci, circ = fixtures.rand_vanilla_plonk_circuit(3, np.random.RandomState(42), np.random.RandomState(43))
+    q = ci.constraints[0]
+    for _ in range(8 - q.degree):
+        q = q * Expression.poly(0)
+    ci.constraints = [q] + list(ci.constraints[1:])
+    ci.max_degree = 8
+    return ci
+
+
+def test_degree_past_the_kernel_refused_at_set_up(monkeypatch):
+    ci = degree9_circuit()
+    assert preprocessor.compose(ci)[1].degree == 9
+    param = HyperPlonk.setup(ci, np.random.RandomState(0), device="cpu")
+    monkeypatch.setattr(KzgParams, "device", property(lambda self: torch.device("cuda")))
+    with pytest.raises(sc.SumcheckError, match="degree 9.*at most 8"):
+        HyperPlonk.preprocess(param, ci)
+    sc.check_degree(9, "cpu", "a gate")  # the plain path proves any degree
+    with pytest.raises(sc.SumcheckError, match="degree 9"):
+        sc.check_degree(9, "cuda", "a gate")
+
+
+def test_foreign_split_terms_match_jax():
+    """split_challenge_terms of the composed zero check: the same terms and
+    coefficients as the JAX package's."""
+    from halo2_lasso_tpu.expression import split_challenge_terms as jsplit
+    from halo2_lasso_tpu_torch.expression import split_challenge_terms
+
+    expr, jexpr, _, _ = zero_check_case()
+    got = [(c.structural_key, t.structural_key) for c, t in split_challenge_terms(expr, P)]
+    want = [(from_foreign(c).structural_key, from_foreign(t).structural_key) for c, t in jsplit(jexpr, P)]
+    assert got == want and len(got) > 1
