@@ -31,8 +31,9 @@ Phases, each printing one line with its wall time:
      included; the plane tree plane_tree over the buckets of the 2^16 and
      2^19 MSMs and of a Hyrax row MSM (256 points, c = 4, W = 64); the
      device times of msm_level, ec_ladder and plane_tree in one fresh
-     process at the end of the phase, which fails unless the profiler
-     records every launch; fold_all (1, 37, 64, 65 tables, the
+     process after phase 17 (with phases 16's and 17's), which fails unless
+     the profiler records every launch, the phase's timed lines printed
+     then; fold_all (1, 37, 64, 65 tables, the
      challenge as a host int and on the card) at 6 tables of 2^16; the
      Montgomery chains of csrc/mont_chain.cu: mont_pow (exponents 0, 1, 2,
      p - 2, random) on batch_inv's one total, the scan both ways and
@@ -145,7 +146,27 @@ Phases, each printing one line with its wall time:
      bench.py:100's inputs through the production MSM, msm_affine and the
      scan MSM, and an nv = 16 open's quotient MSMs with and without the
      segmented grouping (SEG_LANES), the points equal, with their launches
-     and device ms from a fresh process.
+     and device ms from the fresh process.
+ 17. sumchecks past the round kernel's degree 8, then the Pasta curves
+     (run_degree_phase, run_pasta_phase): lt_table(64, 8) at 2^16 lookups
+     (LT64, a primary sumcheck of degree 9, each round two launches of K1
+     from t0 = 0 and 8) set up, proved, verified and a flipped byte
+     rejected, and lt_table(56, 8) (degree 8), its prove's K1 launches the
+     primary rounds fewer; the small twins on the card hashing to the JAX
+     package's proofs (LT16_SHA256, DEGREE9_SHA256); for each of Pallas and
+     Vesta a 2^16 MSM on bench.py:100's inputs (points from fixed_base_msm)
+     through the production MSM equal to msm_affine's and on the curve, the
+     IPA-shaped ladder (2^15 lanes) against curves.host_mul on 64 lanes;
+     every Pasta instance of K4 (the six op codes, mont_pow, the scan,
+     batch_inv) and K3 (ec_add, msm_level over every level, ec_ladder over
+     every one of 2^15 lanes, plane_tree) bit-exact against its plain
+     version on the card, K1 at degrees 9 and 17 (2 and 3 launches) and
+     from t0 > 0 against its plain version, and K1, K2, K5, sum_reduce and
+     eq_xy raising on a Pasta tensor (every entry point refusing an
+     unknown field id); then the device times of phases 3, 16 and 17 from
+     one fresh process, each Pasta instance's beside its BN254 twin's, its
+     bound by Pasta's Montgomery product (imad_per_mont_mul: 176
+     multiply-adds, against BN254's 256).
 The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
 nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
 the point, with identity lanes), and the field instances that phase 13 runs
@@ -166,7 +187,8 @@ that and one (on MultilinearIpa's, ec_add is nv).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, the two full-width paths of 10, 11, the five
 full-size paths of 12, the two of 13, the one of 14, the three sharded
-proves of 15 and the eight paths of 16) and read just after it; each path must
+proves of 15, the eight paths of 16 and the four of 17) and read just
+after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
@@ -196,6 +218,7 @@ import sys
 import time
 
 WATCHDOG_S = 1000  # below the smoke's 1200 s limit, with a margin
+FRESH_RESTARTS = 2  # more fresh device-time processes, where one failed after some jobs
 SMALL_PROOF_SHA256 = "efdcdbf4dea8fa963635aa51725015c5674d43549b67e0e11f91054ed81db806"
 SMALL = {"index_bits": 8, "chunk_bits": 4, "lookups": 16, "srs_seed": 3, "index_seed": 77}
 SLICE = {"index_bits": 16, "chunk_bits": 16, "lookups": 1 << 16, "srs_seed": 3, "index_seed": 1}
@@ -296,6 +319,10 @@ PATH_KERNELS = {
     "msm_scan": ("ec_add", "mont_mul"),
     "msm_quotients": ("msm_level", "plane_tree"),
     "msm_quotients_grouped": ("msm_level", "plane_tree"),
+    # phase 17: Lasso with a primary sumcheck of degree 9 and 8 (each Pasta
+    # curve's path, "pasta_<curve>", is added by run_pasta_phase)
+    "lasso_lt64": PROOF_KERNELS,
+    "lasso_lt56": PROOF_KERNELS,
 }
 # phase 14: HyperPlonk over Brakedown, phase 7's circuit at nv = 16, and the
 # rows of its code encoded on the card against the CPU
@@ -324,6 +351,20 @@ DRYRUN_TIMEOUT_S = 240  # each worker's, from its start
 # hashes to the JAX package's (SPLIT_SHA256, tests/test_torch_round_split.py)
 SPLIT_GKR = {"products": 100, "num_vars": 16, "seed": 11}
 SPLIT_SHA256 = "6d8566f486c9b7146ce09500a6d02e95871b97705aca31e19e5df0aaab7ed4ec"
+# phase 17: sumchecks past the round kernel's MAX_DEGREE (8), split into
+# chunks of points: a 64-bit unsigned compare in 8-bit chunks (the
+# primary sumcheck of degree 9) at 2^16 lookups against the same table in 7
+# chunks (lt_table(56, 8), degree 8: one launch a round), and two small twins hashing
+# to the JAX package's proofs (tests/test_torch_round_split.py): the nv = 3
+# vanilla circuit with a gate of degree 8 (a zero check of degree 9) and
+# lt_table(16, 2); then the Pasta curves' instances of K4 and K3
+LT64 = {"table": ("lt_table", 64, 8), "lookups": 1 << 16, "srs_seed": 3, "index_seed": 1}
+LT56 = {"table": ("lt_table", 56, 8), "lookups": 1 << 16, "srs_seed": 3, "index_seed": 1}
+LT16_SMALL = {"table": ("lt_table", 16, 2), "lookups": 8, "srs_seed": 3, "index_seed": 171}
+LT16_SHA256 = "95d0888c404993165852a6350e97af474edd9f84efbcfb968899f292bf3f2a70"
+DEGREE9_SMALL = {"circuit": "raised_gate_circuit", "num_vars": 3, "seeds": (42, 43), "setup_seed": 0,
+                 "gate_degree": 8}
+DEGREE9_SHA256 = "6bdcbbab8b9bc7afe34b22041cbc46a057c06477103966de1e140dc8b44b70bc"
 # the lane budget of phase 16's grouped quotient MSMs
 # (HALO2_LASSO_TPU_MSM_GROUP_LANES): the nv = 16 open's 16 MSMs in three
 # segmented pipelines (2^15 and 2^14; 2^13 .. 2^5; the rest)
@@ -368,46 +409,13 @@ def main() -> int:
     for line in ptxas_lines(native.ptxas_info):
         print("  ptxas " + line, flush=True)
 
-    # 3. kernels
+    # 3. kernels (their device times come from one fresh process, with
+    # phases 16's and 17's, at the end)
     t0 = time.perf_counter()
-    kernels = check_kernels(torch, np, dev)
+    fresh = FreshDeviceTimes()
+    kernels = check_kernels(torch, np, dev, fresh)
     stage("kernels", t0, "bit-exact: " + ", ".join(k["name"] for k in kernels))
-    print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
     by_name = {k["name"]: k for k in kernels}
-    for name in ("mont_mul", "sum_reduce", "fix_var", "sumcheck_round"):
-        for shape, r in by_name[name]["timed"].items():
-            print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r['device_ms']:.4f}ms (bound "
-                  f"{r['bound_ms']:.5f}ms, {r['bound_by']}; plain {r['plain_ms']:.3f}ms)", flush=True)
-    k1, k3, lv = by_name["sumcheck_round"], by_name["ec_add"], by_name["msm_level"]
-    print(f"sumcheck_round: {k1['shape']}: {k1['ms']:.4f}ms, device {k1['device_ms']:.4f}ms "
-          f"(bound {k1['bound_ms']:.4f}ms, {k1['bound_by']}); "
-          f"Lasso primary 2^16: {k1['primary_ms']:.4f}ms (bound {k1['primary_bound_ms']:.4f}ms, "
-          f"{k1['primary_bound_by']})", flush=True)
-    print(f"ec_add: {k3['shape']}: {k3['ms']:.4f}ms (bound {k3['bound_ms']:.4f}ms); PR 6's 878,592 lanes "
-          f"of the five cases {k3['five_case_ms']:.4f}ms (bound {k3['five_case_bound_ms']:.4f}ms); "
-          f"{k3['ladder_shape']}: {k3['ladder_ms']:.4f}ms (bound {k3['ladder_bound_ms']:.4f}ms, "
-          f"{k3['ladder_bound_by']}; plain {k3['ladder_plain_ms']:.3f}ms)", flush=True)
-    print(f"msm_level: {lv['shape']}: device {lv['ms']:.4f}ms, events {lv['event_ms']:.4f}ms (bound "
-          f"{lv['bound_ms']:.4f}ms over {lv['adds']} adds; plain {lv['plain_ms']:.2f}ms)", flush=True)
-    for shape, r in lv["timed"].items():
-        print(f"msm_level: {shape}: device {r['device_ms']:.4f}ms, events {r['ms']:.4f}ms (bound "
-              f"{r['bound_ms']:.4f}ms over {r['adds']} adds)", flush=True)
-    for name in ("fold_all", "mont_pow", "prefix_products", "eq_xy"):
-        k = by_name[name]
-        print(f"{name}: {k['shape']}: events {k['ms']:.4f}ms, device {k['device_ms']:.4f}ms (bound "
-              f"{k['bound_ms']:.5f}ms, {k['bound_by']}; plain {k['plain_ms']:.3f}ms)", flush=True)
-    for name in ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin"):
-        k = by_name[name]
-        extra_ms = f", device {k['device_ms']:.4f}ms" if "device_ms" in k else ""
-        if "event_ms" in k:
-            extra_ms = f" (device), events {k['event_ms']:.4f}ms"
-        print(f"{name}: {k['shape']}: {k['ms']:.4f}ms{extra_ms} (bound {k['bound_ms']:.5f}ms, {k['bound_by']}; "
-              f"plain {k['plain_ms']:.3f}ms)", flush=True)
-    print_ladder_and_tree(by_name)
-    bi = by_name["prefix_products"]
-    print(f"batch_inv: 2^17 Fr: events {bi['batch_inv_ms']:.4f}ms, device {bi['batch_inv_device_ms']:.4f}ms "
-          f"(bound {bi['batch_inv_bound_ms']:.5f}ms, {bi['batch_inv_bound_by']}; plain "
-          f"{bi['batch_inv_plain_ms']:.3f}ms)", flush=True)
 
     # 4. small proof against the JAX package's bytes
     proof_gate(np, lasso_proof, SMALL, SMALL_PROOF_SHA256, "small_proof", "range_table(8,4), 16 lookups")
@@ -516,7 +524,24 @@ def main() -> int:
     # 16. K1 past its compiled limits (a GKR batch split into chunks), the
     # parameter files of phases 7, 5 and 6 reloaded onto the card, and the
     # comparison MSM engines at 2^16
-    run_support_phase(torch, np, launches, plonk_path, slice_path, smi)
+    engines = run_support_phase(torch, np, launches, plonk_path, slice_path, smi, fresh)
+
+    # 17. sumchecks past the round kernel's degree 8 (lt_table(64, 8) at 2^16
+    # lookups and the small twins against the JAX package's bytes), then the
+    # Pasta curves: MSMs and ladders over Pallas and Vesta and every Pasta
+    # instance of K4 and K3 against its plain version
+    run_degree_phase(torch, np, launches, smi)
+    pasta, k1_points = run_pasta_phase(torch, np, launches, smi, fresh)
+
+    # the device times of phases 3, 16 and 17, in one fresh process
+    t0 = time.perf_counter()
+    fresh.run(torch)
+    stage("device_times", t0, f"a fresh process, {len(fresh.jobs)} jobs")
+    print_kernel_times(kernels)
+    print_engines(engines, fresh, smi)
+    print_pasta(pasta, k1_points, smi)
+    kernels += list(pasta.values())
+    by_name["sumcheck_round"]["timed"].update(k1_points)
 
     for path, counts in launches.items():
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
@@ -536,16 +561,58 @@ def main() -> int:
     return 0
 
 
-def proof_gate(np, prove_fn, cfg, want_sha, name, label):
-    """A small proof on the card and through the plain path on the CPU must
-    both hash to `want_sha`, the SHA-256 of the JAX package's proof."""
+def print_kernel_times(kernels):
+    """The kernel phase's lines, once the fresh process has run: each
+    kernel's events, device and plain times and bound at its shapes."""
+    by_name = {k["name"]: k for k in kernels}
+    print("kernels " + " ".join(f"{k['name']}={k['ms']:.4f}ms(plain {k['plain_ms']:.3f}ms)" for k in kernels), flush=True)
+    for name in ("mont_mul", "sum_reduce", "fix_var", "sumcheck_round"):
+        for shape, r in by_name[name]["timed"].items():
+            print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r['device_ms']:.4f}ms (bound "
+                  f"{r['bound_ms']:.5f}ms, {r['bound_by']}; plain {r['plain_ms']:.3f}ms)", flush=True)
+    k1, k3, lv = by_name["sumcheck_round"], by_name["ec_add"], by_name["msm_level"]
+    print(f"sumcheck_round: {k1['shape']}: {k1['ms']:.4f}ms, device {k1['device_ms']:.4f}ms "
+          f"(bound {k1['bound_ms']:.4f}ms, {k1['bound_by']}); "
+          f"Lasso primary 2^16: {k1['primary_ms']:.4f}ms (bound {k1['primary_bound_ms']:.4f}ms, "
+          f"{k1['primary_bound_by']})", flush=True)
+    print(f"ec_add: {k3['shape']}: {k3['ms']:.4f}ms (bound {k3['bound_ms']:.4f}ms); 878,592 lanes "
+          f"of the five cases {k3['five_case_ms']:.4f}ms (bound {k3['five_case_bound_ms']:.4f}ms); "
+          f"{k3['ladder_shape']}: {k3['ladder_ms']:.4f}ms (bound {k3['ladder_bound_ms']:.4f}ms, "
+          f"{k3['ladder_bound_by']}; plain {k3['ladder_plain_ms']:.3f}ms)", flush=True)
+    print(f"msm_level: {lv['shape']}: device {lv['ms']:.4f}ms, events {lv['event_ms']:.4f}ms (bound "
+          f"{lv['bound_ms']:.4f}ms over {lv['adds']} adds; plain {lv['plain_ms']:.2f}ms)", flush=True)
+    for shape, r in lv["timed"].items():
+        print(f"msm_level: {shape}: device {r['device_ms']:.4f}ms, events {r['ms']:.4f}ms (bound "
+              f"{r['bound_ms']:.4f}ms over {r['adds']} adds)", flush=True)
+    for name in ("fold_all", "mont_pow", "prefix_products", "eq_xy"):
+        k = by_name[name]
+        print(f"{name}: {k['shape']}: events {k['ms']:.4f}ms, device {k['device_ms']:.4f}ms (bound "
+              f"{k['bound_ms']:.5f}ms, {k['bound_by']}; plain {k['plain_ms']:.3f}ms)", flush=True)
+    for name in ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin"):
+        k = by_name[name]
+        extra_ms = f", device {k['device_ms']:.4f}ms" if "device_ms" in k else ""
+        if "event_ms" in k:
+            extra_ms = f" (device), events {k['event_ms']:.4f}ms"
+        print(f"{name}: {k['shape']}: {k['ms']:.4f}ms{extra_ms} (bound {k['bound_ms']:.5f}ms, {k['bound_by']}; "
+              f"plain {k['plain_ms']:.3f}ms)", flush=True)
+    print_ladder_and_tree(by_name)
+    bi = by_name["prefix_products"]
+    print(f"batch_inv: 2^17 Fr: events {bi['batch_inv_ms']:.4f}ms, device {bi['batch_inv_device_ms']:.4f}ms "
+          f"(bound {bi['batch_inv_bound_ms']:.5f}ms, {bi['batch_inv_bound_by']}; plain "
+          f"{bi['batch_inv_plain_ms']:.3f}ms)", flush=True)
+
+
+def proof_gate(np, prove_fn, cfg, want_sha, name, label, cpu=True):
+    """A small proof on the card and (with `cpu`) through the plain path on
+    the CPU must both hash to `want_sha`, the SHA-256 of the JAX package's
+    proof."""
     t0 = time.perf_counter()
     gpu_proof = prove_fn(np, cfg, "cuda")[0]
-    cpu_proof = prove_fn(np, cfg, "cpu")[0]
+    cpu_proof = prove_fn(np, cfg, "cpu")[0] if cpu else gpu_proof
     sha = hashlib.sha256(gpu_proof).hexdigest()
     if sha != want_sha or cpu_proof != gpu_proof:
         raise SystemExit(f"{name} proof mismatch: gpu {sha}, cpu {hashlib.sha256(cpu_proof).hexdigest()}")
-    stage(name, t0, f"{label}: {len(gpu_proof)} bytes sha256 {sha[:16]} == JAX, == CPU plain path")
+    stage(name, t0, f"{label}: {len(gpu_proof)} bytes sha256 {sha[:16]} == JAX" + (", == CPU plain path" if cpu else ""))
 
 
 def run_path(launches, path, name, label, run):
@@ -1030,16 +1097,35 @@ def rejects_flipped_byte(verify_fn, proof):
 def make_circuit(np, cfg, **kwargs):
     """(circuit info, circuit) of a config: a fixture of
     backend/hyperplonk/fixtures.py with its seeds' RandomStates, the ARX
-    chain of frontend/arx.py, or the builder's copy circuit."""
+    chain of frontend/arx.py, the builder's copy circuit, or the vanilla
+    fixture with its first gate raised to a degree (``raise_gate``)."""
     from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures
+    from halo2_lasso_tpu_torch.expression import Expression
     from halo2_lasso_tpu_torch.frontend import arx, builder
 
     name = cfg["circuit"]
     if name == "builder_copy_circuit":
         return builder_copy_circuit(builder.CircuitBuilder, builder.P)
+    if name == "raised_gate_circuit":
+        ci, circuit = fixtures.rand_vanilla_plonk_circuit(
+            cfg["num_vars"], *(np.random.RandomState(s) for s in cfg["seeds"]), **kwargs)
+        return raise_gate(ci, Expression, cfg["gate_degree"]), circuit
     fn = arx.arx_chain_circuit if name == "arx_chain_circuit" else getattr(fixtures, name)
     return fn(cfg["num_vars"], *(np.random.RandomState(s) for s in cfg.get("seeds", ())),
               **cfg.get("kwargs", {}), **kwargs)
+
+
+def raise_gate(ci, Expression, degree):
+    """The circuit info `ci` with its first gate multiplied by poly(0) up to
+    `degree` (the zero check's sumcheck one more): the witness still
+    satisfies it. `Expression` is its package's class, so the JAX
+    package's circuit is raised the same way in the tests."""
+    q = ci.constraints[0]
+    for _ in range(degree - q.degree):
+        q = q * Expression.poly(0)
+    ci.constraints = [q] + list(ci.constraints[1:])
+    ci.max_degree = max(ci.max_degree, degree)
+    return ci
 
 
 def builder_copy_circuit(CircuitBuilder, P):
@@ -1180,7 +1266,7 @@ def lasso_indices(np, cfg):
     if "table" not in cfg:
         return [int(rng.randint(1 << cfg["index_bits"])) for _ in range(m)]
     bits = cfg["table"][1]
-    x, y = (rng.randint(0, 1 << bits, size=m, dtype=np.int64) for _ in range(2))
+    x, y = (rng.randint(0, 1 << bits, size=m, dtype=np.uint64 if bits > 32 else np.int64) for _ in range(2))
     return [(int(a) << bits) | int(b) for a, b in zip(x, y)]
 
 
@@ -1236,7 +1322,8 @@ def lasso_proof(np, cfg, device, tamper=False, extra=None):
     return proof, timed.records()
 
 
-def run_support_phase(torch, np, launches, plonk_path, slice_path, smi, device="cuda", n=1 << 16, split=None):
+def run_support_phase(torch, np, launches, plonk_path, slice_path, smi, fresh, device="cuda", n=1 << 16,
+                      split=None):
     """Phase 16: (1) a GKR batch past K1's compiled limits at nv = 16 on the
     card, cut into chunks of whole terms: K1 launched chunks x rounds, each
     chunk's program bit-exact against ``round_message_plain`` at the first
@@ -1246,9 +1333,10 @@ def run_support_phase(torch, np, launches, plonk_path, slice_path, smi, device="
     circuit proved from reloaded params; (3) one 2^16 MSM on bench.py:100's
     inputs through the production MSM, ``msm_affine`` and the scan MSM, and
     an nv = 16 KZG open's quotient MSMs with and without the segmented
-    grouping: the same points, with their launches and device ms (a fresh
-    process). A CPU rehearsal passes device "cpu", a small `n` and a small
-    `split` config, and takes no device time."""
+    grouping: the same points, with their launches; their device ms come
+    from `fresh`, which the caller runs (``print_engines``). Returns the
+    engines' report. A CPU rehearsal passes device "cpu", a small `n` and a
+    small `split` config, and takes no device time."""
     import tempfile
 
     from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, new_transcript
@@ -1388,7 +1476,6 @@ def run_support_phase(torch, np, launches, plonk_path, slice_path, smi, device="
                "affine": lambda: msm_affine.msm_affine(points, scal, Fq, Fr),
                "scan": lambda: msm_scan.msm_pallas(points, scal, Fq, Fr)}
     want = ec.msm_to_affine_int(points, scal)
-    fresh = FreshDeviceTimes()
     report = {}
     for name, call in engines.items():
         t0 = time.perf_counter()
@@ -1429,17 +1516,423 @@ def run_support_phase(torch, np, launches, plonk_path, slice_path, smi, device="
         fresh.add(name, "msm_list", {"jobs": jobs, "budget": budget, "base": Fq.kernel_id}, expect)
         report[name] = {"wall_ms": wall_ms, "launches": {k: counts[k] for k in native.KERNELS if counts[k]}}
     stage("engines", t_engines, "three engines and the quotient MSMs run and compared")
-    t_fresh = time.perf_counter()
-    if on_card:
-        fresh.run(torch)
-    stage("engine_device_times", t_fresh, "a fresh process")
+    stage("support", t_phase, f"split GKR, files, engines: the production, affine and scan MSMs' 2^16 points "
+          f"equal; {len(jobs)} quotient MSMs equal grouped (budget {SEG_LANES} lanes) and not")
+    return report
+
+
+def print_engines(report, fresh, smi):
+    """Phase 16's engines, once `fresh` has run: wall and device ms and
+    launches of each."""
     for name, r in report.items():
         r["device_ms"] = fresh.results.get(name, {})
         print(f"  engine {name}: wall {r['wall_ms']:.1f}ms, device (fresh process) "
               + ", ".join(f"{k} {v:.4f}ms" for k, v in r["device_ms"].items())
               + f"; launches {json.dumps(r['launches'])} | {smi}", flush=True)
-    stage("support", t_phase, f"split GKR, files, engines: the production, affine and scan MSMs' 2^16 points "
-          f"equal; {len(jobs)} quotient MSMs equal grouped (budget {SEG_LANES} lanes) and not")
+
+
+def run_degree_phase(torch, np, launches, smi, device="cuda"):
+    """Phase 17, part 1: sumchecks past the round kernel's MAX_DEGREE (8),
+    each round in chunks of points (piop/sum_check.py ``plan_round``).
+    (1) lt_table(64, 8) at 2^16 lookups (LT64: a 64-bit unsigned compare in
+    8-bit chunks, a primary sumcheck of degree 9, two launches a round):
+    set-up, prove, verify, a flipped byte rejected; and the same for
+    lt_table(56, 8) at 2^16 (LT56: degree 8, one launch a round).
+    LT64's prove must launch K1 exactly the primary sumcheck's rounds more
+    than LT56's (the same subtables, one chunk fewer: the GKR batches launch
+    alike). (2) The small twins on the card, hashing to the JAX package's
+    proofs: lt_table(16, 2) at 8 lookups (LT16_SHA256) and the nv = 3
+    vanilla circuit with a gate of degree 8 (DEGREE9_SHA256); the CPU
+    parity is tests/test_torch_lasso_lt.py's and
+    tests/test_torch_round_split.py's. A CPU rehearsal passes device "cpu"
+    (and small configs) and skips the twins."""
+    t_phase = time.perf_counter()
+    paths = {}
+    for path, cfg, label in (("lasso_lt64", LT64, "2^16 lookups lt_table(64,8): a primary sumcheck of degree 9"),
+                             ("lasso_lt56", LT56, "2^16 lookups lt_table(56,8): a primary sumcheck of degree 8")):
+        extra = paths[path] = {}
+        run_path(launches, path, path, label, lambda: lasso_proof(np, cfg, device, tamper=True, extra=extra))
+    k1 = {path: extra["prove_launches"]["sumcheck_round"] for path, extra in paths.items()}
+    rounds = LT64["lookups"].bit_length() - 1
+    if k1["lasso_lt64"] != k1["lasso_lt56"] + rounds:
+        raise SystemExit(f"the lt_table(64,8) prove launched K1 {k1['lasso_lt64']} times, not lt_table(56,8)'s "
+                         f"{k1['lasso_lt56']} and one more for each of the primary sumcheck's {rounds} rounds")
+    print(f"  K1 in prove: lt_table(64,8) {k1['lasso_lt64']} (the primary sumcheck's {rounds} rounds in two chunks "
+          f"of points each, t0 = 0 and 8), lt_table(56,8) {k1['lasso_lt56']} (one launch a round) | {smi}", flush=True)
+    if device == "cuda":
+        proof_gate(np, lasso_proof, LT16_SMALL, LT16_SHA256, "lt16_small", "lt_table(16,2), 8 lookups, degree 9",
+                   cpu=False)
+        proof_gate(np, hyperplonk_proof, DEGREE9_SMALL, DEGREE9_SHA256, "degree9_small",
+                   "nv=3 vanilla with a gate of degree 8, a zero check of degree 9", cpu=False)
+    stage("degree", t_phase, "lt_table(64,8) proved on the card in point chunks; the small twins == JAX")
+
+
+def run_pasta_phase(torch, np, launches, smi, fresh, device="cuda", n=1 << 16, lanes=1 << 15):
+    """Phase 17, part 2: the Pasta curves' instances of K4 and K3. For each
+    of Pallas and Vesta, a main path ("pasta_<curve>", counts reset just
+    before, its kernels ``native.PASTA_KERNELS`` and their instances for the
+    curve): 2^n points by ``fixed_base_msm`` over the generator and
+    Montgomery scalars from RandomState(5) as bench.py:100 draws them
+    (reduced mod the scalar field); the production variable_base_msm
+    (msm_level and plane_tree) equal to ``msm_affine``'s point in affine and
+    on the curve; the ladder at the IPA scaling shape (`lanes` lanes, every
+    9th the identity, a shared scalar), 64 lanes of it against
+    ``curves.host_mul``. Then ``check_pasta_instances`` holds every Pasta
+    instance bit-exact against its plain version, and the kernels without a
+    Pasta instance must raise. Device times go to `fresh`, each beside its
+    BN254 twin's; the caller runs it. Returns the instances' records for
+    the kernels line, and the point-chunk timings of K1. A CPU rehearsal
+    passes device "cpu" and small sizes, with the timing helpers stubbed:
+    it checks nothing that needs the card."""
+    from halo2_lasso_tpu_torch.ops import curves, ec, msm_affine, native
+    from halo2_lasso_tpu_torch.ops import field as F
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    results, k1_timed = {}, {}
+    for curve in (curves.PALLAS, curves.VESTA):
+        base, scalar = curve.base, curve.scalar
+        path = f"pasta_{curve.name}"
+        PATH_KERNELS[path] = native.PASTA_KERNELS + tuple(f"{k}.{curve.name}" for k in native.PASTA_KERNELS)
+        t0 = time.perf_counter()
+        native.reset_counts()
+        F.norm_on_card = 0
+        rng = np.random.RandomState(5)
+        ms = [int(v) for v in rng.randint(1, 1 << 30, size=n)]
+        points = ec.fixed_base_msm(curve.generator, scalar.encode(ms, dev), base=base, scalar=scalar)
+        scal = scalar.encode([int.from_bytes(rng.bytes(40), "little") % scalar.modulus for _ in range(n)], dev)
+        t_msm = time.perf_counter()
+        got = ec.jacobian_to_affine(ec.variable_base_msm(points, scal, base, scalar), base)[0]
+        msm_ms = (time.perf_counter() - t_msm) * 1e3
+        t_aff = time.perf_counter()
+        ref = ec.jacobian_to_affine(msm_affine.msm_affine(points, scal, base, scalar), base)[0]
+        affine_ms = (time.perf_counter() - t_aff) * 1e3
+        if got != ref or not curves.on_curve(curve, *got):
+            raise SystemExit(f"the 2^{n.bit_length() - 1} {curve.name} MSM differs from msm_affine's or is off "
+                             "the curve")
+        lp = {k: v[:lanes].clone() for k, v in points.items()}
+        lp["z"][::9] = 0
+        k = int.from_bytes(rng.bytes(32), "little") % scalar.modulus
+        lad = ec.ec_ladder(lp, k, scalar.num_bits, base)
+        sample = torch.arange(0, lanes, max(1, lanes // 64), device=dev)
+        bases = ec.jacobian_to_affine({c: v[sample] for c, v in lp.items()}, base)
+        want = [curves.host_mul(curve, p, k) for p in bases]
+        if ec.jacobian_to_affine({c: v[sample] for c, v in lad.items()}, base) != want:
+            raise SystemExit(f"the {curve.name} ladder disagrees with curves.host_mul")
+        launches[path] = dict(native.counts)
+        if F.norm_on_card:
+            raise SystemExit(f"the {path} path ran the plain carry pass on the card {F.norm_on_card} times")
+        stage(path, t0, f"2^{n.bit_length() - 1} points: the production MSM ({msm_ms:.1f}ms wall) == msm_affine "
+              f"({affine_ms:.1f}ms wall), on the curve; a {lanes}-lane ladder, 64 lanes == host_mul | {smi}")
+        t0 = time.perf_counter()
+        check_pasta_instances(torch, np, dev, rng, curve, points, lp, fresh, results)
+        stage(f"{path}_instances", t0, f"every {curve.name} instance of K4 and K3 bit-exact against its plain "
+              "version")
+    check_point_chunks(torch, np, dev, fresh, k1_timed, n)
+    if dev.type == "cuda":
+        check_no_pasta_instance(torch, dev)
+    stage("pasta", t_phase, "Pallas and Vesta: the MSMs, the ladder and every instance of K4 and K3 bit-exact; K1, "
+          "K2, K5, sum_reduce and eq_xy raise on a Pasta field")
+    return results, k1_timed
+
+
+def print_pasta(results, k1_timed, smi):
+    """The Pasta instances' and K1's point-chunk lines, once `fresh` has
+    run: each shape's events and device time beside its BN254 twin's."""
+    for name, r in [*results.items(), *k1_timed.items()]:
+        for shape, t in [(r["shape"], r), *r.get("timed", {}).items()]:
+            print_record(name, shape, t, smi)
+        if "batch_inv_device_ms" in r:
+            print_record(name.replace("prefix_products", "batch_inv"), r["batch_inv_shape"],
+                         {k[len("batch_inv_"):]: v for k, v in r.items() if k.startswith("batch_inv_")}, smi)
+
+
+def check_pasta_instances(torch, np, dev, rng, curve, points, lp, fresh, results):
+    """The instances of `curve`'s coordinate field (its kernel_id: 2 for
+    Pallas, 3 for Vesta) against their plain versions on the card, bit for
+    bit, at the shapes of the curve's paths: K4's six op codes at 257 and
+    2^16 rows over ew_cases' operands (strided, broadcast, by value) with 0,
+    1, p - 1, p - 2 and R mod p among the rows; mont_pow at 2^16 rows (0, 1,
+    2, p - 2 and a random exponent); the scan both ways at 2^16 and
+    batch_inv at 2^17 with zero rows; ec_add at the ladder's lanes `lp` of
+    the five cases (also against host arithmetic) and of P + P with
+    identity lanes; every level of a 64-point edge-case MSM and of an MSM
+    of the 2^16 `points` (``check_msm_levels``); the ladder over every lane
+    and the plane tree of that MSM's buckets (``check_ladder_and_tree``).
+    Each is recorded as "<kernel>.<instance>" with its events time, plain
+    time and bound at its timed shape (Pasta's Montgomery product:
+    ``imad_per_mont_mul``), and a fresh-process device time beside its
+    BN254 twin's (the same shape over BN254 Fq, G1 for K3; mont_pow on the
+    same exponent)."""
+    from halo2_lasso_tpu_torch.ops import ec
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
+    from halo2_lasso_tpu_torch.utils.bench import bound_ms, cuda_ms, imad_per_mont_mul
+
+    base, scalar = curve.base, curve.scalar
+    p, inst, mm = base.modulus, native.PASTA[base.kernel_id], imad_per_mont_mul(base)
+    n, lanes = points["x"].shape[0], lp["x"].shape[0]
+    edges = [0, 1, p - 1, p - 2, base.R]
+    via = f" ({curve.name}: halo2_lasso_tpu/ops/msm_jacobian.py:90 over halo2_lasso_tpu/ops/pallas_field.py:225)"
+
+    def rand(spec, m, edge_rows=()):
+        limbs = rng.randint(0, 1 << 32, size=(m, 8), dtype=np.uint64).astype(np.uint32)
+        limbs[:, 7] = rng.randint(0, spec.modulus >> 224, size=m)
+        t = F.from_numpy_u32(limbs, dev)
+        if edge_rows:
+            t[: len(edge_rows)] = F.from_numpy_u32(F.ints_to_u32(edge_rows), dev)
+        return t
+
+    def same(name, got, want):
+        got, want = [t.reshape(-1) for t in got], [t.reshape(-1) for t in want]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"kernel {name} disagrees with its plain version")
+
+    def record(kernel, src, replaces, shape, fn, plain_fn, bytes_moved, imads, symbol, job, twin_job):
+        """Events and plain time of fn at its shape, its bound, and the
+        device time of kernel `symbol` in a fresh process's run of `job`
+        (call, args, expected launches) beside its BN254 twin's."""
+        name = f"{kernel}.{inst}"
+        b_ms, b_by = bound_ms(bytes_moved, imads)
+        r = results[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": 0, "max_abs_err": 0,
+            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain_fn, 1), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": shape}
+        # the BN254 twin's job is one for both curves (the second's inputs)
+        for key, (call, args, expect), field in ((name, job, "device_ms"),
+                                                 (f"{kernel}.twin", twin_job, "twin_device_ms")):
+            fresh.add(key, call, args, expect)
+            fresh.into(key, symbol, r, field)
+
+    # K4's elementwise op: every op code over ew_cases' operands
+    for size in (257, n):
+        t = rand(base, 4 * size, edges)
+        for a, b, c in ew_cases(t, base.decode_ints(rand(base, 1))[0], p - 1):
+            for op in range(6):
+                args = [a, b, c][: F._EW_ARGS[op]]
+                vals = [v if isinstance(v, torch.Tensor) else base.encode([v], dev)[0] for v in args]
+                same(f"mont_mul.{inst}", [no_sync(torch, lambda: F._ew(base, op, *args))],
+                     [F._ew_plain(base, op, *vals).expand(a.shape)])
+    a, b = rand(base, n, edges), rand(base, n)
+    ta, tb = rand(Fq, n), rand(Fq, n)
+    record("mont_mul", "halo2_lasso_tpu_torch/csrc/mont_pasta.cu (csrc/mont_mul.cu's kernel)",
+           "halo2_lasso_tpu/ops/pallas_field.py:225", f"op a*b, 2^{n.bit_length() - 1} rows",
+           lambda: F.mont_mul(base, a, b), lambda: F.mont_mul_plain(base, a, b), 96 * n, n * mm,
+           "mont_mul_kernel", ("ew", {"op": F.EW_MUL, "args": [a, b], "base": base.kernel_id}, {"mont_mul_kernel": 1}),
+           ("ew", {"op": F.EW_MUL, "args": [ta, tb], "base": Fq.kernel_id}, {"mont_mul_kernel": 1}))
+
+    # mont_pow at 2^16 rows; timed where the proofs run it, on one row with
+    # exponent p - 2 (batch_inv's total), its BN254 twin on the same
+    # exponent (the same squarings and products)
+    rows = rand(base, n, edges)
+    for e in (0, 1, 2, p - 2, int.from_bytes(rng.bytes(32), "little") % (1 << 254) | 1 << 253):
+        same(f"mont_pow.{inst}", [F.pow_fixed(base, rows, e)], [F.pow_fixed_plain(base, rows, e)])
+    tot, ftot = rand(base, 1), rand(Fq, 1)
+    e = p - 2
+    record("mont_pow", "halo2_lasso_tpu_torch/csrc/mont_pasta.cu (csrc/mont_chain.cu's kernel)",
+           "halo2_lasso_tpu/ops/field.py:387 over halo2_lasso_tpu/ops/pallas_field.py:225",
+           f"one row, exponent p - 2 (batch_inv's total: {e.bit_length()} bits, {bin(e).count('1')} set; the twin "
+           "on the same exponent)", lambda: F.pow_fixed(base, tot, e),
+           lambda: F.pow_fixed_plain(base, tot, e), 64, (e.bit_length() - 2 + bin(e).count("1")) * mm,
+           "mont_pow_kernel", ("pow", {"a": tot, "e": e, "base": base.kernel_id}, {"mont_pow_kernel": 1}),
+           ("pow", {"a": ftot, "e": e, "base": Fq.kernel_id}, {"mont_pow_kernel": 1}))
+
+    # the scan both ways at 2^16, batch_inv at 2^17 with zero rows; timed at
+    # 2^17, the BN254 twin's shape (batch_inv's twin inverts with its own
+    # p - 2, of another popcount: both are in its shape)
+    xs = rand(base, n, edges)
+    for rev in (False, True):
+        same(f"prefix_products.{inst}", [no_sync(torch, lambda: F.prefix_products(base, xs, rev))],
+             [F.prefix_products_plain(base, xs, rev)])
+    zs = rand(base, 2 * n, edges)
+    zs[5::7] = 0
+    same(f"prefix_products.{inst}", [no_sync(torch, lambda: F.batch_inv(base, zs))], [F.batch_inv_plain(base, zs)])
+    big, fbig = rand(base, 2 * n), rand(Fq, 2 * n)
+    record("prefix_products", "halo2_lasso_tpu_torch/csrc/mont_pasta.cu (csrc/mont_chain.cu's scan)",
+           "halo2_lasso_tpu/ops/field.py:416 over halo2_lasso_tpu/ops/pallas_field.py:225", f"2^{n.bit_length()} rows",
+           lambda: F.prefix_products(base, big), lambda: F.prefix_products_plain(base, big), 64 * 2 * n,
+           2 * n * mm, "scan_kernel", ("prefix", {"a": big, "base": base.kernel_id}, {"scan_kernel": 3}),
+           ("prefix", {"a": fbig, "base": Fq.kernel_id}, {"scan_kernel": 3}))
+    r = results[f"prefix_products.{inst}"]
+    fe = Fq.modulus - 2
+    r["batch_inv_shape"] = (f"2^{n.bit_length()} rows (the inverse of the total: p - 2, {e.bit_length()} bits, "
+                            f"{bin(e).count('1')} set; the twin's BN254 Fq p - 2, {fe.bit_length()} bits, "
+                            f"{bin(fe).count('1')} set)")
+    r["batch_inv_ms"] = cuda_ms(lambda: F.batch_inv(base, big), 20)
+    r["batch_inv_plain_ms"] = cuda_ms(lambda: F.batch_inv_plain(base, big), 1)
+    r["batch_inv_bound_ms"], r["batch_inv_bound_by"] = bound_ms(
+        64 * 2 * n, (4 * 2 * n + e.bit_length() - 2 + bin(e).count("1")) * mm)
+    for key, a_, spec in ((f"batch_inv.{inst}", big, base), ("batch_inv.twin", fbig, Fq)):
+        fresh.add(key, "batch_inv", {"a": a_, "base": spec.kernel_id}, {"scan_kernel": 3, "mont_pow_kernel": 1})
+        fresh.into(key, "scan_kernel+mont_pow_kernel", r,
+                   "batch_inv_device_ms" if spec is base else "batch_inv_twin_device_ms")
+
+    # K3's add: the five cases at `lanes` lanes (and host arithmetic), then
+    # P + P over the ladder's points (identity lanes, every 9th); timed at
+    # P + P, its bound the doubling lanes' 15 products
+    ps, qs = ec_cases(np, rng, MJ, p, lanes, curve.generator)
+    P = {c: base.encode([pt[i] for pt in ps], dev) for i, c in enumerate(ec.COORDS)}
+    Q = {c: base.encode([pt[i] for pt in qs], dev) for i, c in enumerate(ec.COORDS)}
+    got = ec.ec_add(P, Q, base)
+    same(f"ec_add.{inst}", list(got.values()), list(ec.ec_add_plain(P, Q, base).values()))
+    if ec.jacobian_to_affine(got, base) != MJ.host_batch_affine([MJ.host_jac_add(x, y, p) for x, y in zip(ps, qs)], p):
+        raise SystemExit(f"ec_add over {curve.name} disagrees with host arithmetic")
+    del P, Q, got
+    same(f"ec_add.{inst}", list(ec.ec_add(lp, lp, base).values()), list(ec.ec_add_plain(lp, lp, base).values()))
+    live = int((~F.is_zero(lp["z"])).sum())
+    gpts = ec.fixed_base_msm((1, 2), rand(Fr, lanes))
+    gpts["z"][::9] = 0
+    record("ec_add", "halo2_lasso_tpu_torch/csrc/ec_pasta.cu (csrc/ec_add.cu's kernel)",
+           "halo2_lasso_tpu/ops/pallas_ec.py:144" + via, f"P + P, {lanes} lanes ({live} not the identity)",
+           lambda: ec.ec_add(lp, lp, base), lambda: ec.ec_add_plain(lp, lp, base), lanes * 9 * 32,
+           live * 15 * mm, "ec_add_kernel",
+           ("ec_add", {"p": lp, "base": base.kernel_id}, {"ec_add_kernel": 1}),
+           ("ec_add", {"p": gpts, "base": Fq.kernel_id}, {"ec_add_kernel": 1}))
+
+    # the MSM's levels: every level of a 64-point edge-case MSM and of an
+    # MSM of the 2^16 points against the plain level; timed over the 2^16
+    # MSM's 17 level launches and its tree launch
+    check_msm_levels(torch, np, rng, dev, msm_edge_points(np, rng, MJ, p, dev, curve=curve), 64, scalar, base)
+    check_msm_levels(torch, np, rng, dev, points, n, scalar, base)
+    scal = rand(scalar, n)
+    c = MJ.best_c(n)
+    B, W = 1 << c, -(-scalar.num_bits // c)
+    digits = MJ.digits_all(F.from_mont(scalar, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+
+    def levels(level_fn):
+        def run():
+            bucket = ec.identity_point(W * B + 1, dev, base)
+            pts, dig = level_fn(points, digits, bucket, W, B, order=order, base=base)
+            while dig.shape[0]:
+                pts, dig = level_fn(pts, dig, bucket, W, B, base=base)
+            return bucket
+        return run
+
+    adds = msm_level_adds(torch, torch.gather(digits, 1, order), B)
+    g_points = ec.fixed_base_msm((1, 2), rand(Fr, n))
+    g_scal = rand(Fr, n)
+    record("msm_level", "halo2_lasso_tpu_torch/csrc/msm_level_pasta.cu (csrc/msm_level.cu's kernel)",
+           "halo2_lasso_tpu/ops/pallas_ec.py:144 with halo2_lasso_tpu/ops/msm_jacobian.py:168" + via,
+           f"a 2^{n.bit_length() - 1} MSM's {n.bit_length()} launches (c = {c}, W = {W})",
+           lambda: list(levels(MJ.msm_level)().values()), lambda: list(levels(MJ.msm_level_plain)().values()),
+           n * 96 + W * n * 12 + W * B * 96, adds * 16 * mm, "msm_level_kernel",
+           ("msm", {"points": points, "scal": scal, "base": base.kernel_id},
+            {"msm_level_kernel": n.bit_length(), "plane_tree_kernel": 1}),
+           ("msm", {"points": g_points, "scal": g_scal, "base": Fq.kernel_id},
+            {"msm_level_kernel": n.bit_length(), "plane_tree_kernel": 1}))
+
+    # the ladder over every lane and the plane tree of that MSM's buckets,
+    # as BN254 G1's and grumpkin's; their BN254 twins: G1's ladder at the
+    # same lanes, and the plane tree of the twin MSM
+    trees = [(f"a 2^{n.bit_length() - 1} MSM's buckets (c = {c}, W = {W})", levels(MJ.msm_level)(), c, W,
+              f"msm_level.{inst}")]
+    check_ladder_and_tree(torch, np, dev, rng, rand, results, fresh, curve, trees, f".{inst}", lanes)
+    fresh.into("msm_level.twin", "plane_tree_kernel", results[f"plane_tree.{inst}"], "twin_device_ms")
+    fresh.add("ec_ladder.twin", "ladder", {"pts": gpts, "k": int.from_bytes(rng.bytes(32), "little") % Fr.modulus,
+                                           "nbits": Fr.num_bits, "base": Fq.kernel_id}, {"ec_ladder_kernel": 1})
+    fresh.into("ec_ladder.twin", "ec_ladder_kernel", results[f"ec_ladder.{inst}"], "twin_device_ms")
+
+
+def check_point_chunks(torch, np, dev, fresh, k1_timed, n=1 << 16):
+    """K1 past MAX_DEGREE: the lt_table(64, 8) primary sumcheck's round
+    (degree 9, 16 leaf tables) and a product of degree 17 over four tables
+    and the eq table, at 2^16 rows, split into chunks of points by
+    plan_round (2 and 3 launches), against round_message_plain's degree
+    points in one pass, with no host sync; and each chunk from t0 > 0
+    alone against the plain version at that offset. Timed (events, fresh
+    device time) beside the degree-8 product of the same tables (one
+    launch), K1's BN254 twin at the largest degree one launch takes."""
+    from halo2_lasso_tpu_torch.expression import Expression
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import Fr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
+
+    rng = np.random.RandomState(17)
+
+    def product(degree):
+        acc = Expression.eq_xy(0)
+        for i in range(degree - 1):
+            acc = acc * Expression.poly(i % 4)
+        return acc
+
+    lt = lasso_table(LT64)
+    cases = [("lt_table(64,8)'s primary sumcheck", Expression.eq_xy(0) * lt.g, len(lt.memories)),
+             ("a product of degree 17", product(17), 4), ("a product of degree 8", product(8), 4)]
+    for label, expr, n_polys in cases:
+        keys = SC._leaf_keys(expr, n_polys)
+        plan = SC.plan_round(expr, keys, Fr.modulus, 0)
+        tables = [rand_field_rows(np, Fr, rng, n, dev) for _ in keys]
+        tables[0][:4] = Fr.encode([0, 1, Fr.modulus - 1, Fr.R], dev)
+        before = native.counts["sumcheck_round"]
+        got = no_sync(torch, lambda: SC.round_message_planned(Fr, tables, plan, None))
+        launched = native.counts["sumcheck_round"] - before if dev.type == "cuda" else len(plan.points)
+        if launched != len(plan.points) or plan.program is None:
+            raise SystemExit(f"K1 over {label} launched {native.counts['sumcheck_round'] - before} times, not "
+                             f"{len(plan.points)}")
+        if not torch.equal(got, SC.round_message_plain(Fr, tables, plan.program, None, expr.degree)):
+            raise SystemExit(f"kernel sumcheck_round disagrees with its plain version over {label}")
+        for t0, d in plan.points[1:]:
+            if not torch.equal(SC.round_message(Fr, tables, plan.program, None, d, t0),
+                               SC.round_message_plain(Fr, tables, plan.program, None, d, t0)):
+                raise SystemExit(f"kernel sumcheck_round disagrees with its plain version from t0 = {t0}")
+        muls = program_muls(SC, plan.program)
+        b_ms, b_by = bound_ms(len(keys) * n * 32, expr.degree * muls * (n // 2) * IMAD_PER_MONT_MUL)
+        key = f"sumcheck_round degree {expr.degree}"
+        r = k1_timed[key] = {
+            "shape": f"{label}: {len(keys)} leaves, degree {expr.degree}, {len(plan.points)} launch(es) "
+                     f"{plan.points}, 2^{n.bit_length() - 1} rows", "ms": cuda_ms(
+                         lambda: SC.round_message_planned(Fr, tables, plan, None), 20),
+            "plain_ms": cuda_ms(lambda: SC.round_message_plain(Fr, tables, plan.program, None, expr.degree), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "launches_a_round": len(plan.points)}
+        fresh.add(key, "round", {"tables": tables, "plan": plan, "base": Fr.kernel_id},
+                  {"round_kernel": len(plan.points)})
+        fresh.into(key, "round_kernel", r, "device_ms")
+
+
+def check_no_pasta_instance(torch, dev):
+    """The kernels without a Pasta instance (K1, K2, K5, the row sum and the
+    eq table) raise on a CUDA tensor of either Pasta field, before any
+    launch; and every C entry point returns cudaErrorInvalidValue for a
+    field id it was not built for (so none runs a BN254 instance in its
+    place)."""
+    from halo2_lasso_tpu_torch.expression import Expression
+    from halo2_lasso_tpu_torch.ops import curves, native
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    refused = []
+    for spec in (curves.Fp_pallas, curves.Fq_vesta):
+        t = [spec.encode([1, 2, 3, 4], dev) for _ in range(2)]
+        prog = SC.lower_expression(Expression.poly(0) * Expression.poly(1), [("poly", 0, 0), ("poly", 1, 0)])
+        before = dict(native.counts)
+        for name, fn in (("sumcheck_round", lambda: SC.round_message(spec, t, prog, None, 2)),
+                         ("fold_all", lambda: mle.fold_all(spec, t, 5)),
+                         ("fix_var", lambda: mle.fix_var_chain(spec, t[0], [5, 6], False)),
+                         ("sum_reduce", lambda: F.sum_reduce(spec, t[0])),
+                         ("eq_xy", lambda: mle.eq_xy(spec, [1, 2], dev))):
+            try:
+                fn()
+            except ValueError:
+                refused.append(f"{name}/{spec.name}")
+                continue
+            raise SystemExit(f"{name} ran on a CUDA tensor of {spec.name}, a field it has no instance for")
+        if native.counts != before:
+            raise SystemExit(f"a kernel launched on a CUDA tensor of {spec.name} it has no instance for")
+    lib = native.lib()
+    for name, argtypes in native._SIGNATURES.items():
+        entry = name[len("h2l_"):]
+        for field in [4, -1] + [i for i in (2, 3) if i not in native.FIELD_IDS.get(entry, (2, 3))]:
+            if entry in native.FIELD_IDS and getattr(lib, name)(field, *[None if a is native._P else 0
+                                                                         for a in argtypes[1:]]) != 1:
+                raise SystemExit(f"h2l_{entry} took the field id {field}, which it was not built for")
+    torch.cuda.synchronize()
+    print(f"  no Pasta instance, refused before a launch: {', '.join(refused)}; every entry point refuses "
+          "an unknown field id", flush=True)
 
 
 def rand_field_rows(np, spec, rng, n, device):
@@ -1476,8 +1969,10 @@ def split_gkr_proof(np, cfg, device, num_vars=None):
     return proof, qs
 
 
-def check_kernels(torch, np, dev):
-    """Each kernel against its plain version on the same card inputs."""
+def check_kernels(torch, np, dev, fresh):
+    """Each kernel against its plain version on the same card inputs; the
+    device times that a fresh process takes go to `fresh`, which the caller
+    runs."""
     from halo2_lasso_tpu_torch.expression import Expression
     from halo2_lasso_tpu_torch.lasso.tables import range_table
     from halo2_lasso_tpu_torch.ops import curves, ec
@@ -1510,7 +2005,6 @@ def check_kernels(torch, np, dev):
         return int(((flat_k.long() & 0xFFFFFFFF) - (flat_p.long() & 0xFFFFFFFF)).abs().max())
 
     results = {}
-    fresh = FreshDeviceTimes()
 
     def record(name, src, replaces, kernel_fn, plain_fn, bytes_moved, imads, err):
         """Check and time one kernel at a shape of the main path."""
@@ -2030,8 +2524,8 @@ def check_kernels(torch, np, dev):
            lambda: [LB.mont_mul_tiled_plain(a_t, b_t)], 96 * big, big * IMAD_PER_MONT_MUL,
            errs["mont_mul_tiled"])
     check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results, fresh)
-    fresh.run(torch)
-    return [results[k] for k in native.KERNELS + native.INSTANCES]
+    # the Pasta instances are phase 17's (run_pasta_phase)
+    return [results[k] for k in native.KERNELS + native.INSTANCES if k.split(".")[-1] not in native.PASTA.values()]
 
 
 def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, results, fresh, n=1 << 16):
@@ -2203,15 +2697,16 @@ def check_grumpkin_instances(torch, np, dev, rng, rand_field, same, record, resu
 
 
 def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve, trees, suffix, lanes):
-    """K3's scalar ladder and plane tree (csrc/ec_add.cu) over `curve`
-    (BN254 G1; grumpkin with `suffix` ".grumpkin"), bit-exact against
-    their plain versions at the main paths' shapes, recorded as
+    """K3's scalar ladder and plane tree (csrc/ec_add.cu; the Pasta
+    instances in csrc/ec_pasta.cu) over `curve` (BN254 G1; grumpkin, Pallas
+    or Vesta with `suffix` ".grumpkin", ".pallas" or ".vesta"), bit-exact
+    against their plain versions at the main paths' shapes, recorded as
     ec_ladder<suffix> and plane_tree<suffix>:
 
       - the ladder at the IPA open's first scaling of b_r (`lanes` bases,
         every 9th the identity, a shared random scalar below the scalar
-        field's modulus, 254 bits): against scalar_mul_bits_plain on the
-        card, whose one call is the plain time; timed by events; the same
+        field's modulus, its bits): against scalar_mul_bits_plain over every
+        lane on the card, whose one call is the plain time; timed by events; the same
         scalar as per-lane limbs and through scalar_mul_bits (shared bits)
         give the same bits, each one ec_ladder launch and no ec_add launch;
       - the 2-lane ladder of c_l h' and c_r h' (per-lane scalars: random
@@ -2229,18 +2724,22 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
     past the scalar's top bit, 16 a further set bit) against each point
     read and written once; the tree's adds whose operands are both not the
     identity (16 products each) against the buckets read and the planes
-    written once."""
+    written once; a product's multiply-adds by the coordinate field
+    (``imad_per_mont_mul``)."""
     from halo2_lasso_tpu_torch.ops import ec
     from halo2_lasso_tpu_torch.ops import field as F
     from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
     from halo2_lasso_tpu_torch.ops import native
-    from halo2_lasso_tpu_torch.utils.bench import IMAD_PER_MONT_MUL, bound_ms, cuda_ms
+    from halo2_lasso_tpu_torch.utils.bench import bound_ms, cuda_ms, imad_per_mont_mul
 
     base, scal = curve.base, curve.scalar
-    q, nbits = scal.modulus, scal.num_bits
+    q, nbits, mm = scal.modulus, scal.num_bits, imad_per_mont_mul(base)
     src = "halo2_lasso_tpu_torch/csrc/ec_add.cu"
-    grumpkin = " (grumpkin: halo2_lasso_tpu/ops/msm_jacobian.py:90 over halo2_lasso_tpu/ops/pallas_field.py:225)"
-    via = f"halo2_lasso_tpu/ops/pallas_ec.py:144{grumpkin if suffix else ''}"
+    if base.kernel_id in native.PASTA:
+        src = "halo2_lasso_tpu_torch/csrc/ec_pasta.cu (csrc/ec_add.cu's kernel)"
+    via = "halo2_lasso_tpu/ops/pallas_ec.py:144" + (
+        f" ({curve.name}: halo2_lasso_tpu/ops/msm_jacobian.py:90 over halo2_lasso_tpu/ops/pallas_field.py:225)"
+        if suffix else "")
 
     def once(fn):
         """(fn(), its ms by CUDA events over one call): a plain version's
@@ -2279,11 +2778,11 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
     limbs = F.from_numpy_u32(F.ints_to_u32([k] * lanes), dev)
     for fn in (lambda: ec.ec_ladder(pts, limbs, nbits, base), lambda: ec.scalar_mul_bits(pts, bits, base)):
         same_bits, n_launch = launched(fn, "ec_ladder", lname, "ec_add")
-        if n_launch != [1, 1, 0]:
+        if n_launch != [1, 1, 0] and dev.type == "cuda":
             raise SystemExit(f"a ladder launched ec_ladder, {lname} and ec_add {n_launch} times, not 1, 1 and 0")
         check(lname, same_bits, got)
     live = (~F.is_zero(pts["z"])).tolist()
-    b_ms, b_by = bound_ms(lanes * 192, ladder_products([k] * lanes, live) * IMAD_PER_MONT_MUL)
+    b_ms, b_by = bound_ms(lanes * 192, ladder_products([k] * lanes, live) * mm)
     results[lname] = {
         "name": lname, "route": "cuda", "source": src, "replaces": f"halo2_lasso_tpu/ops/ec.py:216 over {via}",
         "launches": 0, "max_abs_err": 0, "ms": cuda_ms(lambda: ec.ec_ladder(pts, k, nbits, base), 5),
@@ -2307,7 +2806,7 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
     ks = F.from_numpy_u32(F.ints_to_u32(pairs[0]), dev)
     t0 = time.perf_counter()
     ec.ec_ladder(host, ks.cpu(), nbits, base)
-    b2_ms, b2_by = bound_ms(2 * 192 + 2 * 32, ladder_products(pairs[0], [True, True]) * IMAD_PER_MONT_MUL)
+    b2_ms, b2_by = bound_ms(2 * 192 + 2 * 32, ladder_products(pairs[0], [True, True]) * mm)
     r = {"ms": cuda_ms(lambda: ec.ec_ladder(h, ks, nbits, base), 5), "plain_cpu_ms": (time.perf_counter() - t0) * 1e3,
          "bound_ms": b2_ms, "bound_by": b2_by}
     results[lname]["timed"] = {"the 2-lane ladder of c_l h' and c_r h', per-lane scalars": r}
@@ -2326,7 +2825,7 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
             half = live.shape[1] // 2
             adds += int((live[:, :half] & live[:, half:]).sum())
             live = live[:, :half] | live[:, half:]
-        b_ms, b_by = bound_ms((W << c) * 96 + c * W * 96, adds * 16 * IMAD_PER_MONT_MUL)
+        b_ms, b_by = bound_ms((W << c) * 96 + c * W * 96, adds * 16 * mm)
         r = {"ms": cuda_ms(lambda: MJ.bucket_planes(bucket, c, W, base), 10), "plain_ms": p_ms, "bound_ms": b_ms,
              "bound_by": b_by, "adds": adds}
         if i == 0:
@@ -2339,15 +2838,22 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
         fresh.into(key, "plane_tree_kernel", r, "device_ms")
 
 
+def print_record(name, shape, r, smi=""):
+    """One timed shape of a kernel: events and device time (and its BN254
+    twin's, where it has one), bound and plain time."""
+    twin = f", BN254 twin {r['twin_device_ms']:.4f}ms" if "twin_device_ms" in r else ""
+    plain = f"plain {r['plain_ms']:.3f}ms" if "plain_ms" in r else f"plain on the CPU {r['plain_cpu_ms']:.1f}ms"
+    print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r.get('device_ms', float('nan')):.4f}ms{twin} (bound "
+          f"{r['bound_ms']:.5f}ms, {r['bound_by']}; {plain})" + (f" | {smi}" if smi else ""), flush=True)
+
+
 def print_ladder_and_tree(by_name):
     """The ladder's and the plane tree's lines, in both instances: each
     shape's events and device time, bound and plain time."""
     for name in ("ec_ladder", "plane_tree", "ec_ladder.grumpkin", "plane_tree.grumpkin"):
         k = by_name[name]
         for shape, r in [(k["shape"], k), *k["timed"].items()]:
-            plain = f"plain {r['plain_ms']:.1f}ms" if "plain_ms" in r else f"plain on the CPU {r['plain_cpu_ms']:.1f}ms"
-            print(f"{name}: {shape}: events {r['ms']:.4f}ms, device {r['device_ms']:.4f}ms (bound "
-                  f"{r['bound_ms']:.5f}ms, {r['bound_by']}; {plain})", flush=True)
+            print_record(name, shape, r)
 
 
 class FreshDeviceTimes:
@@ -2356,8 +2862,11 @@ class FreshDeviceTimes:
     process a profiler session now and then loses the records of some
     launches, where a fresh process recorded every one. A job is one call,
     ``ec.ec_ladder`` ("ladder"), ``msm_jacobian.msm_planes`` ("msm"),
-    ``msm_affine.msm_affine`` ("affine"), ``msm_scan.msm_pallas`` ("scan")
-    or ``ec.msm_list_to_affine_int`` under a lane budget ("msm_list"), on
+    ``msm_affine.msm_affine`` ("affine"), ``msm_scan.msm_pallas`` ("scan"),
+    ``ec.msm_list_to_affine_int`` under a lane budget ("msm_list"), K4's
+    elementwise op ("ew"), ``F.pow_fixed`` ("pow"), ``F.prefix_products``
+    ("prefix"), ``F.batch_inv`` ("batch_inv"), ``ec.ec_add`` of a batch to
+    itself ("ec_add") or ``sum_check.round_message_planned`` ("round"), on
     card inputs saved for it under build/, with the launches a call makes
     of each kernel whose time is read; the phase fails unless a profiler
     session records every one of them. ``results`` keeps each job's device
@@ -2372,30 +2881,47 @@ class FreshDeviceTimes:
         self.jobs[key] = {"call": call, "args": args, "expect": expect}
 
     def into(self, key, symbol, record, field):
-        """Job `key`'s device ms a call in kernel `symbol` goes to
-        record[field]."""
+        """Job `key`'s device ms a call in kernel `symbol` (several joined
+        by "+": their sum) goes to record[field]."""
         self.sinks.append((key, symbol, record, field))
 
     def run(self, torch):
+        """Every job in one fresh process. Its jobs' results come one line
+        each; where the process fails on a job after others (a session
+        there lost a launch record: late in a long process the profiler
+        now and then does), the rest, that job first, go to one more fresh
+        process, up to FRESH_RESTARTS; a job that fails first in a fresh
+        process fails the run."""
         path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "device_times.pt")
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save(self.jobs, path)
-        try:
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-times", path],
-                                  capture_output=True, text=True, timeout=300, check=False)
-        finally:
-            os.remove(path)
-        if proc.returncode != 0:
-            raise SystemExit(f"the device times' process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        self.results = got = json.loads(proc.stdout.strip().splitlines()[-1])
-        for key, symbol, record, field in self.sinks:
-            record[field] = got[key][symbol]
+        pending, got = dict(self.jobs), {}
+        for restart in range(FRESH_RESTARTS + 1):
+            torch.save(pending, path)
+            try:
+                proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-times", path],
+                                      capture_output=True, text=True, timeout=300, check=False)
+            finally:
+                os.remove(path)
+            done = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+            for d in done:
+                got.update(d)
+            pending = {k: v for k, v in pending.items() if k not in got}
+            if proc.returncode == 0 and not pending:
+                break
+            if not done or restart == FRESH_RESTARTS:
+                raise SystemExit(f"the device times' process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            print(f"  the device times' process failed after {len(done)} jobs "
+                  f"({(proc.stderr.strip().splitlines() or [''])[-1][-300:]}); "
+                  f"the {len(pending)} left in a fresh one", flush=True)
+        self.results = got
+        for key, symbol, record, field in self.sinks:  # "a+b": the two kernels' times added
+            record[field] = sum(got[key][s] for s in symbol.split("+"))
 
 
 def device_times(path) -> int:
     """``--device-times PATH``: each job of FreshDeviceTimes's file, its
     device ms a call in each kernel it expects (3 calls a session, up to
-    three tries of three sessions), printed as one JSON line."""
+    three tries of three sessions), printed as one JSON line a job."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2404,8 +2930,13 @@ def device_times(path) -> int:
     from halo2_lasso_tpu_torch.ops.bn254 import Fq, Fr
     from halo2_lasso_tpu_torch.utils.bench import device_ms
 
-    fields = {Fq.kernel_id: (Fq, Fr), Fr.kernel_id: (Fr, Fq)}  # a curve's coordinate and scalar fields
-    out = {}
+    from halo2_lasso_tpu_torch.ops import curves
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+
+    # a curve's coordinate and scalar fields, by the coordinate field's kernel_id
+    fields = {spec.kernel_id: (spec, other) for spec, other in (
+        (Fq, Fr), (Fr, Fq), (curves.Fp_pallas, curves.Fq_vesta), (curves.Fq_vesta, curves.Fp_pallas))}
     for key, job in torch.load(path, weights_only=False).items():
         a, expect = job["args"], job["expect"]
         base, scalar = fields[a["base"]]
@@ -2418,18 +2949,29 @@ def device_times(path) -> int:
         elif job["call"] == "msm_list":
             os.environ["HALO2_LASSO_TPU_MSM_GROUP_LANES"] = str(a["budget"])
             fn = functools.partial(ec.msm_list_to_affine_int, a["jobs"], base, scalar)
+        elif job["call"] == "ew":
+            fn = functools.partial(F._ew, base, a["op"], *a["args"])
+        elif job["call"] == "pow":
+            fn = functools.partial(F.pow_fixed, base, a["a"], a["e"])
+        elif job["call"] == "prefix":
+            fn = functools.partial(F.prefix_products, base, a["a"])
+        elif job["call"] == "batch_inv":
+            fn = functools.partial(F.batch_inv, base, a["a"])
+        elif job["call"] == "ec_add":
+            fn = functools.partial(ec.ec_add, a["p"], a["p"], base)
+        elif job["call"] == "round":
+            fn = functools.partial(SC.round_message_planned, base, a["tables"], a["plan"], None)
         else:
             fn = functools.partial(MJ.msm_planes, a["points"], a["scal"], base, scalar)
         for attempt in range(3):
             try:
                 ms = device_ms(fn, 3, list(expect), expect=expect)
                 break
-            except RuntimeError:
+            except RuntimeError as e:
                 if attempt == 2:
-                    raise
-        out[key] = {"all": ms["all"], **{sym: ms[sym] for sym in expect}}
+                    raise RuntimeError(f"job {key}: {e}") from e
+        print(json.dumps({key: {"all": ms["all"], **{sym: ms[sym] for sym in expect}}}), flush=True)
         os.environ.pop("HALO2_LASSO_TPU_MSM_GROUP_LANES", None)
-    print(json.dumps(out), flush=True)
     return 0
 
 

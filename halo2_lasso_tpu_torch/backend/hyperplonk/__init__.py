@@ -37,7 +37,6 @@ from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fr
 from halo2_lasso_tpu_torch.pcs import Evaluation
 from halo2_lasso_tpu_torch.ops import curves
 from halo2_lasso_tpu_torch.pcs.multilinear_kzg import MultilinearKzg
-from halo2_lasso_tpu_torch.piop import sum_check
 from halo2_lasso_tpu_torch.poly import multilinear as mle
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 from halo2_lasso_tpu_torch.utils.timer import timed
@@ -191,7 +190,6 @@ class HyperPlonk:
         pcs_pp, pcs_vp = cls.Pcs.trim(param, 1 << _max_num_vars(circuit_info))
         device = param.device
         num_permutation_z_polys, expression = preprocessor.compose(circuit_info)
-        sum_check.check_degree(expression.degree, device, "the zero check's gate")
 
         preprocess_polys = [F.encode_dev(spec, vals, device) for vals in circuit_info.preprocess_polys]
         preprocess_comms = cls.Pcs.batch_commit(pcs_pp, preprocess_polys)

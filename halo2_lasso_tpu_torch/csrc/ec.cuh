@@ -1,10 +1,11 @@
 // Complete Jacobian addition for one lane over the coordinate field P, and
 // the scalar ladder's dedicated doubling, shared by csrc/ec_add.cu,
-// csrc/msm_level.cu and the host-compiled CPU test (see field.cuh). Two
-// instances: P = Fq, BN254 G1 (y^2 = x^3 + 3), and P = Fr, grumpkin
-// (y^2 = x^3 - 17), the other half of the BN254 2-cycle. Both curves have
-// a = 0, and b appears in neither formula, so the instances differ only in
-// the modulus.
+// csrc/msm_level.cu (and their Pasta sources) and the host-compiled CPU test
+// (see field.cuh). Four instances: P = Fq, BN254 G1 (y^2 = x^3 + 3); P =
+// Fr, grumpkin (y^2 = x^3 - 17), the other half of the BN254 2-cycle; P =
+// Pallas and P = Vesta, the Pasta 2-cycle (y^2 = x^3 + 5 over each). Every
+// curve has a = 0, and b appears in neither formula, so the instances
+// differ only in the modulus.
 //
 // add-2007-bl takes 16 Montgomery products. The doubling (dbl-2009-l, 7
 // more) is needed only where P = Q, which an MSM almost never meets, so it

@@ -1,8 +1,10 @@
-// The K3 family's kernels over whole batches, each in two instances
-// selected by `field`: 1 = BN254 G1 over Fq (the TPU kernel's curve) and
-// 0 = grumpkin over Fr. The grumpkin instances are the port of what the
-// TPU computes for that curve through msm_jacobian.jac_add_lf (a complete
-// add built from make_mont_mul launches, halo2_lasso_tpu/ops/msm_jacobian.py:90).
+// The K3 family's kernels over whole batches, each in four instances
+// selected by `field`, the kernel_id of the coordinate field: 1 = BN254 G1
+// over Fq (the TPU kernel's curve) and 0 = grumpkin over Fr here, 2 = Pallas
+// and 3 = Vesta in csrc/ec_pasta.cu. The other curves' instances are the
+// port of what the TPU computes for them through msm_jacobian.jac_add_lf (a
+// complete add built from make_mont_mul launches,
+// halo2_lasso_tpu/ops/msm_jacobian.py:90).
 // The MSM's halving levels run in csrc/msm_level.cu. The device functions
 // above the kernels also compile for the host (FIELD_HOST_TEST), where
 // tests/test_torch_csrc.py runs them lane by lane against the plain versions.
@@ -201,26 +203,63 @@ plane_tree_kernel(const uint32_t* bx, const uint32_t* by, const uint32_t* bz, in
   }
 }
 
+template <class P>
+int add_launch(const void* x1, const void* y1, const void* z1, const void* x2, const void* y2, const void* z2,
+               void* x3, void* y3, void* z3, long long n, cudaStream_t s) {
+  const int threads = 128;
+  const long long blocks = (n + threads - 1) / threads;
+  ec_add_kernel<P><<<blocks, threads, 0, s>>>((const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+                                              (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
+                                              (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int ladder_launch(const void* px, const void* py, const void* pz, const void* lane_k, const LadderScalar& sk,
+                  int nbits, void* ox, void* oy, void* oz, long long n, cudaStream_t s) {
+  const long long blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
+  ec_ladder_kernel<P><<<blocks, LADDER_THREADS, 0, s>>>((const uint32_t*)px, (const uint32_t*)py,
+                                                        (const uint32_t*)pz, (const uint32_t*)lane_k, sk, nbits,
+                                                        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int tree_launch(const void* bx, const void* by, const void* bz, int c, int W, void* ox, void* oy, void* oz,
+                cudaStream_t s) {
+  const int half = 1 << (c - 2), tpp = half < TREE_THREADS ? half : TREE_THREADS, ppb = TREE_THREADS / tpp;
+  const long long planes = (long long)c * W, blocks = (planes + ppb - 1) / ppb;
+  const size_t smem = (size_t)ppb * half * 24 * sizeof(uint32_t);
+  plane_tree_kernel<P><<<blocks, TREE_THREADS, smem, s>>>((const uint32_t*)bx, (const uint32_t*)by,
+                                                          (const uint32_t*)bz, c, W, tpp, (uint32_t*)ox,
+                                                          (uint32_t*)oy, (uint32_t*)oz);
+  return (int)cudaGetLastError();
+}
+
+// The Pallas and Vesta launchers, built in csrc/ec_pasta.cu.
+int add_launch_pasta(int field, const void* x1, const void* y1, const void* z1, const void* x2, const void* y2,
+                     const void* z2, void* x3, void* y3, void* z3, long long n, cudaStream_t s);
+int ladder_launch_pasta(int field, const void* px, const void* py, const void* pz, const void* lane_k,
+                        const LadderScalar& sk, int nbits, void* ox, void* oy, void* oz, long long n,
+                        cudaStream_t s);
+int tree_launch_pasta(int field, const void* bx, const void* by, const void* bz, int c, int W, void* ox,
+                      void* oy, void* oz, cudaStream_t s);
+
+#ifndef H2L_PASTA_SOURCE
 // field: the kernel_id of the coordinate field (0 = Fr, grumpkin; 1 = Fq,
-// BN254 G1).
+// BN254 G1; 2 = Pallas' base field, the Pallas curve; 3 = Vesta's, the
+// Vesta curve).
 extern "C" int h2l_ec_add(int field, const void* x1, const void* y1, const void* z1, const void* x2,
                           const void* y2, const void* z2, void* x3, void* y3, void* z3,
                           long long n, void* stream) {
+  if (!field_built(field, true)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
-  const uint32_t *a = (const uint32_t*)x1, *b = (const uint32_t*)y1, *c = (const uint32_t*)z1,
-                 *d = (const uint32_t*)x2, *e = (const uint32_t*)y2, *f = (const uint32_t*)z2;
   cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    ec_add_kernel<Fr><<<blocks, threads, 0, s>>>(a, b, c, d, e, f, (uint32_t*)x3, (uint32_t*)y3,
-                                                 (uint32_t*)z3, n);
-  else if (field == 1)
-    ec_add_kernel<Fq><<<blocks, threads, 0, s>>>(a, b, c, d, e, f, (uint32_t*)x3, (uint32_t*)y3,
-                                                 (uint32_t*)z3, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  switch (field) {
+    case 0: return add_launch<Fr>(x1, y1, z1, x2, y2, z2, x3, y3, z3, n, s);
+    case 1: return add_launch<Fq>(x1, y1, z1, x2, y2, z2, x3, y3, z3, n, s);
+    default: return add_launch_pasta(field, x1, y1, z1, x2, y2, z2, x3, y3, z3, n, s);
+  }
 }
 
 // px/py/pz, ox/oy/oz: device (n, 8) rows; lane_k: device (n, 8) canonical
@@ -229,47 +268,29 @@ extern "C" int h2l_ec_add(int field, const void* x1, const void* y1, const void*
 extern "C" int h2l_ec_ladder(int field, const void* px, const void* py, const void* pz,
                              const void* lane_k, const void* k, int nbits, void* ox, void* oy,
                              void* oz, long long n, void* stream) {
+  if (!field_built(field, true) || nbits < 0 || nbits > 256) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  if (nbits < 0 || nbits > 256) return (int)cudaErrorInvalidValue;
   LadderScalar sk;
   for (int i = 0; i < 8; ++i) sk.w[i] = k != nullptr ? ((const uint32_t*)k)[i] : 0;
-  const long long blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-#define H2L_LADDER_LAUNCH(P)                                                                      \
-  ec_ladder_kernel<P><<<blocks, LADDER_THREADS, 0, s>>>((const uint32_t*)px, (const uint32_t*)py,  \
-                                                 (const uint32_t*)pz, (const uint32_t*)lane_k, sk, \
-                                                 nbits, (uint32_t*)ox, (uint32_t*)oy,              \
-                                                 (uint32_t*)oz, n)
-  if (field == 0)
-    H2L_LADDER_LAUNCH(Fr);
-  else if (field == 1)
-    H2L_LADDER_LAUNCH(Fq);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef H2L_LADDER_LAUNCH
-  return (int)cudaGetLastError();
+  switch (field) {
+    case 0: return ladder_launch<Fr>(px, py, pz, lane_k, sk, nbits, ox, oy, oz, n, s);
+    case 1: return ladder_launch<Fq>(px, py, pz, lane_k, sk, nbits, ox, oy, oz, n, s);
+    default: return ladder_launch_pasta(field, px, py, pz, lane_k, sk, nbits, ox, oy, oz, n, s);
+  }
 }
 
 // bx/by/bz: the W * 2^c bucket rows (window-major, more rows may follow);
 // ox/oy/oz: the c * W plane sums, plane-major ([j * W + w]).
 extern "C" int h2l_plane_tree(int field, const void* bx, const void* by, const void* bz, int c, int W,
                               void* ox, void* oy, void* oz, void* stream) {
-  if (c < 2 || c > TREE_MAX_C || W <= 0) return (int)cudaErrorInvalidValue;
-  const int half = 1 << (c - 2), tpp = half < TREE_THREADS ? half : TREE_THREADS, ppb = TREE_THREADS / tpp;
-  const long long planes = (long long)c * W, blocks = (planes + ppb - 1) / ppb;
-  const size_t smem = (size_t)ppb * half * 24 * sizeof(uint32_t);
+  if (!field_built(field, true) || c < 2 || c > TREE_MAX_C || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define H2L_TREE_LAUNCH(P)                                                                          \
-  plane_tree_kernel<P><<<blocks, TREE_THREADS, smem, s>>>((const uint32_t*)bx, (const uint32_t*)by, \
-                                                          (const uint32_t*)bz, c, W, tpp,           \
-                                                          (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz)
-  if (field == 0)
-    H2L_TREE_LAUNCH(Fr);
-  else if (field == 1)
-    H2L_TREE_LAUNCH(Fq);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef H2L_TREE_LAUNCH
-  return (int)cudaGetLastError();
+  switch (field) {
+    case 0: return tree_launch<Fr>(bx, by, bz, c, W, ox, oy, oz, s);
+    case 1: return tree_launch<Fq>(bx, by, bz, c, W, ox, oy, oz, s);
+    default: return tree_launch_pasta(field, bx, by, bz, c, W, ox, oy, oz, s);
+  }
 }
+#endif
 #endif

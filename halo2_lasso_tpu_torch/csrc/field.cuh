@@ -1,4 +1,5 @@
-// BN254 prime-field arithmetic shared by every kernel of the port.
+// Prime-field arithmetic shared by every kernel of the port, over BN254's
+// two fields and the Pasta cycle's two (every modulus below 2^255).
 //
 // An element is 8 little-endian 32-bit limbs in Montgomery form with
 // R = 2^256, always fully reduced into [0, p): the same 256-bit numbers the
@@ -29,6 +30,12 @@ struct Fe {
   uint32_t v[8];
 };
 
+// The fields, each a struct of its modulus p, INV = -p^-1 mod 2^32 and
+// one = R mod p. A C entry point takes its instance's `field`, the
+// FieldSpec's kernel_id: 0 = Fr, 1 = Fq, 2 = Pallas (Pallas' base field,
+// Vesta's scalar field), 3 = Vesta (the other way round); an id that the
+// entry point was not built for returns cudaErrorInvalidValue.
+
 // Fr: scalar field of BN254.
 struct Fr {
   static constexpr uint32_t INV = 0xefffffffu;  // -p^-1 mod 2^32
@@ -58,6 +65,44 @@ struct Fq {
     return O[i];
   }
 };
+
+// Pallas: p = 2^254 + 45560315531419706090280762371685220353 (255 bits),
+// the base field of the Pallas curve and the scalar field of Vesta.
+struct Pallas {
+  static constexpr uint32_t INV = 0xffffffffu;
+  FD static uint32_t p(int i) {
+    const uint32_t P[8] = {0x00000001u, 0x992d30edu, 0x094cf91bu, 0x224698fcu,
+                           0x00000000u, 0x00000000u, 0x00000000u, 0x40000000u};
+    return P[i];
+  }
+  FD static uint32_t one(int i) {
+    const uint32_t O[8] = {0xfffffffdu, 0x34786d38u, 0xe41914adu, 0x992c350bu,
+                           0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu};
+    return O[i];
+  }
+};
+
+// Vesta: p = 2^254 + 45560315531506369815346746415080538113 (255 bits),
+// the base field of the Vesta curve and the scalar field of Pallas.
+struct Vesta {
+  static constexpr uint32_t INV = 0xffffffffu;
+  FD static uint32_t p(int i) {
+    const uint32_t P[8] = {0x00000001u, 0x8c46eb21u, 0x0994a8ddu, 0x224698fcu,
+                           0x00000000u, 0x00000000u, 0x00000000u, 0x40000000u};
+    return P[i];
+  }
+  FD static uint32_t one(int i) {
+    const uint32_t O[8] = {0xfffffffdu, 0x5b2b3e9cu, 0xe3420567u, 0x992c350bu,
+                           0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu};
+    return O[i];
+  }
+};
+
+// Whether a C entry point takes the field id `field`: BN254's fields (0,
+// 1) always, the Pasta cycle's (2, 3) where the kernel has their instances.
+inline bool field_built(int field, bool pasta) {
+  return field == 0 || field == 1 || (pasta && (field == 2 || field == 3));
+}
 
 FD Fe fe_load(const uint32_t* base, long long idx) {
   Fe r;
@@ -161,7 +206,7 @@ FD Fe fe_add(const Fe& a, const Fe& b) {
     s.v[i] = (uint32_t)t;
     carry = t >> 32;
   }
-  // p < 2^254, so a + b < 2^255 never carries out
+  // p < 2^255, so a + b < 2p < 2^256 never carries out of limb 7
   return fe_reduce_once<P>(s);
 }
 
@@ -193,6 +238,9 @@ FD Fe fe_neg(const Fe& a) {
 }
 
 // Montgomery product a*b*2^-256 mod p (CIOS, 32-bit limbs, 64-bit products).
+// For a, b < p < 2^255 each outer step ends with t < b + p < 2p < 2^256, so
+// t[8] is 0 between steps; within a step t + a_i b + m p < 2^289 needs the
+// tenth word t[9], whose carry the shift folds into t[8].
 template <class P>
 FD Fe fe_mul(const Fe& a, const Fe& b) {
   uint32_t t[10];
@@ -223,7 +271,7 @@ FD Fe fe_mul(const Fe& a, const Fe& b) {
     t[7] = (uint32_t)s;
     t[8] = t[9] + (uint32_t)(s >> 32);
   }
-  // t < 2p < 2^255: t[8] is 0
+  // t < 2p < 2^256: t[8] is 0, and one conditional subtract reduces it
   Fe r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.v[i] = t[i];

@@ -208,8 +208,8 @@ int chain_launch(const ChainParams& p, cudaStream_t s) {
 // (n = 2^j) or null; out: n >> j rows; ticket: a device counter at 0.
 extern "C" int h2l_fix_var(int field, const void* evals, long long n, int j, int last, const void* x_host,
                            const void* x_dev, void* mid, void* quot, void* out, void* ticket, void* stream) {
-  if (j < 1 || j > MAX_CHAIN_VARS || n < 2 || n % (1ll << j) || (quot && n != (1ll << j)) ||
-      (!x_host && !x_dev))
+  if (!field_built(field, false) || j < 1 || j > MAX_CHAIN_VARS || n < 2 || n % (1ll << j) ||
+      (quot && n != (1ll << j)) || (!x_host && !x_dev))
     return (int)cudaErrorInvalidValue;
   ChainParams p;
   if (x_host) memcpy(p.x, x_host, sizeof(Fe) * j);

@@ -65,9 +65,9 @@ __global__ void __launch_bounds__(256) fold_all_kernel(const __grid_constant__ F
 extern "C" int h2l_fold_all(int field, const void* ins, void* out, int ntables, long long h,
                             long long stride, const void* x_host, const void* x_dev,
                             void* stream) {
+  if (!field_built(field, false)) return (int)cudaErrorInvalidValue;
   if (h <= 0 || ntables <= 0) return 0;
-  if (ntables > FOLD_MAX_TABLES || (!x_host && !x_dev) || (field != 0 && field != 1))
-    return (int)cudaErrorInvalidValue;
+  if (ntables > FOLD_MAX_TABLES || (!x_host && !x_dev)) return (int)cudaErrorInvalidValue;
   FoldParams p;
   memcpy(p.ins, ins, sizeof(void*) * ntables);
   p.out = (uint32_t*)out;

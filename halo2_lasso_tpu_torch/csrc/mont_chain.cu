@@ -34,6 +34,11 @@
 //
 // Field products are exact and fully reduced, and multiplication is
 // commutative, so every association order gives the plain loops' bytes.
+//
+// mont_pow, the scan and batch_inv have four field instances: BN254's Fr
+// and Fq here, Pallas and Vesta built in csrc/mont_pasta.cu (the inversions
+// of the Pasta curves' affine conversions and batched-affine MSM); eq_xy
+// has the BN254 instances only.
 #include <cstring>
 
 #include "field.cuh"
@@ -311,41 +316,61 @@ int chain(const void* x, void* out, long long n, int reverse, int inv, void* scr
   return scan_launch<P>(PH_APPLY, a, s);
 }
 
-// a, out: device (n, 8); exp: host array of 8 words, nbits its bit length.
+// The Pallas and Vesta launchers, built in csrc/mont_pasta.cu.
+int pow_launch_pasta(int field, const void* a, void* out, long long n, const void* exp, int nbits,
+                     cudaStream_t s);
+int chain_pasta(int field, const void* x, void* out, long long n, int reverse, int inv, void* scratch,
+                const void* exp, int nbits, cudaStream_t s);
+
+#ifndef H2L_PASTA_SOURCE
+// field: 0 = Fr, 1 = Fq, 2 = Pallas, 3 = Vesta (every entry below but
+// eq_xy, which takes 0 and 1); a, out: device (n, 8); exp: host array of 8
+// words, nbits its bit length.
 extern "C" int h2l_mont_pow(int field, const void* a, void* out, long long n, const void* exp,
                             int nbits, void* stream) {
+  if (!field_built(field, true) || nbits < 0 || nbits > 32 * MAX_POW_WORDS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  if (nbits < 0 || nbits > 32 * MAX_POW_WORDS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return field == 0 ? pow_launch<Fr>(a, out, n, exp, nbits, s) : pow_launch<Fq>(a, out, n, exp, nbits, s);
+  switch (field) {
+    case 0: return pow_launch<Fr>(a, out, n, exp, nbits, s);
+    case 1: return pow_launch<Fq>(a, out, n, exp, nbits, s);
+    default: return pow_launch_pasta(field, a, out, n, exp, nbits, s);
+  }
+}
+
+static int chain_any(int field, const void* x, void* out, long long n, int reverse, int inv, void* scratch,
+                     const void* exp, int nbits, cudaStream_t s) {
+  switch (field) {
+    case 0: return chain<Fr>(x, out, n, reverse, inv, scratch, exp, nbits, s);
+    case 1: return chain<Fq>(x, out, n, reverse, inv, scratch, exp, nbits, s);
+    default: return chain_pasta(field, x, out, n, reverse, inv, scratch, exp, nbits, s);
+  }
 }
 
 // Inclusive prefix products of the rows of x (from the last row when
 // `reverse`): 1 launch for n <= 1024, else 3. scratch: 3 nb + 2 rows.
 extern "C" int h2l_prefix_products(int field, const void* x, void* out, long long n, int reverse,
                                    void* scratch, void* stream) {
+  if (!field_built(field, true)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return field == 0 ? chain<Fr>(x, out, n, reverse, 0, scratch, nullptr, 0, s)
-                    : chain<Fq>(x, out, n, reverse, 0, scratch, nullptr, 0, s);
+  return chain_any(field, x, out, n, reverse, 0, scratch, nullptr, 0, (cudaStream_t)stream);
 }
 
 // Every row of x inverted, zero rows kept zero: 3 launches for n <= 1024,
 // else 4. exp: host array of the 8 words of p - 2, nbits its bit length.
 extern "C" int h2l_batch_inv(int field, const void* x, void* out, long long n, void* scratch,
                              const void* exp, int nbits, void* stream) {
+  if (!field_built(field, true) || nbits < 1 || nbits > 32 * MAX_POW_WORDS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  if (nbits < 1 || nbits > 32 * MAX_POW_WORDS) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return field == 0 ? chain<Fr>(x, out, n, 0, 1, scratch, exp, nbits, s)
-                    : chain<Fq>(x, out, n, 0, 1, scratch, exp, nbits, s);
+  return chain_any(field, x, out, n, 0, 1, scratch, exp, nbits, (cudaStream_t)stream);
 }
 
 // The 2^k table of eq(X, y): y_host, k Montgomery rows on the host, or
 // y_dev, k rows on the card (y_host null). One launch.
 extern "C" int h2l_eq_xy(int field, const void* y_host, const void* y_dev, int k, void* out,
                          void* stream) {
-  if (k < 0 || k > MAX_EQ_VARS || (k > 0 && !y_host && !y_dev)) return (int)cudaErrorInvalidValue;
+  if (!field_built(field, false) || k < 0 || k > MAX_EQ_VARS || (k > 0 && !y_host && !y_dev))
+    return (int)cudaErrorInvalidValue;
   EqParams p;
   if (y_host) memcpy(p.y, y_host, sizeof(Fe) * k);
   p.y_dev = y_host ? nullptr : (const uint32_t*)y_dev;
@@ -356,4 +381,5 @@ extern "C" int h2l_eq_xy(int field, const void* y_host, const void* y_dev, int k
   else eq_xy_kernel<Fq><<<(unsigned)blocks, 256, 0, s>>>(p, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
+#endif
 #endif

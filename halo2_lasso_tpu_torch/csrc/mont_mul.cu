@@ -33,6 +33,12 @@
 // nb > 1 the last block to finish (an atomic ticket, as K1 does) adds the
 // block partials of every column. One launch, no host sync. Field addition
 // is exact and reduced, so any order gives the plain tree's bytes.
+//
+// The elementwise kernel has four field instances: BN254's Fr and Fq here,
+// Pallas and Vesta built in csrc/mont_pasta.cu (the same kernel over
+// another modulus; its own source keeps the parallel build's slowest job
+// as it was). The row sum has the BN254 instances only: no Pasta path
+// sums rows.
 #include <cstring>
 
 #include "field.cuh"
@@ -115,11 +121,17 @@ int ew_launch(int op, const EwParams& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: host array of 3 device pointers (a, b, c; null reads the element
-// by value); strides: host array of the 6 row strides (s0, s1 of a, b, c);
-// vals: host array of 3 Montgomery elements; out: outer * inner rows.
+// The Pallas and Vesta launchers, built in csrc/mont_pasta.cu.
+int ew_launch_pasta(int field, int op, const EwParams& p, cudaStream_t s);
+
+#ifndef H2L_PASTA_SOURCE
+// field: 0 = Fr, 1 = Fq, 2 = Pallas, 3 = Vesta; ptrs: host array of 3
+// device pointers (a, b, c; null reads the element by value); strides:
+// host array of the 6 row strides (s0, s1 of a, b, c); vals: host array of
+// 3 Montgomery elements; out: outer * inner rows.
 extern "C" int h2l_mont_mul(int field, int op, const void* ptrs, const void* strides, const void* vals,
                             void* out, long long outer, long long inner, void* stream) {
+  if (!field_built(field, true)) return (int)cudaErrorInvalidValue;
   if (outer <= 0 || inner <= 0) return 0;
   const void* const* ps = (const void* const*)ptrs;
   const long long* ss = (const long long*)strides;
@@ -136,8 +148,13 @@ extern "C" int h2l_mont_mul(int field, int op, const void* ptrs, const void* str
   p.outer = outer;
   p.inner = inner;
   cudaStream_t s = (cudaStream_t)stream;
-  return field == 0 ? ew_launch<Fr>(op, p, s) : ew_launch<Fq>(op, p, s);
+  switch (field) {
+    case 0: return ew_launch<Fr>(op, p, s);
+    case 1: return ew_launch<Fq>(op, p, s);
+    default: return ew_launch_pasta(field, op, p, s);
+  }
 }
+#endif
 
 struct SumParams {
   const uint32_t* a;  // element (r, j) at row r * s0 + j * s1
@@ -203,11 +220,14 @@ __global__ void __launch_bounds__(SUM_THREADS) sum_reduce_kernel(const __grid_co
   if (tid == 0) *p.ticket = 0;  // ready for the next launch on this stream
 }
 
-// a: device rows, element (r, j) at row r * s0 + j * s1 for r < n, j < m;
-// partials: m * nb rows of device scratch; ticket: a device counter at 0;
-// out: m rows. nb <= SUM_MAX_BLOCKS blocks a column.
+#ifndef H2L_PASTA_SOURCE
+// field: 0 = Fr, 1 = Fq; a: device rows, element (r, j) at row r * s0 +
+// j * s1 for r < n, j < m; partials: m * nb rows of device scratch;
+// ticket: a device counter at 0; out: m rows. nb <= SUM_MAX_BLOCKS blocks
+// a column.
 extern "C" int h2l_sum_reduce(int field, const void* a, long long n, int m, long long s0, long long s1,
                               int nb, void* partials, void* ticket, void* out, void* stream) {
+  if (!field_built(field, false)) return (int)cudaErrorInvalidValue;
   if (n <= 0 || m <= 0) return 0;
   if (nb < 1 || nb > SUM_MAX_BLOCKS || m > 65535) return (int)cudaErrorInvalidValue;
   SumParams p{(const uint32_t*)a, n, s0, s1, (uint32_t*)partials, (uint32_t*)out, (unsigned int*)ticket};
@@ -217,4 +237,5 @@ extern "C" int h2l_sum_reduce(int field, const void* a, long long n, int m, long
   else sum_reduce_kernel<Fq><<<grid, SUM_THREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
+#endif
 #endif

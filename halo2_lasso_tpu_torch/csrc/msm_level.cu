@@ -1,8 +1,9 @@
 // One halving level of the Pippenger MSM in one launch: the port of the TPU's
 // complete Jacobian add (_ec_add_kernel, halo2_lasso_tpu/ops/pallas_ec.py:144)
 // together with the level step around it (_level_step,
-// halo2_lasso_tpu/ops/msm_jacobian.py:168). Two instances, selected by
-// `field` as in csrc/ec_add.cu: BN254 G1 over Fq and grumpkin over Fr (on
+// halo2_lasso_tpu/ops/msm_jacobian.py:168). Four instances, selected by
+// `field` as in csrc/ec_add.cu: BN254 G1 over Fq and grumpkin over Fr here,
+// Pallas and Vesta in csrc/msm_level_pasta.cu (on
 // the TPU grumpkin's level step adds through jac_add_lf, :90).
 //
 // The slots of each window are sorted by digit, descending. One thread takes
@@ -112,31 +113,44 @@ msm_level_kernel(const uint32_t* sx, const uint32_t* sy, const uint32_t* sz, con
   msm_level_lane<P>(sx, sy, sz, dig, order, pairs, B, lane, bx, by, bz, ox, oy, oz, odig);
 }
 
+template <class P>
+int level_launch(const void* sx, const void* sy, const void* sz, const void* dig, const void* order,
+                 long long pairs, int B, long long lanes, void* bx, void* by, void* bz, void* ox, void* oy,
+                 void* oz, void* odig, cudaStream_t s) {
+  const long long blocks = (lanes + LEVEL_THREADS - 1) / LEVEL_THREADS;
+  msm_level_kernel<P><<<blocks, LEVEL_THREADS, 0, s>>>(
+      (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (const int32_t*)dig,
+      (const long long*)order, pairs, B, lanes, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
+      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)odig);
+  return (int)cudaGetLastError();
+}
+
+// The Pallas and Vesta launcher, built in csrc/msm_level_pasta.cu.
+int level_launch_pasta(int field, const void* sx, const void* sy, const void* sz, const void* dig,
+                       const void* order, long long pairs, int B, long long lanes, void* bx, void* by,
+                       void* bz, void* ox, void* oy, void* oz, void* odig, cudaStream_t s);
+
+#ifndef H2L_PASTA_SOURCE
 // sx/sy/sz, dig: the level's slots (W * 2 * pairs rows and digits), or at the
 // first level (order != null) the n points and the (W, n) unsorted digits;
 // pairs: pairs per window, 0 for the final flush (W slots); bx/by/bz: the
 // W * B buckets, updated in place; ox/oy/oz, odig: W * pairs survivors;
-// field: the coordinate field's kernel_id (0 = Fr, grumpkin; 1 = Fq, BN254).
+// field: the coordinate field's kernel_id (0 = Fr, grumpkin; 1 = Fq, BN254;
+// 2 = Pallas' base field, the Pallas curve; 3 = Vesta's, the Vesta curve).
 extern "C" int h2l_msm_level(int field, const void* sx, const void* sy, const void* sz, const void* dig,
                              const void* order, long long pairs, int W, int B, void* bx,
                              void* by, void* bz, void* ox, void* oy, void* oz, void* odig,
                              void* stream) {
+  if (!field_built(field, true)) return (int)cudaErrorInvalidValue;
   long long lanes = pairs == 0 ? (long long)W : (long long)W * pairs;
   if (lanes <= 0) return 0;
-  long long blocks = (lanes + LEVEL_THREADS - 1) / LEVEL_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-#define H2L_LEVEL_LAUNCH(P)                                                                      \
-  msm_level_kernel<P><<<blocks, LEVEL_THREADS, 0, s>>>(                                          \
-      (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (const int32_t*)dig,        \
-      (const long long*)order, pairs, B, lanes, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,     \
-      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)odig)
-  if (field == 0)
-    H2L_LEVEL_LAUNCH(Fr);
-  else if (field == 1)
-    H2L_LEVEL_LAUNCH(Fq);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef H2L_LEVEL_LAUNCH
-  return (int)cudaGetLastError();
+  switch (field) {
+    case 0: return level_launch<Fr>(sx, sy, sz, dig, order, pairs, B, lanes, bx, by, bz, ox, oy, oz, odig, s);
+    case 1: return level_launch<Fq>(sx, sy, sz, dig, order, pairs, B, lanes, bx, by, bz, ox, oy, oz, odig, s);
+    default:
+      return level_launch_pasta(field, sx, sy, sz, dig, order, pairs, B, lanes, bx, by, bz, ox, oy, oz, odig, s);
+  }
 }
+#endif
 #endif

@@ -5,8 +5,18 @@
 // field, selected by `field`, the kernel_id): the grumpkin-backed SNARK's
 // sumchecks run over BN254 Fq.
 //
-//   msg[t-1] = sum_i expr(leaf values at X_0 = t), t = 1..degree,
+//   msg[t-1] = sum_i expr(leaf values at X_0 = t), t = t0+1..t0+D,
 //   leaf value at t = hi + (t-1)(hi - lo), (lo, hi) = (L[2i], L[2i+1]).
+//
+// A launch evaluates D <= MAX_DEGREE points from t0 + 1 (t0 = 0 for a
+// round of degree at most 8). A round of degree d > 8 is ceil(d / 8) launches,
+// t0 = 0, 8, 16, ... (piop/sum_check.py plan_round), as the JAX package's
+// message is the evaluations at 1..d whatever d is
+// (halo2_lasso_tpu/piop/sum_check.py:427-458): a leaf's first value is
+// hi + t0 (hi - lo), one more product a leaf, and constants and
+// challenges do not depend on t. MAX_DEGREE is not raised: the stack grows
+// with D, and at D = 16 it no longer fits in shared memory at useful
+// thread counts.
 //
 // The TPU kernel is generated per expression. This is ONE compiled kernel
 // that interprets the expression: the host lowers it to a short postfix
@@ -59,7 +69,7 @@
 #define MAX_OPS 640
 #define MAX_CONSTS 32
 
-// 3.3 KB, under the 4 KB of kernel parameters every CUDA version takes.
+// 3.4 KB, under the 4 KB of kernel parameters every CUDA version takes.
 struct RoundParams {
   const uint32_t* leaves[MAX_LEAVES];
   Fe consts[MAX_CONSTS];
@@ -67,6 +77,8 @@ struct RoundParams {
   const uint32_t* chals;
   long long h;
   int nops;
+  int t0;    // the launch's points are t0 + 1 .. t0 + D
+  Fe t0_m;   // t0 in Montgomery form
 };
 static_assert(sizeof(RoundParams) <= 4096, "kernel parameters above 4 KB");
 
@@ -87,9 +99,9 @@ struct Stack {
   }
 };
 
-// The program on pair i at t = 1..D; the values end in slot 0. Also compiled
-// for the host (FIELD_HOST_TEST), where the CPU tests hold it against the
-// plain version.
+// The program on pair i at t = t0+1..t0+D; the values end in slot 0. Also
+// compiled for the host (FIELD_HOST_TEST), where the CPU tests hold it
+// against the plain version.
 template <class P, int D>
 FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
   int sp = 0;
@@ -100,14 +112,17 @@ FD void eval_pair(const RoundParams& p, long long i, const Stack<D>& st) {
       const uint32_t* tab = p.leaves[arg];
       const Fe lo = fe_load16(tab, 2 * i);
       Fe v = fe_load16(tab, 2 * i + 1);
-      st.put(sp, 0, v);
-      if (D > 1) {
+      if (D > 1 || p.t0) {
         const Fe step = fe_sub<P>(v, lo);
+        if (p.t0) v = fe_add<P>(v, fe_mul<P>(step, p.t0_m));
+        st.put(sp, 0, v);
 #pragma unroll 1
         for (int t = 1; t < D; ++t) {
           v = fe_add<P>(v, step);
           st.put(sp, t, v);
         }
+      } else {
+        st.put(sp, 0, v);
       }
       ++sp;
     } else if (op == OP_CONST || op == OP_CHAL) {
@@ -236,18 +251,20 @@ int launch_degree(const RoundParams& p, int degree, int stack, int threads, int 
 
 // field: 0 = Fr, 1 = Fq; leaves: host array of nleaves device pointers;
 // ops: host array of nops (op | arg << 3); consts: host array of nconsts
-// Montgomery elements (8 words each); chals: device (c, 8) or null; stack:
-// the program's depth; threads: a power of two in 32..256; partials:
-// blocks * degree elements of device scratch; ticket: a device counter at
-// 0; out: degree elements.
+// Montgomery elements (8 words each); chals: device (c, 8) or null; degree:
+// the launch's points D, t0 + 1 .. t0 + D, t0_m: t0 in Montgomery form (a
+// host element; null for t0 = 0); stack: the program's depth; threads: a
+// power of two in 32..256; partials: blocks * degree elements of device
+// scratch; ticket: a device counter at 0; out: degree elements.
 extern "C" int h2l_sumcheck_round(int field, const void* leaves, int nleaves, const void* ops, int nops,
                                   const void* consts, int nconsts, const void* chals,
-                                  long long h, int degree, int stack, int threads, int blocks,
-                                  void* partials, void* ticket, void* out, void* stream) {
-  if (degree < 1 || degree > MAX_DEGREE || nleaves < 1 || nleaves > MAX_LEAVES || nops < 1 ||
-      nops > MAX_OPS || nconsts < 0 || nconsts > MAX_CONSTS || stack < 1 || stack > MAX_STACK ||
-      threads < 32 || threads > 256 || (threads & (threads - 1)) || blocks < 1 || h < 1 ||
-      (field != 0 && field != 1))
+                                  long long h, int degree, int t0, const void* t0_m, int stack,
+                                  int threads, int blocks, void* partials, void* ticket, void* out,
+                                  void* stream) {
+  if (!field_built(field, false) || degree < 1 || degree > MAX_DEGREE || t0 < 0 || (t0 > 0 && !t0_m) ||
+      nleaves < 1 || nleaves > MAX_LEAVES || nops < 1 || nops > MAX_OPS || nconsts < 0 ||
+      nconsts > MAX_CONSTS || stack < 1 || stack > MAX_STACK || threads < 32 || threads > 256 ||
+      (threads & (threads - 1)) || blocks < 1 || h < 1)
     return (int)cudaErrorInvalidValue;
   RoundParams p;
   memcpy(p.leaves, leaves, sizeof(void*) * nleaves);
@@ -256,6 +273,9 @@ extern "C" int h2l_sumcheck_round(int field, const void* leaves, int nleaves, co
   p.chals = (const uint32_t*)chals;
   p.h = h;
   p.nops = nops;
+  p.t0 = t0;
+  if (t0 > 0) memcpy(p.t0_m.v, t0_m, sizeof(Fe));
+  else memset(p.t0_m.v, 0, sizeof(Fe));
   cudaStream_t s = (cudaStream_t)stream;
   return field == 0 ? launch_degree<Fr>(p, degree, stack, threads, blocks, partials, ticket, out, s)
                     : launch_degree<Fq>(p, degree, stack, threads, blocks, partials, ticket, out, s);

@@ -166,7 +166,6 @@ def prove(pp, table: LassoTable, indices: Sequence[int], transcript, pcs=Multili
     assert m & (m - 1) == 0, "pad lookups to a power of two"
     nv_m = m.bit_length() - 1
     nv_n = table.memories[0].subtable.index_bits
-    sum_check.check_degree(1 + table.g.degree, device, f"the primary sumcheck of {table.name}")
 
     with timed.scope("lasso_encode"):
         dims_host = table.chunk_indices_np(indices)

@@ -90,22 +90,25 @@ class LassoTable:
         return [(r >> (b * j)) & ((1 << b) - 1) for j in range(self.num_chunks)]
 
     def chunk_indices_np(self, rs: np.ndarray) -> List[np.ndarray]:
-        """Vectorized chunking of indices below 2^64 (two 32-bit operands
-        fill all 64 bits) into int64 dim arrays."""
+        """Vectorized chunking of indices into int64 dim arrays: indices below
+        2^64 (two 32-bit operands fill all 64 bits) through uint64, and those
+        of a two-operand table of wider operands (lt_table(64, 8): 128-bit
+        indices, Python ints) by their two operands, each below 2^64."""
         b = self.chunk_bits
-        rs = np.asarray(rs, dtype=np.uint64)
-        if self.interleaved_operands:
-            half = self.index_bits // 2
-            x = rs >> half
-            y = rs & ((1 << half) - 1)
-            dims = [
-                (((x >> (b * j)) & ((1 << b) - 1)) << b)
-                | ((y >> (b * j)) & ((1 << b) - 1))
-                for j in range(self.num_chunks)
-            ]
+        mask = (1 << b) - 1
+        if not self.interleaved_operands:
+            rs = np.asarray(rs, dtype=np.uint64)
+            return [((rs >> (b * j)) & mask).astype(np.int64) for j in range(self.num_chunks)]
+        half = self.index_bits // 2
+        assert half <= 64, "operands above 64 bits"
+        if self.index_bits > 64:
+            x = np.array([int(r) >> half for r in rs], dtype=np.uint64)
+            y = np.array([int(r) & ((1 << half) - 1) for r in rs], dtype=np.uint64)
         else:
-            dims = [(rs >> (b * j)) & ((1 << b) - 1) for j in range(self.num_chunks)]
-        return [d.astype(np.int64) for d in dims]
+            rs = np.asarray(rs, dtype=np.uint64)
+            x, y = rs >> half, rs & ((1 << half) - 1)
+        return [((((x >> (b * j)) & mask) << b) | ((y >> (b * j)) & mask)).astype(np.int64)
+                for j in range(self.num_chunks)]
 
     def lookup(self, r: int) -> int:
         """Direct table evaluation (for witness generation / testing)."""

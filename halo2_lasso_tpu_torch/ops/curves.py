@@ -2,10 +2,11 @@
 copy of halo2_lasso_tpu/ops/curves.py; halo2_curves bn256 / grumpkin /
 pasta).
 
-Host code only. BN254 G1 and grumpkin have device group ops (ops/ec.py,
-over the Fq and the Fr instances of the curve kernels; grumpkin's fields
-are BN254's Fr and Fq swapped); the Pasta fields have no kernel
-(``kernel_id`` None), so no device path may take a point of those curves.
+Host code only. Every curve here has device group ops (ops/ec.py): BN254 G1
+and grumpkin over the Fq and the Fr instances of the curve kernels
+(grumpkin's fields are BN254's Fr and Fq swapped), Pallas and Vesta over
+their own (``kernel_id`` 2 and 3: the Pasta fields are two 255-bit primes,
+each curve's base field the other's scalar field, ``TWO_CHAIN``).
 ``hash_to_curve`` derives the IPA and Hyrax generators; ``host_add`` /
 ``host_mul`` combine the handful of commitment points a verifier touches.
 """
@@ -49,11 +50,14 @@ GRUMPKIN = CurveSpec("grumpkin", base=Fr, scalar=Fq, b=GRUMPKIN_B, generator=GRU
 PALLAS_MODULUS = 0x40000000000000000000000000000000224698FC094CF91B992D30ED00000001
 VESTA_MODULUS = 0x40000000000000000000000000000000224698FC0994A8DD8C46EB2100000001
 
-Fp_pallas = FieldSpec(name="pallas_base", modulus=PALLAS_MODULUS, kernel_id=None)
-Fq_vesta = FieldSpec(name="vesta_base", modulus=VESTA_MODULUS, kernel_id=None)
+Fp_pallas = FieldSpec(name="pallas_base", modulus=PALLAS_MODULUS, kernel_id=2)
+Fq_vesta = FieldSpec(name="vesta_base", modulus=VESTA_MODULUS, kernel_id=3)
 
 PALLAS = CurveSpec("pallas", base=Fp_pallas, scalar=Fq_vesta, b=5, generator=(PALLAS_MODULUS - 1, 2))
 VESTA = CurveSpec("vesta", base=Fq_vesta, scalar=Fp_pallas, b=5, generator=(VESTA_MODULUS - 1, 2))
+
+# TwoChainCurve pairs (util/arithmetic.rs:37-59)
+TWO_CHAIN = {"bn254_g1": GRUMPKIN, "grumpkin": BN254_G1, "pallas": VESTA, "vesta": PALLAS}
 
 
 def on_curve(spec: CurveSpec, x: int, y: int) -> bool:

@@ -1,15 +1,17 @@
-"""Curve arithmetic over BN254 G1 and grumpkin (the port of
+"""Curve arithmetic over BN254 G1, grumpkin, Pallas and Vesta (the port of
 halo2_lasso_tpu/ops/ec.py).
 
 A point batch is a dict {"x", "y", "z"} of (n, 8) tensors over the curve's
 coordinate field ``spec`` in Jacobian coordinates; the identity has z = 0
 (and x = y = R mod p when this module makes it). As in the JAX package the
-field is an argument, BN254 G1's Fq by default; grumpkin's is Fr (both curves
-have a = 0). ``ec_add`` is the port of the TPU kernel _ec_add_kernel
-(ops/pallas_ec.py:144) and, for grumpkin, of the add the TPU builds from
-Montgomery-product launches (msm_jacobian.jac_add_lf): on a CUDA tensor it
-launches csrc/ec_add.cu's instance for the field or raises; only CPU tensors
-take ``ec_add_plain``, the same formulas in plain field ops, bit for bit.
+field is an argument, BN254 G1's Fq by default; grumpkin's is Fr, Pallas'
+and Vesta's their base fields (ops/curves.py; every curve has a = 0).
+``ec_add`` is the port of the TPU kernel _ec_add_kernel
+(ops/pallas_ec.py:144) and, for the other curves, of the add the TPU builds
+from Montgomery-product launches (msm_jacobian.jac_add_lf): on a CUDA
+tensor it launches csrc/ec_add.cu's instance for the field or raises; only
+CPU tensors take ``ec_add_plain``, the same formulas in plain field ops,
+bit for bit. ``ec_double`` is that add of a batch to itself.
 ``ec_ladder`` (and ``scalar_mul_bits`` over it) scales a batch in one
 launch of csrc/ec_add.cu's ladder, where the TPU ran two ``ec_add``
 launches a bit; ``scalar_mul_bits_plain`` is that loop in plain field ops.
@@ -110,7 +112,9 @@ def ec_add_plain(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
     same lane selection as the kernel (ops/pallas_ec.py:85-141), over the
     coordinate field `spec`: the plain version of both K3 instances. As the
     kernel's warp vote does, the doubling is computed only when some lane
-    needs it. A small CPU batch takes the same formulas in host ints."""
+    needs it, and alone for a batch added to itself (the same dict: the
+    ladder's doubling step). A small CPU batch takes the same formulas in
+    host ints."""
     if p["x"].device.type == "cpu" and p["x"].shape[0] <= F.HOST_PLAIN_ROWS:
         return _ec_add_host(p, q, spec)
     s = spec
@@ -118,23 +122,8 @@ def ec_add_plain(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
     add = functools.partial(F.add_plain, s)
     sub = functools.partial(F.sub_plain, s)
     x1, y1, z1, x2, y2, z2 = p["x"], p["y"], p["z"], q["x"], q["y"], q["z"]
-    z1z1, z2z2 = mul(z1, z1), mul(z2, z2)
-    u1, u2 = mul(x1, z2z2), mul(x2, z1z1)
-    s1, s2 = mul(mul(y1, z2), z2z2), mul(mul(y2, z1), z1z1)
-    h, r = sub(u2, u1), sub(s2, s1)
-    hh = mul(h, h)
-    hhh = mul(hh, h)
-    v = mul(u1, hh)
-    x3 = sub(sub(mul(r, r), hhh), add(v, v))
-    y3 = sub(mul(r, sub(v, x3)), mul(s1, hhh))
-    z3 = mul(mul(z1, z2), h)
 
-    p_id, q_id = F.is_zero(z1), F.is_zero(z2)
-    both = ~p_id & ~q_id
-    use_dbl = both & F.is_zero(h) & F.is_zero(r)
-    use_id = both & F.is_zero(h) & ~F.is_zero(r)
-    take_q, take_id, take_p = p_id & ~q_id, p_id & q_id, q_id & ~p_id
-    if bool(use_dbl.any()):
+    def double():
         a, b = mul(x1, x1), mul(y1, y1)
         c = mul(b, b)
         xb = add(x1, b)
@@ -145,9 +134,34 @@ def ec_add_plain(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
         c8 = add(add(c, c), add(c, c))
         c8 = add(c8, c8)
         yd = sub(mul(e, sub(d, xd)), c8)
-        zd = mul(add(y1, y1), z1)
-        dbl = use_dbl[:, None]
-        x3, y3, z3 = torch.where(dbl, xd, x3), torch.where(dbl, yd, y3), torch.where(dbl, zd, z3)
+        return xd, yd, mul(add(y1, y1), z1)
+
+    p_id, q_id = F.is_zero(z1), F.is_zero(z2)
+    if p is q:
+        # P + P: h = r = 0 on every lane but the identity's, so no lane takes
+        # the sum below; the doubling alone gives the same coordinates
+        x3, y3, z3 = double()
+        take_q = take_p = use_id = torch.zeros_like(p_id)
+        take_id = p_id
+    else:
+        z1z1, z2z2 = mul(z1, z1), mul(z2, z2)
+        u1, u2 = mul(x1, z2z2), mul(x2, z1z1)
+        s1, s2 = mul(mul(y1, z2), z2z2), mul(mul(y2, z1), z1z1)
+        h, r = sub(u2, u1), sub(s2, s1)
+        hh = mul(h, h)
+        hhh = mul(hh, h)
+        v = mul(u1, hh)
+        x3 = sub(sub(mul(r, r), hhh), add(v, v))
+        y3 = sub(mul(r, sub(v, x3)), mul(s1, hhh))
+        z3 = mul(mul(z1, z2), h)
+        both = ~p_id & ~q_id
+        use_dbl = both & F.is_zero(h) & F.is_zero(r)
+        use_id = both & F.is_zero(h) & ~F.is_zero(r)
+        take_q, take_id, take_p = p_id & ~q_id, p_id & q_id, q_id & ~p_id
+        if bool(use_dbl.any()):
+            xd, yd, zd = double()
+            dbl = use_dbl[:, None]
+            x3, y3, z3 = torch.where(dbl, xd, x3), torch.where(dbl, yd, y3), torch.where(dbl, zd, z3)
     one = s.one(x1.device)
     zero = torch.zeros_like(one)
 
@@ -164,20 +178,22 @@ def ec_add_plain(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
 
 
 def curve_instance(spec: FieldSpec) -> str:
-    """K3's instance for the coordinate field `spec`, as ``native.counts``
-    names it apart ("" for BN254 G1, the first)."""
-    if spec.kernel_id not in (0, 1):
+    """K3's instance for the coordinate field `spec` (grumpkin, BN254 G1,
+    Pallas, Vesta); a field of no curve kernel raises."""
+    if spec.kernel_id not in native.CURVES:
         raise ValueError(f"ec: no curve kernel over {spec.name}")
-    return "grumpkin" if spec.kernel_id == 0 else ""
+    return native.CURVES[spec.kernel_id]
 
 
 def ec_add(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
     """Lane-wise complete Jacobian add of two (n,) batches over the
-    coordinate field `spec` (Fq: BN254 G1, Fr: grumpkin). Kernel:
-    csrc/ec_add.cu (port of pallas_ec._ec_add_kernel)."""
+    coordinate field `spec` (Fq: BN254 G1, Fr: grumpkin, curves.Fp_pallas:
+    Pallas, curves.Fq_vesta: Vesta). Kernel: csrc/ec_add.cu and its Pasta
+    instances in csrc/ec_pasta.cu (port of pallas_ec._ec_add_kernel)."""
     if p["x"].device.type == "cpu":
         return ec_add_plain(p, q, spec)
     instance = curve_instance(spec)
+    fid = native.field_id("ec_add", spec)
     ins = [t.contiguous() for t in (p["x"], p["y"], p["z"], q["x"], q["y"], q["z"])]
     n = ins[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in ins):
@@ -185,10 +201,17 @@ def ec_add(p: Points, q: Points, spec: FieldSpec = Fq) -> Points:
     native.require_cuda("ec_add", *ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     native.launch(
-        "ec_add", ins[0].device, spec.kernel_id, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n,
+        "ec_add", ins[0].device, fid, *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n,
     )
     native.count("ec_add", instance)
     return dict(zip(COORDS, outs))
+
+
+def ec_double(p: Points, spec: FieldSpec = Fq) -> Points:
+    """2P lane-wise (the port of ops/ec.py:115, dbl-2009-l): one launch of
+    K3's complete add of the batch to itself, whose P = Q lanes take the
+    same doubling formulas; the identity stays the identity."""
+    return ec_add(p, p, spec)
 
 
 def ec_neg(p: Points, spec: FieldSpec = Fq) -> Points:
@@ -205,19 +228,37 @@ def scalar_mul_bits_plain(p: Points, bits, spec: FieldSpec = Fq) -> Points:
     """The ladder in plain field ops: double-and-add from the top bit, each
     step a complete add of the accumulator to itself and one of the point
     (``ec_add_plain``), the sum kept where the bit is set. ``bits`` is one
-    host sequence of nbits bits shared by every lane, or an (n, nbits) 0/1
-    tensor, both little-endian. The CPU path and the oracle of
-    csrc/ec_add.cu's ladder."""
+    host sequence of nbits bits shared by every lane (the add is then made
+    only for a set bit), or an (n, nbits) 0/1 tensor, both little-endian.
+    The CPU path and the oracle of csrc/ec_add.cu's ladder."""
     n = p["x"].shape[0]
     shared = not isinstance(bits, torch.Tensor)
     nbits = len(bits) if shared else bits.shape[-1]
     acc = identity_point(n, p["x"].device, spec)
     for i in range(nbits):
         acc = ec_add_plain(acc, acc, spec)
-        added = ec_add_plain(acc, p, spec)
-        bit = bits[nbits - 1 - i] if shared else bits[:, nbits - 1 - i] == 1
-        acc = (added if bit else acc) if shared else ec_select(bit, added, acc)
+        if not shared:
+            acc = ec_select(bits[:, nbits - 1 - i] == 1, ec_add_plain(acc, p, spec), acc)
+        elif bits[nbits - 1 - i]:
+            acc = ec_add_plain(acc, p, spec)
     return acc
+
+
+def scalars_to_bits(scalars_canonical: torch.Tensor, nbits: int) -> torch.Tensor:
+    """(n, 8) canonical limbs -> (n, nbits) 0/1 bits, little-endian, nbits
+    at most 256 (the port of ops/ec.py:231)."""
+    limbs = scalars_canonical.to(torch.int64) & 0xFFFFFFFF
+    i = torch.arange(nbits, device=scalars_canonical.device)
+    return ((limbs[:, i // 32] >> (i % 32)) & 1).to(torch.uint8)
+
+
+def _bits_to_limbs(bits: torch.Tensor) -> torch.Tensor:
+    """(n, nbits) 0/1 bits, nbits <= 256 -> (n, 8) int32 limbs."""
+    n, nbits = bits.shape
+    padded = torch.zeros((n, 32 * F.LIMBS), dtype=torch.int64, device=bits.device)
+    padded[:, :nbits] = bits.to(torch.int64)
+    words = (padded.view(n, F.LIMBS, 32) << torch.arange(32, device=bits.device)).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def _ladder_bits(scalar, nbits: int):
@@ -226,9 +267,7 @@ def _ladder_bits(scalar, nbits: int):
     0/1 tensor."""
     if isinstance(scalar, int):
         return [(scalar >> i) & 1 for i in range(nbits)]
-    limbs = scalar.to(torch.int64) & 0xFFFFFFFF
-    i = torch.arange(nbits, device=scalar.device)
-    return ((limbs[:, i // 32] >> (i % 32)) & 1).to(torch.uint8)
+    return scalars_to_bits(scalar, nbits)
 
 
 def ec_ladder(p: Points, scalar, nbits: int, spec: FieldSpec = Fq) -> Points:
@@ -247,6 +286,7 @@ def ec_ladder(p: Points, scalar, nbits: int, spec: FieldSpec = Fq) -> Points:
     if p["x"].device.type == "cpu":
         return scalar_mul_bits_plain(p, _ladder_bits(scalar, nbits), spec)
     instance = curve_instance(spec)
+    fid = native.field_id("ec_ladder", spec)
     ins = [p[k].contiguous() for k in COORDS]
     n = ins[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in ins) or (not shared and scalar.shape != (n, F.LIMBS)):
@@ -258,25 +298,30 @@ def ec_ladder(p: Points, scalar, nbits: int, spec: FieldSpec = Fq) -> Points:
     if n:
         words = np.ascontiguousarray(F.ints_to_u32([scalar if shared else 0])[0])
         native.launch(
-            "ec_ladder", ins[0].device, spec.kernel_id, *[t.data_ptr() for t in ins],
+            "ec_ladder", ins[0].device, fid, *[t.data_ptr() for t in ins],
             None if shared else scalar.data_ptr(), words.ctypes.data, nbits, *[t.data_ptr() for t in outs], n,
         )
         native.count("ec_ladder", instance)
     return dict(zip(COORDS, outs))
 
 
-def scalar_mul_bits(p: Points, bits: Sequence[int], spec: FieldSpec = Fq) -> Points:
+def scalar_mul_bits(p: Points, bits, spec: FieldSpec = Fq) -> Points:
     """Lane-wise scalar multiple of an (n,) batch by double-and-add from the
-    top bit (the port of ops/ec.py:216), ``bits`` one host sequence of
-    nbits bits, little-endian, shared by every lane: ``ec_ladder`` over the
-    scalar they spell. Per-lane scalars go to ``ec_ladder`` as limbs."""
+    top bit (the port of ops/ec.py:216): ``ec_ladder`` over the scalar the
+    bits spell, little-endian, at most 256 of them. ``bits`` is one host
+    sequence shared by every lane, or an (n, nbits) 0/1 tensor on the
+    points' device, one row a lane (``scalars_to_bits``), as the JAX
+    package takes them."""
+    if isinstance(bits, torch.Tensor):
+        return ec_ladder(p, _bits_to_limbs(bits), bits.shape[-1], spec)
     return ec_ladder(p, sum(1 << i for i, b in enumerate(bits) if b), len(bits), spec)
 
 
 def curve_generator(curve, device="cuda") -> Points:
     """The generator of a catalogued curve (ops/curves.py) as a one-point
-    batch on `device`; BN254 G1 and grumpkin, the curves with device group
-    ops."""
+    batch on `device`: BN254 G1, grumpkin, Pallas or Vesta, the curves with
+    device group ops (a curve over a field without a curve kernel
+    raises)."""
     curve_instance(curve.base)
     return affine_to_jacobian([curve.generator], device, curve.base)
 

@@ -76,9 +76,12 @@ def to_jax_limbs(t: torch.Tensor) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class FieldSpec:
     """A prime field in the port's Montgomery layout. ``kernel_id`` selects
-    the modulus compiled into the CUDA kernels (0 = Fr, 1 = Fq); None for a
-    field that has no kernel (host arithmetic and CPU tensors only: a kernel
-    wrapper given such a field on a CUDA tensor raises)."""
+    the modulus compiled into the CUDA kernels (0 = BN254 Fr, 1 = BN254 Fq,
+    2 = Pallas' base field, 3 = Vesta's; csrc/field.cuh); None for a field
+    that has no kernel (host arithmetic and CPU tensors only). A kernel
+    wrapper given a CUDA tensor of a field its kernel has no instance for
+    raises (``native.field_id``): K4's elementwise op, power and scan and
+    K3 have all four, the other kernels BN254's two."""
 
     name: str
     modulus: int
@@ -334,6 +337,7 @@ def _ew(spec: FieldSpec, op: int, a: torch.Tensor, b: Optional[Operand] = None, 
         return r if out is None else out.copy_(r)
     if any(not t.is_cuda or t.device != device for t in tensors + ([] if out is None else [out])):
         raise ValueError("field op: every tensor must lie on the same CUDA device")
+    fid = native.field_id("mont_mul", spec)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=device)
     lead = shape[:-1]
@@ -358,10 +362,10 @@ def _ew(spec: FieldSpec, op: int, a: torch.Tensor, b: Optional[Operand] = None, 
             vals.append(spec.to_mont_int(int(x) % spec.modulus).to_bytes(32, "little"))
     if outer * inner:
         native.launch(
-            "mont_mul", device, spec.kernel_id, op, _PTRS3(*ptrs), _STRIDES6(*strides), b"".join(vals), out.data_ptr(),
+            "mont_mul", device, fid, op, _PTRS3(*ptrs), _STRIDES6(*strides), b"".join(vals), out.data_ptr(),
             outer, inner,
         )
-        native.counts["mont_mul"] += 1
+        native.count("mont_mul", native.PASTA.get(fid, ""))
     return out
 
 
@@ -490,13 +494,12 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return pow_fixed_plain(spec, a, exponent)
     n = _rows("mont_pow", a)
+    fid = native.field_id("mont_pow", spec)
     words, nbits = _exponent(exponent)
     out = torch.empty_like(a)
     if n:
-        native.launch(
-            "mont_pow", a.device, spec.kernel_id, a.data_ptr(), out.data_ptr(), n, words.ctypes.data, nbits,
-        )
-        native.counts["mont_pow"] += 1
+        native.launch("mont_pow", a.device, fid, a.data_ptr(), out.data_ptr(), n, words.ctypes.data, nbits)
+        native.count("mont_pow", native.PASTA.get(fid, ""))
     return out
 
 
@@ -507,15 +510,15 @@ def prefix_products(spec: FieldSpec, x: torch.Tensor, reverse: bool = False) -> 
     if x.device.type == "cpu":
         return prefix_products_plain(spec, x, reverse)
     n = _rows("prefix_products", x)
+    fid = native.field_id("prefix_products", spec)
     out = torch.empty_like(x)
     if n:
         nb = -(-n // SCAN_TILE)
         scratch = torch.empty((3 * nb + 2, LIMBS), dtype=torch.int32, device=x.device)
         native.launch(
-            "prefix_products", x.device, spec.kernel_id, x.data_ptr(), out.data_ptr(), n, int(reverse),
-            scratch.data_ptr(),
+            "prefix_products", x.device, fid, x.data_ptr(), out.data_ptr(), n, int(reverse), scratch.data_ptr(),
         )
-        native.counts["prefix_products"] += 1 if nb == 1 else 3
+        native.count("prefix_products", native.PASTA.get(fid, ""), 1 if nb == 1 else 3)
     return out
 
 
@@ -527,17 +530,18 @@ def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return batch_inv_plain(spec, a)
     n = _rows("batch_inv", a)
+    fid = native.field_id("batch_inv", spec)
     words, nbits = _exponent(spec.modulus - 2)
     out = torch.empty_like(a)
     if n:
         nb = -(-n // SCAN_TILE)
         scratch = torch.empty((3 * nb + 2, LIMBS), dtype=torch.int32, device=a.device)
         native.launch(
-            "batch_inv", a.device, spec.kernel_id, a.data_ptr(), out.data_ptr(), n, scratch.data_ptr(),
-            words.ctypes.data, nbits,
+            "batch_inv", a.device, fid, a.data_ptr(), out.data_ptr(), n, scratch.data_ptr(), words.ctypes.data, nbits,
         )
-        native.counts["prefix_products"] += 2 if nb == 1 else 3
-        native.counts["mont_pow"] += 1
+        instance = native.PASTA.get(fid, "")
+        native.count("prefix_products", instance, 2 if nb == 1 else 3)
+        native.count("mont_pow", instance)
     return out
 
 
@@ -565,6 +569,7 @@ def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
         return sum_reduce_plain(spec, a)
     if not a.is_cuda:
         raise ValueError("sum_reduce: the rows must lie on the CPU or a CUDA device")
+    fid = native.field_id("sum_reduce", spec)
     n, cols = a.shape[0], a.shape[1:-1]
     m = math.prod(cols)
     if m > 65535:
@@ -578,7 +583,7 @@ def sum_reduce(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     nb = max(1, min(-(-n // (4 * SUM_THREADS)), SUM_MAX_BLOCKS // m))
     partials = torch.empty((m * nb if nb > 1 else 0, LIMBS), dtype=torch.int32, device=a.device)
     native.launch(
-        "sum_reduce", a.device, spec.kernel_id, t.data_ptr(), n, m, t.stride(0) // LIMBS, t.stride(1) // LIMBS, nb,
+        "sum_reduce", a.device, fid, t.data_ptr(), n, m, t.stride(0) // LIMBS, t.stride(1) // LIMBS, nb,
         partials.data_ptr(), native.ticket("sum_reduce", a.device).data_ptr(), out.data_ptr(),
     )
     native.counts["sum_reduce"] += 1

@@ -18,7 +18,9 @@ halo2_lasso_tpu/ops/msm_jacobian.py).
 
 The points' coordinate field is ``base`` and the scalars' field ``scalar``
 (BN254 G1 over Fq with Fr scalars by default; grumpkin is base Fr, scalar
-Fq), as in the JAX package (msm_jacobian.py:691-765). No torch op runs
+Fq; Pallas base Fp_pallas, scalar Fq_vesta, and Vesta the other way round,
+255-bit scalars, so W = ceil(255 / c) windows), as in the JAX package
+(msm_jacobian.py:691-765). No torch op runs
 between the level launches and nothing syncs with the host until the plane
 sums are read. ``msm_level_plain`` is the same level in
 plain torch, for CPU tensors and as the kernel's oracle. The TPU's
@@ -154,6 +156,7 @@ def msm_level(
     if dig.device.type == "cpu":
         return msm_level_plain(pts, dig, bucket, W, B, order, base)
     instance = ec.curve_instance(base)
+    fid = native.field_id("msm_level", base)
     native.require_cuda("msm_level", dig, *coords)
     if any(t.data_ptr() % 16 for t in coords):
         raise ValueError("msm_level: coordinates must start on 16-byte boundaries")
@@ -162,7 +165,7 @@ def msm_level(
     out = [torch.empty((W * pairs, F.LIMBS), dtype=torch.int32, device=device) for _ in ec.COORDS]
     odig = torch.empty(W * pairs, dtype=torch.int32, device=device)
     native.launch(
-        "msm_level", device, base.kernel_id, *[t.data_ptr() for t in coords[:3]], dig.data_ptr(),
+        "msm_level", device, fid, *[t.data_ptr() for t in coords[:3]], dig.data_ptr(),
         None if order is None else order.data_ptr(),
         pairs, W, B, *[t.data_ptr() for t in coords[3:]], *[t.data_ptr() for t in out], odig.data_ptr(),
     )
@@ -242,6 +245,7 @@ def bucket_planes(bucket: ec.Points, c: int, W: int, base: FieldSpec = Fq) -> ec
     if bucket["x"].device.type == "cpu":
         return bucket_planes_plain(bucket, c, W, base)
     instance = ec.curve_instance(base)
+    fid = native.field_id("plane_tree", base)
     coords = [bucket[k] for k in ec.COORDS]
     if not 2 <= c <= TREE_MAX_C:
         raise ValueError(f"plane_tree: the kernel takes 2 <= c <= {TREE_MAX_C}")
@@ -251,7 +255,7 @@ def bucket_planes(bucket: ec.Points, c: int, W: int, base: FieldSpec = Fq) -> ec
     if any(t.data_ptr() % 16 for t in coords):
         raise ValueError("plane_tree: coordinates must start on 16-byte boundaries")
     out = [torch.empty((c * W, F.LIMBS), dtype=torch.int32, device=coords[0].device) for _ in ec.COORDS]
-    native.launch("plane_tree", coords[0].device, base.kernel_id, *[t.data_ptr() for t in coords], c, W,
+    native.launch("plane_tree", coords[0].device, fid, *[t.data_ptr() for t in coords], c, W,
                   *[t.data_ptr() for t in out])
     native.count("plane_tree", instance)
     return dict(zip(ec.COORDS, out))

@@ -16,10 +16,17 @@ shared memory, spills) when this process built the library.
 
 ``counts`` holds one launch counter per kernel, and one per field instance
 that a kernel has beside its first (``INSTANCES``: the Fq instances of K1
-and K2, the grumpkin instances of K3's add, level, ladder and plane tree).
-A wrapper adds one to its kernel's count where it launches it, whatever the
-instance, and one to the instance's count when it launches that instance,
-and nowhere else; ``reset_counts`` zeroes them.
+and K2, the grumpkin instances of K3's add, level, ladder and plane tree,
+and the Pallas and Vesta instances of K4's elementwise op, power and scan
+and of those four K3 kernels). A wrapper adds one to its kernel's count
+where it launches it, whatever the instance, and one to the instance's
+count when it launches that instance, and nowhere else; ``reset_counts``
+zeroes them.
+
+``FIELD_IDS`` is each C entry point's table of field ids (a FieldSpec's
+``kernel_id``); a wrapper takes its id through ``field_id``, which raises
+for a field the kernel has no instance for, and the entry point itself
+returns cudaErrorInvalidValue for any other id.
 """
 
 from __future__ import annotations
@@ -48,11 +55,29 @@ KERNELS = (
     "mont_mul_tiled", "msm_level", "mont_pow", "prefix_products", "eq_xy", "sum_reduce", "ec_ladder",
     "plane_tree",
 )
+# the field ids each C entry point dispatches (csrc/*.cu): 0 = BN254 Fr,
+# 1 = BN254 Fq, 2 = Pallas' base field, 3 = Vesta's; the Pasta ids where a
+# Pasta curve's group ops or inversions launch the kernel
+BN254_IDS, ALL_IDS = (0, 1), (0, 1, 2, 3)
+FIELD_IDS = {
+    "mont_mul": ALL_IDS, "sum_reduce": BN254_IDS, "mont_pow": ALL_IDS, "prefix_products": ALL_IDS,
+    "batch_inv": ALL_IDS, "eq_xy": BN254_IDS, "fold_all": BN254_IDS, "fix_var": BN254_IDS,
+    "sumcheck_round": BN254_IDS, "ec_add": ALL_IDS, "msm_level": ALL_IDS, "ec_ladder": ALL_IDS,
+    "plane_tree": ALL_IDS,
+}
+# the Pasta instances' names, by field id (a curve's by its coordinate
+# field), and the kernels that have them (batch_inv launches mont_pow and
+# prefix_products)
+PASTA = {2: "pallas", 3: "vesta"}
+PASTA_KERNELS = tuple(k for k in KERNELS if 2 in FIELD_IDS.get(k, ()))
+# a curve's instance name by its coordinate field's id ("" for the first)
+CURVES = {0: "grumpkin", 1: "", **PASTA}
 # the instances counted apart: "<kernel>.<instance>", launched where a
-# wrapper is given a field (K1, K2: Fq) or a curve (K3: grumpkin, whose
-# coordinates are Fr) other than its first
-INSTANCES = ("sumcheck_round.fq", "fold_all.fq", "ec_add.grumpkin", "msm_level.grumpkin", "ec_ladder.grumpkin",
-             "plane_tree.grumpkin")
+# wrapper is given a field (K1, K2: Fq; K4: Pallas, Vesta) or a curve (K3:
+# grumpkin, whose coordinates are Fr; Pallas, Vesta) other than its first
+INSTANCES = ("sumcheck_round.fq", "fold_all.fq") + tuple(
+    f"{k}.grumpkin" for k in ("ec_add", "msm_level", "ec_ladder", "plane_tree")) + tuple(
+    f"{k}.{c}" for k in PASTA_KERNELS for c in PASTA.values())
 counts = {k: 0 for k in KERNELS + INSTANCES}
 # the __global__ function of each kernel, as a profiler names it
 SYMBOLS = {
@@ -76,7 +101,7 @@ _SIGNATURES = {
     "h2l_sum_reduce": [_I, _P, _LL, _I, _LL, _LL, _I, _P, _P, _P, _P],
     "h2l_fold_all": [_I, _P, _P, _I, _LL, _LL, _P, _P, _P],
     "h2l_fix_var": [_I, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "h2l_sumcheck_round": [_I, _P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
+    "h2l_sumcheck_round": [_I, _P, _I, _P, _I, _P, _I, _P, _LL, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "h2l_ec_add": [_I] + [_P] * 9 + [_LL, _P],
     "h2l_msm_level": [_I] + [_P] * 5 + [_LL, _I, _I] + [_P] * 8,
     "h2l_ec_ladder": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_LL, _P],
@@ -95,12 +120,21 @@ def reset_counts() -> None:
         counts[k] = 0
 
 
-def count(name: str, instance: str = "") -> None:
-    """One launch of kernel `name`, of its instance `instance` where that is
-    counted apart."""
-    counts[name] += 1
+def field_id(entry: str, spec) -> int:
+    """The kernel_id of FieldSpec `spec` for C entry point `entry`, which
+    must have an instance for it (``FIELD_IDS``); else a ValueError, before
+    anything is launched."""
+    if spec.kernel_id not in FIELD_IDS[entry]:
+        raise ValueError(f"{entry}: the kernel has no instance for {spec.name}")
+    return spec.kernel_id
+
+
+def count(name: str, instance: str = "", n: int = 1) -> None:
+    """`n` launches of kernel `name`, of its instance `instance` where that
+    is counted apart."""
+    counts[name] += n
     if instance:
-        counts[f"{name}.{instance}"] += 1
+        counts[f"{name}.{instance}"] += n
 
 
 _tickets = {}

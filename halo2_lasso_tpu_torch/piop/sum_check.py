@@ -23,8 +23,12 @@ program past the kernel's compiled limits (MAX_LEAVES, MAX_OPS,
 MAX_CONSTS, MAX_STACK) is split as the JAX package chunks its terms
 (``plan_round``): chunks of whole challenge-weighted terms, one launch a
 chunk, the messages added on the device before the round's one read. A
-degree past MAX_DEGREE is refused at set-up on the card
-(``check_degree``).
+round of degree d past MAX_DEGREE (8) is split into ceil(d / 8) chunks of
+points, t0 + 1 .. t0 + 8 from t0 = 0, 8, 16, ..., one launch a point chunk
+(and term chunk), the messages concatenated on the device: the JAX
+package's message is the evaluations at 1..d whatever d is. What still
+raises is a single term past a limit (a product of more than MAX_LEAVES
+tables).
 
 Under a mesh (``parallel/sharding.py``'s ``use_mesh``) the leaf tables are
 built whole and split by their high index bits over the mesh's shards;
@@ -287,6 +291,12 @@ class RoundChunk:
     leaves: Tuple[int, ...]
 
 
+def point_chunks(degree: int) -> Tuple[Tuple[int, int], ...]:
+    """The round's points 1..degree as launches of at most MAX_DEGREE: (t0,
+    D) evaluates t0 + 1 .. t0 + D."""
+    return tuple((t0, min(MAX_DEGREE, degree - t0)) for t0 in range(0, degree, MAX_DEGREE))
+
+
 @dataclasses.dataclass
 class RoundPlan:
     """How a sumcheck's round message is computed. Within the kernel's
@@ -296,11 +306,15 @@ class RoundPlan:
     fit every limit, one launch a chunk; the coefficients are challenge-only
     expressions evaluated on the host, as the JAX package does
     (piop/sum_check.py:555-560), and the chunks' messages are added on the
-    device (a stack, one ``sum_reduce``) before the round's one read."""
+    device (a stack, one ``sum_reduce``) before the round's one read. Either
+    way, a degree past MAX_DEGREE is evaluated in the chunks of points
+    ``points`` (``point_chunks``), one launch (or one a term chunk) each,
+    their messages concatenated on the device."""
 
     program: Optional[RoundProgram]
     chunks: Tuple[RoundChunk, ...] = ()
     coeffs: Tuple[Expression, ...] = ()
+    points: Tuple[Tuple[int, int], ...] = ()  # set by plan_round
 
     def challenge_rows(self, p: int, challenges: Sequence[int]) -> List[int]:
         """The challenges the launches read: the sumcheck's own and, for a
@@ -327,6 +341,7 @@ def plan_round(expression: Expression, keys: Sequence[Tuple], p: int, num_challe
         plan = RoundPlan(_PROGRAMS.setdefault((expression.structural_key, tuple(keys)), whole))
     else:
         plan = _split_plan(expression, keys, p, num_challenges)
+    plan.points = point_chunks(expression.degree)
     _PLANS[cache_key] = plan
     return plan
 
@@ -374,25 +389,19 @@ def _split_plan(expression: Expression, keys: Sequence[Tuple], p: int, num_chall
 
 
 def round_message_planned(spec: FieldSpec, tables: Sequence[torch.Tensor], plan: RoundPlan,
-                          challenges: Optional[torch.Tensor], degree: int) -> torch.Tensor:
-    """(degree, 8): the round message by `plan`, one ``round_message`` a
-    chunk (one for a plan within the limits), the chunks' messages added on
-    the tables' device with one ``sum_reduce``."""
-    if plan.program is not None:
-        return round_message(spec, tables, plan.program, challenges, degree)
-    outs = [round_message(spec, [tables[i] for i in c.leaves], c.program, challenges, degree) for c in plan.chunks]
-    return F.sum_reduce(spec, torch.stack(outs))
-
-
-def check_degree(degree: int, device, what: str) -> None:
-    """Raise before any prove work where the sumcheck of `what`, of
-    `degree`, would run on a CUDA device past the round kernel's
-    MAX_DEGREE: a degree is not split by terms. On the CPU the plain path
-    proves any degree."""
-    if torch.device(device).type == "cuda" and degree > MAX_DEGREE:
-        raise SumcheckError(
-            f"{what} has degree {degree}; the round kernel (csrc/sumcheck_round.cu) takes at most {MAX_DEGREE}"
-        )
+                          challenges: Optional[torch.Tensor]) -> torch.Tensor:
+    """(degree, 8): the round message by `plan`, for each chunk of points
+    one ``round_message`` a term chunk (one for a plan within the limits),
+    the term chunks' messages added on the tables' device with one
+    ``sum_reduce``, the point chunks' concatenated there."""
+    outs = []
+    for t0, d in plan.points:
+        if plan.program is not None:
+            outs.append(round_message(spec, tables, plan.program, challenges, d, t0))
+            continue
+        parts = [round_message(spec, [tables[i] for i in c.leaves], c.program, challenges, d, t0) for c in plan.chunks]
+        outs.append(F.sum_reduce(spec, torch.stack(parts)))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def round_message_plain(
@@ -401,17 +410,21 @@ def round_message_plain(
     program: RoundProgram,
     challenges: torch.Tensor,
     degree: int,
+    t0: int = 0,
 ) -> torch.Tensor:
-    """(degree, 8): sum over pairs of the program at t = 1..degree."""
+    """(degree, 8): sum over pairs of the program at t = t0+1..t0+degree."""
     device = tables[0].device
     h = tables[0].shape[0] // 2
     lo = [t[0::2] for t in tables]
     vals = [t[1::2] for t in tables]
-    steps = [F.sub_plain(spec, v, l) for v, l in zip(vals, lo)] if degree > 1 else None
+    steps = [F.sub_plain(spec, v, l) for v, l in zip(vals, lo)] if degree > 1 or t0 else None
+    if t0:
+        t0_m = spec.encode([t0], device)[0]
+        vals = [F.add_plain(spec, v, F.mont_mul_plain(spec, s, t0_m)) for v, s in zip(vals, steps)]
     consts = spec.encode(list(program.consts) or [0], device)
     out = []
-    for t in range(1, degree + 1):
-        if t > 1:
+    for t in range(degree):
+        if t:
             vals = [F.add_plain(spec, v, s) for v, s in zip(vals, steps)]
         st: List[torch.Tensor] = []
         for op, arg in program.ops:
@@ -439,17 +452,20 @@ def round_message(
     program: RoundProgram,
     challenges: torch.Tensor,
     degree: int,
+    t0: int = 0,
 ) -> torch.Tensor:
-    """Round message at t = 1..degree over the leaf tables (each (2h, 8),
-    pairs (2i, 2i+1)); challenges (c, 8) or None. Kernel:
-    csrc/sumcheck_round.cu."""
+    """Round message at t = t0+1..t0+degree over the leaf tables (each (2h,
+    8), pairs (2i, 2i+1)); challenges (c, 8) or None; degree at most
+    MAX_DEGREE on the card (``round_message_planned`` splits a larger one
+    into chunks of points). Kernel: csrc/sumcheck_round.cu."""
     tables = list(tables)
     if tables[0].device.type == "cpu":
-        return round_message_plain(spec, tables, program, challenges, degree)
-    if spec.kernel_id is None:
-        raise ValueError(f"sumcheck_round: the kernel has no instance for {spec.name}")
+        return round_message_plain(spec, tables, program, challenges, degree, t0)
+    fid = native.field_id("sumcheck_round", spec)
     if not 1 <= degree <= MAX_DEGREE:
-        raise SumcheckError(f"degree {degree} outside 1..{MAX_DEGREE}")
+        raise SumcheckError(f"{degree} points a launch, outside 1..{MAX_DEGREE}")
+    if not 0 <= t0 < 1 << 31:
+        raise SumcheckError(f"the first point t0 = {t0} is outside 0..2^31 - 1")
     if len(tables) > MAX_LEAVES or len(program.ops) > MAX_OPS or len(program.consts) > MAX_CONSTS:
         raise SumcheckError(
             f"program of {len(tables)} leaves, {len(program.ops)} ops and {len(program.consts)} "
@@ -469,13 +485,14 @@ def round_message(
     out = torch.empty((degree, F.LIMBS), dtype=torch.int32, device=device)
     ops, consts = program.kernel_args(spec)
     leaves = (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables])
+    t0_m = spec.to_mont_int(t0 % spec.modulus).to_bytes(32, "little") if t0 else None
     native.launch(
-        "sumcheck_round", device, spec.kernel_id, ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops),
+        "sumcheck_round", device, fid, ctypes.addressof(leaves), len(tables), ops.ctypes.data, len(ops),
         consts.ctypes.data, len(program.consts), None if challenges is None else challenges.data_ptr(), h, degree,
-        program.max_stack, threads, blocks, partials.data_ptr(), native.ticket("sumcheck_round", device).data_ptr(),
-        out.data_ptr(),
+        t0, t0_m, program.max_stack, threads, blocks, partials.data_ptr(),
+        native.ticket("sumcheck_round", device).data_ptr(), out.data_ptr(),
     )
-    native.count("sumcheck_round", "fq" if spec.kernel_id == 1 else "")
+    native.count("sumcheck_round", "fq" if fid == 1 else "")
     return out
 
 
@@ -568,7 +585,7 @@ def prove(
     chal = spec.encode(rows, device) if rows else None
 
     def message(tabs: List[torch.Tensor]) -> torch.Tensor:
-        return round_message_planned(spec, tabs, plan, None if chal is None else chal.to(tabs[0].device), degree)
+        return round_message_planned(spec, tabs, plan, None if chal is None else chal.to(tabs[0].device))
 
     challenges: List[int] = []
     current_sum = sum_ % p

@@ -65,8 +65,7 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
     by_value = not isinstance(x, torch.Tensor)
     if tables[0].device.type == "cpu":
         return fold_all_plain(spec, tables, spec.encode([x])[0] if by_value else x, last)
-    if spec.kernel_id is None:
-        raise ValueError(f"fold_all: the kernel has no instance for {spec.name}")
+    fid = native.field_id("fold_all", spec)
     n = tables[0].shape[0]
     if any(t.shape != (n, F.LIMBS) for t in tables) or n % 2:
         raise ValueError("fold_all: tables must share one even length")
@@ -85,10 +84,10 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
         ins = tables[g : g + FOLD_MAX_TABLES]
         ins_p = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
         native.launch(
-            "fold_all", tables[0].device, spec.kernel_id, ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS,
+            "fold_all", tables[0].device, fid, ctypes.addressof(ins_p), out.data_ptr() + g * h * 4 * F.LIMBS,
             len(ins), h, h if last else 1, x_host, x_dev,
         )
-        native.count("fold_all", "fq" if spec.kernel_id == 1 else "")
+        native.count("fold_all", "fq" if fid == 1 else "")
     return list(out.unbind(0))
 
 
@@ -142,6 +141,7 @@ def fix_var_chain(spec: FieldSpec, evals: torch.Tensor, point, last: bool, quoti
     if j == 0:
         return evals.clone(), (spec.zeros(0, evals.device) if quotients else None)
     native.require_cuda("fix_var", evals, *([] if by_value else [point]))
+    fid = native.field_id("fix_var", spec)
     if evals.data_ptr() % 16:
         raise ValueError("fix_var_chain: the table must start on a 16-byte boundary")
     if by_value:
@@ -153,7 +153,7 @@ def fix_var_chain(spec: FieldSpec, evals: torch.Tensor, point, last: bool, quoti
     mid = torch.empty((min(n, 1 << TAIL_BITS), F.LIMBS), dtype=torch.int32, device=device)
     quot = torch.empty((n - 1, F.LIMBS), dtype=torch.int32, device=device) if quotients else None
     native.launch(
-        "fix_var", device, spec.kernel_id, evals.data_ptr(), n, j, int(last), x_host, x_dev, mid.data_ptr(),
+        "fix_var", device, fid, evals.data_ptr(), n, j, int(last), x_host, x_dev, mid.data_ptr(),
         None if quot is None else quot.data_ptr(), out.data_ptr(), native.ticket("fix_var", device).data_ptr(),
     )
     native.counts["fix_var"] += 1
@@ -191,6 +191,7 @@ def eq_xy(spec: FieldSpec, y, device=None) -> torch.Tensor:
         raise ValueError("eq_xy: give the device for a point of host ints")
     if torch.device(device).type == "cpu":
         return eq_xy_plain(spec, spec.encode(list(y)) if by_value else y)
+    fid = native.field_id("eq_xy", spec)
     k = len(y)
     if k > MAX_EQ_VARS:
         raise ValueError(f"eq_xy: the kernel takes at most {MAX_EQ_VARS} variables")
@@ -203,7 +204,7 @@ def eq_xy(spec: FieldSpec, y, device=None) -> torch.Tensor:
         native.require_cuda("eq_xy", y)
         y_host, y_dev = None, y.data_ptr()
     out = torch.empty((1 << k, F.LIMBS), dtype=torch.int32, device=device)
-    native.launch("eq_xy", out.device, spec.kernel_id, y_host, y_dev, k, out.data_ptr())
+    native.launch("eq_xy", out.device, fid, y_host, y_dev, k, out.data_ptr())
     native.counts["eq_xy"] += 1
     return out
 

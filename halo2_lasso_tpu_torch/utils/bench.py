@@ -16,8 +16,22 @@ import torch
 # so 16.75 T IMAD/s; a 32x32->64-bit product costs two (low and high word).
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
-IMAD_PER_MONT_MUL = 2 * 2 * 8 * 8  # CIOS: 64 products a*b + 64 products m*p
+IMAD_PER_MONT_MUL = 2 * 2 * 8 * 8  # CIOS over BN254: 64 products a*b + 64 products m*p
 PROFILER_SESSIONS = 3
+
+
+def imad_per_mont_mul(spec) -> int:
+    """32-bit multiply-adds of one CIOS Montgomery product (8 limbs of 32
+    bits) modulo FieldSpec `spec`'s modulus: two (the low and the high word)
+    for each of the 64 products a_i * b_j and for each product m * p_j,
+    where limb p_j is not 0, 1 or a power of two. The kernels read p's limbs
+    as constants, and the compiler folds those three kinds into nothing, a
+    move or a shift: BN254's limbs are all of the other kind (256), Pasta's
+    limbs 4-6 are 0, limb 0 is 1 and limb 7 is 2^30 (176). The product
+    m = t_0 * INV of each step is left out, as in IMAD_PER_MONT_MUL: the
+    bound stays a least time."""
+    limbs = [(spec.modulus >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+    return 2 * (64 + 8 * sum(1 for v in limbs if v & (v - 1)))
 
 
 def bound_ms(bytes_moved: int, imads: int):

@@ -59,7 +59,9 @@ def _g2_meta(g2, ss) -> dict:
 
 
 def _write(path: str, arrays: Dict[str, np.ndarray], meta: dict) -> None:
-    np.savez_compressed(path + ".npz", **arrays)
+    # uncompressed: np.load reads it as it reads the JAX package's compressed
+    # files, and the writes of an nv = 16 set-up take a second, not 18
+    np.savez(path + ".npz", **arrays)
     with open(path + ".json", "w") as f:
         json.dump(meta, f)
 

@@ -7,10 +7,14 @@ without a GPU, and so are csrc/mont_mul.cu's elementwise op (every op code,
 strided, broadcast and by-value operands), csrc/fix_var.cu's chain (its
 column phase and its tail's steps, emulated in order, with the quotients)
 and the power and eq table entries of csrc/mont_chain.cu, each kernel in
-the field instances it has (BN254 G1 and grumpkin for the EC lane, the MSM
-level, the scalar ladder's lane and the plane tree's planes, Fr and Fq for
-the round evaluation). (The kernels'
-launch and reduction code runs only on the card: tests/test_torch_kernels.py.)
+the field instances it has: the field ops, the elementwise op and the power
+over BN254's Fr and Fq and the Pasta fields (255-bit moduli, with 0, 1,
+p - 1, p - 2 and R mod p among the rows); the EC lane, the MSM level, the
+scalar ladder's lane and the plane tree's planes over BN254 G1, grumpkin,
+Pallas and Vesta; the round evaluation over Fr and Fq, also from a point
+offset t0 > 0 (a round of degree past 8 in chunks of points). (The
+kernels' launch and reduction code runs only on the card:
+tests/test_torch_kernels.py.)
 """
 
 import pathlib
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 import chip_smoke
-from halo2_lasso_tpu_torch.ops import ec
+from halo2_lasso_tpu_torch.ops import curves, ec
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import msm_jacobian as MJ
 from halo2_lasso_tpu_torch.ops.bn254 import FQ_MODULUS, Fq, Fr
@@ -53,6 +57,18 @@ static long long rdi() {
   long long v;
   if (scanf("%lld", &v) != 1) exit(1);
   return v;
+}
+// fn(P{}) for the field id character c ('0' Fr, '1' Fq, '2' Pallas, '3'
+// Vesta), `dflt` where the op letter has none
+template <class Fn>
+static void by_field(char c, char dflt, Fn fn) {
+  switch (c ? c : dflt) {
+    case '0': fn(Fr{}); break;
+    case '1': fn(Fq{}); break;
+    case '2': fn(Pallas{}); break;
+    case '3': fn(Vesta{}); break;
+    default: exit(2);
+  }
 }
 static std::vector<uint32_t> rows(long long n) {  // n elements of 8 words
   std::vector<uint32_t> t(8 * n + 8);
@@ -144,7 +160,7 @@ int main() {
       std::vector<uint32_t> t = rows(p.n), q(8 * p.n);
       p.evals = t.data();
       p.quot = quot ? q.data() : nullptr;
-      if (op[1] == '1') chain<Fq>(p); else chain<Fr>(p);
+      by_field(op[1], '0', [&](auto f) { chain<decltype(f)>(p); });
     } else if (op[0] == 'w') {  // w<field> op outer inner, then the operands a, b, c
       EwParams p;
       int ewop = (int)rdi();
@@ -155,8 +171,8 @@ int main() {
       p.b = operand(kb);
       p.c = operand(kc);
       for (long long g = 0; g < p.outer * p.inner; ++g)
-        wr(op[1] == '1' ? ew_elem_op<Fq>(ewop, p, g) : ew_elem_op<Fr>(ewop, p, g));
-    } else if (op[0] == 'l') {  // l[0] W B m n first: one MSM level, every lane in order (l0: grumpkin)
+        by_field(op[1], '0', [&](auto f) { wr(ew_elem_op<decltype(f)>(ewop, p, g)); });
+    } else if (op[0] == 'l') {  // l[id] W B m n first: one MSM level, every lane in order (l: BN254 G1)
       long long W = rdi(), B = rdi(), m = rdi(), n = rdi(), first = rdi();
       std::vector<uint32_t> x = rows(n), y = rows(n), z = rows(n);
       std::vector<int32_t> dig(first ? W * n : W * m);
@@ -167,21 +183,24 @@ int main() {
       long long pairs = m / 2, lanes = pairs ? W * pairs : W;
       std::vector<uint32_t> ox(8 * W * pairs + 8), oy(ox.size()), oz(ox.size());
       std::vector<int32_t> odig(W * pairs + 1);
-      auto lane_fn = op[1] == '0' ? msm_level_lane<Fr> : msm_level_lane<Fq>;
-      for (long long lane = 0; lane < lanes; ++lane)
-        lane_fn(x.data(), y.data(), z.data(), dig.data(), first ? order.data() : nullptr,
-                pairs, (int)B, lane, bx.data(), by.data(), bz.data(), ox.data(), oy.data(),
-                oz.data(), odig.data());
+      by_field(op[1], '1', [&](auto f) {
+        for (long long lane = 0; lane < lanes; ++lane)
+          msm_level_lane<decltype(f)>(x.data(), y.data(), z.data(), dig.data(), first ? order.data() : nullptr,
+                                      pairs, (int)B, lane, bx.data(), by.data(), bz.data(), ox.data(), oy.data(),
+                                      oz.data(), odig.data());
+      });
       for (auto* t : {&ox, &oy, &oz})
         for (long long i = 0; i < 8 * W * pairs; ++i) printf("%u ", (*t)[i]);
       for (long long i = 0; i < W * pairs; ++i) printf("%d ", odig[i]);
       for (auto* t : {&bx, &by, &bz})
         for (long long i = 0; i < 8 * W * B; ++i) printf("%u ", (*t)[i]);
-    } else if (op[0] == 'r') {  // r[1] D nleaves nops nconsts h nchals stack: one round message (r1: Fq)
+    } else if (op[0] == 'r') {  // r[id] D nleaves nops nconsts h nchals stack t0 [t0_m]: one round message
       static RoundParams p;
       int D = (int)rdi(), nleaves = (int)rdi(), nops = (int)rdi(), nconsts = (int)rdi();
       long long h = rdi();
       int nchals = (int)rdi(), stack = (int)rdi();
+      p.t0 = (int)rdi();
+      p.t0_m = p.t0 ? rd() : fe_zero();
       std::vector<std::vector<uint32_t>> leaves;
       for (int l = 0; l < nleaves; ++l) leaves.push_back(rows(2 * h));
       for (int l = 0; l < nleaves; ++l) p.leaves[l] = leaves[l].data();
@@ -191,63 +210,62 @@ int main() {
       p.chals = chals.data();
       p.h = h;
       p.nops = nops;
-      if (op[1] == '1') round_sum_degree<Fq>(p, D, stack); else round_sum_degree<Fr>(p, D, stack);
+      by_field(op[1], '0', [&](auto f) { round_sum_degree<decltype(f)>(p, D, stack); });
     } else if (op[0] == 'p') {  // p<field> nbits w0..w7 a: a^e
       PowExp e;
       e.nbits = (int)rdi();
       for (int i = 0; i < 8; ++i) e.w[i] = (uint32_t)rdi();
       Fe a = rd();
-      wr(op[1] == '1' ? fe_pow<Fq>(a, e) : fe_pow<Fr>(a, e));
+      by_field(op[1], '0', [&](auto f) { wr(fe_pow<decltype(f)>(a, e)); });
     } else if (op[0] == 'q') {  // q k y_0..y_{k-1}: the 2^k eq table, entry by entry
       static EqParams p;
       p.k = (int)rdi();
       p.y_dev = nullptr;
       for (int i = 0; i < p.k; ++i) p.y[i] = rd();
       for (long long b = 0; b < (1ll << p.k); ++b) wr(eq_xy_elem<Fr>(p, b));
-    } else if (op[0] == 'g') {  // g[0] nbits k0..k7 px py pz: one ladder lane (g0: grumpkin)
+    } else if (op[0] == 'g') {  // g[id] nbits k0..k7 px py pz: one ladder lane (g: BN254 G1)
       int nbits = (int)rdi();
       uint32_t k[8];
       for (auto& w : k) w = (uint32_t)rdi();
       Fe px = rd(), py = rd(), pz = rd(), ox, oy, oz;
-      if (op[1] == '0') ec_ladder_lane<Fr>(px, py, pz, k, nbits, ox, oy, oz);
-      else ec_ladder_lane<Fq>(px, py, pz, k, nbits, ox, oy, oz);
+      by_field(op[1], '1', [&](auto f) { ec_ladder_lane<decltype(f)>(px, py, pz, k, nbits, ox, oy, oz); });
       wr(ox); wr(oy); wr(oz);
-    } else if (op[0] == 't') {  // t[0] c W tpp: the plane tree, each plane's threads in turn (t0: grumpkin)
+    } else if (op[0] == 't') {  // t[id] c W tpp: the plane tree, each plane's threads in turn (t: BN254 G1)
       int c = (int)rdi(), W = (int)rdi(), tpp = (int)rdi();
       std::vector<uint32_t> bx = rows((long long)W << c), by = rows((long long)W << c), bz = rows((long long)W << c);
       const int half = 1 << (c - 2);
       std::vector<uint32_t> sm(24 * half);
       const TreeSlots S{sm.data(), half};
-      const bool fr = op[1] == '0';
-      for (int j = 0; j < c; ++j)
-        for (int w = 0; w < W; ++w) {
-          for (int t = 0; t < tpp; ++t)
-            for (int k = t; k < half; k += tpp)
-              if (fr) tree_first<Fr>(bx.data(), by.data(), bz.data(), c, j, w, k, half, S, k);
-              else tree_first<Fq>(bx.data(), by.data(), bz.data(), c, j, w, k, half, S, k);
-          for (int h = half / 2; h >= 1; h /= 2)
+      by_field(op[1], '1', [&](auto f) {
+        using P = decltype(f);
+        for (int j = 0; j < c; ++j)
+          for (int w = 0; w < W; ++w) {
             for (int t = 0; t < tpp; ++t)
-              for (int k = t; k < h; k += tpp)
-                if (fr) tree_step<Fr>(S, k, k + h);
-                else tree_step<Fq>(S, k, k + h);
-          Fe x, y, z;
-          S.get(0, x, y, z);
-          wr(x); wr(y); wr(z);
-        }
-    } else if (op[0] == 'e') {  // e[0]: one EC lane, BN254 G1 over Fq (e0: grumpkin over Fr)
+              for (int k = t; k < half; k += tpp)
+                tree_first<P>(bx.data(), by.data(), bz.data(), c, j, w, k, half, S, k);
+            for (int h = half / 2; h >= 1; h /= 2)
+              for (int t = 0; t < tpp; ++t)
+                for (int k = t; k < h; k += tpp) tree_step<P>(S, k, k + h);
+            Fe x, y, z;
+            S.get(0, x, y, z);
+            wr(x); wr(y); wr(z);
+          }
+      });
+    } else if (op[0] == 'e') {  // e[id]: one EC lane (e: BN254 G1 over Fq)
       Fe x1 = rd(), y1 = rd(), z1 = rd(), x2 = rd(), y2 = rd(), z2 = rd(), ox, oy, oz;
-      if (op[1] == '0') ec_add_lane<Fr>(x1, y1, z1, x2, y2, z2, ox, oy, oz);
-      else ec_add_lane<Fq>(x1, y1, z1, x2, y2, z2, ox, oy, oz);
+      by_field(op[1], '1', [&](auto f) { ec_add_lane<decltype(f)>(x1, y1, z1, x2, y2, z2, ox, oy, oz); });
       wr(ox); wr(oy); wr(oz);
     } else {
-      bool q = op[1] == '1';
       Fe a = rd(), b = rd(), r;
-      switch (op[0]) {
-        case 'm': r = q ? fe_mul<Fq>(a, b) : fe_mul<Fr>(a, b); break;
-        case 'a': r = q ? fe_add<Fq>(a, b) : fe_add<Fr>(a, b); break;
-        case 's': r = q ? fe_sub<Fq>(a, b) : fe_sub<Fr>(a, b); break;
-        default: r = q ? fe_neg<Fq>(a) : fe_neg<Fr>(a);
-      }
+      by_field(op[1], '0', [&](auto f) {
+        using P = decltype(f);
+        switch (op[0]) {
+          case 'm': r = fe_mul<P>(a, b); break;
+          case 'a': r = fe_add<P>(a, b); break;
+          case 's': r = fe_sub<P>(a, b); break;
+          default: r = fe_neg<P>(a);
+        }
+      });
       wr(r);
     }
     printf("\n");
@@ -278,7 +296,11 @@ def rows(t):
     return [" ".join(map(str, r)) for r in F.to_numpy_u32(t).reshape(t.shape[0], -1).tolist()]
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+FIELDS = [Fr, Fq, curves.Fp_pallas, curves.Fq_vesta]
+FIELD_IDS = ["fr", "fq", "pallas", "vesta"]
+
+
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 def test_field_ops_match_plain(harness, spec):
     rng = random.Random(3)
     p = spec.modulus
@@ -329,7 +351,7 @@ def ew_operand(spec, x):
     return f"1 {store.shape[0]} {x.storage_offset() // 8} {s0} {s1} " + " ".join(rows(store))
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 def test_ew_elem_matches_plain(harness, spec):
     """csrc/mont_mul.cu's element op for every op code, with operands read
     as the wrapper passes them: full rows, a table's even and odd rows
@@ -455,7 +477,7 @@ def test_round_eval_pair_matches_plain(harness, name):
     tables[0][:4] = Fr.encode([0, p - 1, 1, Fr.R])
     chals = Fr.encode([rng.randrange(p) for _ in range(2)])
     ops, consts = prog.kernel_args(Fr)
-    line = " ".join([f"r {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 2 {prog.max_stack}"]
+    line = " ".join([f"r {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 2 {prog.max_stack} 0"]
                     + [words(t) for t in tables] + [" ".join(map(str, ops.tolist()))]
                     + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
     want = sc.round_message_plain(Fr, tables, prog, chals, expr.degree)
@@ -480,7 +502,7 @@ def test_round_eval_pair_matches_plain_at_arx_gkr_batch(harness):
     tables = [Fr.encode([rng.randrange(p) for _ in range(2 * h)]) for _ in keys]
     chals = Fr.encode([rng.randrange(p)])
     ops, consts = prog.kernel_args(Fr)
-    line = " ".join([f"r {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 1 {prog.max_stack}"]
+    line = " ".join([f"r {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 1 {prog.max_stack} 0"]
                     + [words(t) for t in tables] + [" ".join(map(str, ops.tolist()))]
                     + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
     want = sc.round_message_plain(Fr, tables, prog, chals, expr.degree)
@@ -501,15 +523,15 @@ def test_round_kernel_limits_match_wrapper():
     }
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 def test_pow_matches_plain(harness, spec):
     """csrc/mont_chain.cu's per-row power (left-to-right square and
     multiply, the exponent by value) against pow_fixed's plain loop, at
     exponents 0, 1, 2, p - 2 and a random 254-bit one, on rows with 0, 1,
-    p - 1 and R mod p."""
+    p - 1, p - 2 and R mod p."""
     rng = random.Random(9)
     p = spec.modulus
-    a = spec.encode([0, 1, p - 1, spec.R] + [rng.randrange(p) for _ in range(4)])
+    a = spec.encode([0, 1, p - 1, spec.R, p - 2] + [rng.randrange(p) for _ in range(3)])
     for e in (0, 1, 2, p - 2, rng.getrandbits(254) | 1 << 253):
         words, nbits = F._exponent(e)
         head = f"p{spec.kernel_id} {nbits} " + " ".join(map(str, words.tolist()))
@@ -627,7 +649,7 @@ def test_round_eval_pair_fq_instance_matches_plain(harness):
     tables[0][:4] = Fq.encode([0, p - 1, 1, Fq.R])
     chals = Fq.encode([rng.randrange(p) for _ in range(3)])
     ops, consts = prog.kernel_args(Fq)
-    line = " ".join([f"r1 {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 3 {prog.max_stack}"]
+    line = " ".join([f"r1 {expr.degree} {len(keys)} {len(ops)} {len(prog.consts)} {h} 3 {prog.max_stack} 0"]
                     + [words(t) for t in tables] + [" ".join(map(str, ops.tolist()))]
                     + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))] + [words(chals)])
     want = sc.round_message_plain(Fq, tables, prog, chals, expr.degree)
@@ -646,7 +668,11 @@ def ladder_points(curve, n=5):
     return {k: curve.base.encode([pt[i] for pt in pts]) for i, k in enumerate(ec.COORDS)}
 
 
-@pytest.mark.parametrize("curve_name", ["BN254_G1", "GRUMPKIN"], ids=["bn254", "grumpkin"])
+CURVES = ["BN254_G1", "GRUMPKIN", "PALLAS", "VESTA"]
+CURVE_IDS = ["bn254", "grumpkin", "pallas", "vesta"]
+
+
+@pytest.mark.parametrize("curve_name", CURVES, ids=CURVE_IDS)
 def test_ec_ladder_lane_matches_plain(harness, curve_name):
     """The ladder's lane (a dedicated doubling, the complete add where the
     bit is set) against scalar_mul_bits_plain's loop of two complete adds a
@@ -678,7 +704,7 @@ def test_ec_ladder_lane_matches_plain(harness, curve_name):
     assert np.array_equal(lanes(per), flat(ec.scalar_mul_bits_plain(pts, bits, curve.base)))
 
 
-@pytest.mark.parametrize("curve_name", ["BN254_G1", "GRUMPKIN"], ids=["bn254", "grumpkin"])
+@pytest.mark.parametrize("curve_name", CURVES, ids=CURVE_IDS)
 @pytest.mark.parametrize("c", [3, 4])
 def test_plane_tree_planes_match_plain(harness, curve_name, c):
     """The plane tree's first level from the buckets and its halving in the
@@ -714,3 +740,124 @@ def test_plane_tree_limits_match_wrapper():
     assert int(defines["TREE_MAX_C"]) == MJ.TREE_MAX_C
     t = int(defines["TREE_THREADS"])
     assert t >= 32 and t & (t - 1) == 0 and (1 << (MJ.TREE_MAX_C - 2)) <= 2 * t
+
+
+# the Pasta instances (ids 2 and 3) of the EC lane and the MSM level, and
+# the round evaluation from a point offset
+
+
+@pytest.mark.parametrize("curve_name", ["PALLAS", "VESTA"], ids=["pallas", "vesta"])
+def test_ec_add_lane_pasta_instances_match_plain(harness, curve_name):
+    """The complete add's lane over Pallas and Vesta (csrc/ec_pasta.cu's
+    instances) on the five cases (generic, P = Q rescaled, P = -Q, P = O,
+    Q = O), against ec_add_plain over the curve's base field."""
+    curve = getattr(curves, curve_name)
+    base = curve.base
+    ps, qs = chip_smoke.ec_cases(np, np.random.RandomState(10), MJ, base.modulus, 100, curve.generator)
+    P = {k: base.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    Q = {k: base.encode([pt[i] for pt in qs]) for i, k in enumerate(ec.COORDS)}
+    cols = [rows(P[k]) for k in ec.COORDS] + [rows(Q[k]) for k in ec.COORDS]
+    got = run(harness, [f"e{base.kernel_id} " + " ".join(c[i] for c in cols) for i in range(len(ps))])
+    want = ec.ec_add_plain(P, Q, base)
+    assert np.array_equal(got, np.concatenate([F.to_numpy_u32(want[k]) for k in ec.COORDS], axis=1))
+
+
+@pytest.mark.parametrize("curve_name", ["PALLAS", "VESTA"], ids=["pallas", "vesta"])
+def test_msm_level_lane_pasta_instances_match_plain(harness, curve_name):
+    """The MSM level's lanes over Pallas and Vesta (csrc/msm_level_pasta.cu's
+    instances; 255-bit scalars, so W = 85 windows at c = 3), every level of
+    an 8-point MSM, against msm_level_plain."""
+    curve = getattr(curves, curve_name)
+    base, scalar = curve.base, curve.scalar
+    rng = np.random.RandomState(14)
+    points = chip_smoke.msm_edge_points(np, rng, MJ, base.modulus, "cpu", n=8, curve=curve)
+    scal = scalar.encode([int(rng.randint(0, 1 << 62)) * (i % 3 != 0) for i in range(7)] + [scalar.modulus - 1])
+    c = 3
+    B, W = 1 << c, -(-scalar.num_bits // c)
+    assert W == 85
+    digits = MJ.digits_all(F.from_mont(scalar, scal), c, W).to(torch.int32)
+    order = torch.argsort(-digits, dim=1, stable=True)
+    bucket = ec.identity_point(W * B + 1, "cpu", base)
+    lvl_pts, lvl_dig, first = points, digits, True
+    while True:
+        n = lvl_pts["x"].shape[0]
+        m = 8 if first else lvl_dig.shape[0] // W
+        line = " ".join([f"l{base.kernel_id} {W} {B} {m} {n} {int(first)}"] + [words(lvl_pts[k]) for k in ec.COORDS]
+                        + [" ".join(map(str, lvl_dig.reshape(-1).tolist()))]
+                        + ([" ".join(map(str, order.reshape(-1).tolist()))] if first else [])
+                        + [words(bucket[k][: W * B]) for k in ec.COORDS])
+        got = run(harness, [line])[0].astype(np.int64)
+        lvl_pts, lvl_dig = MJ.msm_level_plain(lvl_pts, lvl_dig, bucket, W, B, order=order if first else None, base=base)
+        want = np.concatenate([F.to_numpy_u32(lvl_pts[k]).reshape(-1) for k in ec.COORDS]
+                              + [lvl_dig.numpy().astype(np.uint32)]
+                              + [F.to_numpy_u32(bucket[k][: W * B]).reshape(-1) for k in ec.COORDS])
+        assert np.array_equal(got, want.astype(np.int64)), f"level m={m}"
+        first = False
+        if m == 1:
+            break
+
+
+def degree17(E):
+    """eq * p0 p1 ... p15: degree 17."""
+    acc = E.eq_xy(0)
+    for i in range(16):
+        acc = acc * E.poly(i % 4)
+    return acc
+
+
+@pytest.mark.parametrize("t0,points", [(8, 8), (16, 1)])
+def test_round_eval_pair_at_a_point_offset_matches_plain(harness, t0, points):
+    """The one-pass evaluation of a launch from a point offset: the points
+    t0 + 1 .. t0 + D of a degree-17 round (D = 8 from t0 = 8, D = 1 from
+    t0 = 16, the chunks plan_round gives it), summed over the pairs, against
+    round_message_plain at that offset and against its rows of the whole
+    degree-17 message."""
+    from halo2_lasso_tpu_torch.expression import Expression as E
+    from halo2_lasso_tpu_torch.piop import sum_check as sc
+
+    expr = degree17(E)
+    assert expr.degree == 17 and sc.point_chunks(17) == ((0, 8), (8, 8), (16, 1))
+    keys = sc._leaf_keys(expr, 4)
+    prog = sc.lower_expression(expr, keys)
+    rng = random.Random(t0)
+    p = Fr.modulus
+    h = 6
+    tables = [Fr.encode([rng.randrange(p) for _ in range(2 * h)]) for _ in keys]
+    tables[0][:4] = Fr.encode([0, p - 1, 1, Fr.R])
+    ops, consts = prog.kernel_args(Fr)
+    line = " ".join([f"r {points} {len(keys)} {len(ops)} {len(prog.consts)} {h} 0 {prog.max_stack} {t0}",
+                     " ".join(rows(Fr.encode([t0])))] + [words(t) for t in tables]
+                    + [" ".join(map(str, ops.tolist()))]
+                    + [" ".join(map(str, consts[: len(prog.consts)].reshape(-1).tolist()))])
+    want = sc.round_message_plain(Fr, tables, prog, None, points, t0)
+    got = run(harness, [line]).reshape(-1, 8)
+    assert np.array_equal(got, F.to_numpy_u32(want))
+    whole = sc.round_message_plain(Fr, tables, prog, None, 17)
+    assert np.array_equal(got, F.to_numpy_u32(whole[t0 : t0 + points]))
+
+
+def test_field_id_tables_match_the_entry_points():
+    """Each C entry point's table of field ids (``field_built(field,
+    pasta)`` at its top, BN254's ids and with `pasta` the Pasta ones) is
+    ops/native.py's FIELD_IDS for it, and ``native.field_id`` refuses, before
+    any launch, an id outside it: no id reaches another field's kernel."""
+    import re
+
+    from halo2_lasso_tpu_torch.ops import native
+
+    tables = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int h2l_(\w+)\(int field,[^{]*\{(.*?)\n}', text, re.S):
+            built = re.search(r"field_built\(field, (true|false)\)", m.group(2))
+            assert built, f"h2l_{m.group(1)} takes a field id it does not check"
+            tables[m.group(1)] = native.ALL_IDS if built.group(1) == "true" else native.BN254_IDS
+    assert tables == native.FIELD_IDS
+    unknown = F.FieldSpec(name="unknown", modulus=Fr.modulus, kernel_id=4)
+    for entry, ids in native.FIELD_IDS.items():
+        for spec in (unknown, curves.Fp_pallas, curves.Fq_vesta, Fr, Fq):
+            if spec.kernel_id in ids:
+                assert native.field_id(entry, spec) == spec.kernel_id
+            else:
+                with pytest.raises(ValueError, match="no instance"):
+                    native.field_id(entry, spec)

@@ -166,8 +166,9 @@ def test_grumpkin_scalar_mul_bits_matches_host():
     assert ec.jacobian_to_affine(lanes, Fr) == [curves.host_mul(G, a, k) for a, k in zip(aff, ks)]
     assert ec.jacobian_to_affine(ec.ec_neg(batch, Fr), Fr) == [
         (0, 0) if a == (0, 0) else (a[0], (-a[1]) % FR_MODULUS) for a in aff]
-    with pytest.raises(ValueError):
-        ec.curve_generator(curves.PALLAS, "cpu")
+    no_kernels = F.FieldSpec(name="no_kernels", modulus=curves.PALLAS_MODULUS, kernel_id=None)
+    with pytest.raises(ValueError):  # a curve over a field without kernels
+        ec.curve_generator(curves.CurveSpec("no_kernels", no_kernels, Fq, 5, curves.PALLAS.generator), "cpu")
 
 
 def test_grumpkin_msm_matches_jax(monkeypatch):

@@ -32,6 +32,26 @@ from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 
 RNG = np.random.RandomState(21)
 pytestmark = pytest.mark.cuda
+# the field instances of K4 (csrc/mont_mul.cu, csrc/mont_chain.cu and their
+# Pasta source csrc/mont_pasta.cu) and the curves of K3's
+FIELDS = [Fr, Fq, curves.Fp_pallas, curves.Fq_vesta]
+FIELD_IDS = ["fr", "fq", "pallas", "vesta"]
+CURVES = [curves.BN254_G1, curves.GRUMPKIN, curves.PALLAS, curves.VESTA]
+CURVE_IDS = ["bn254", "grumpkin", "pallas", "vesta"]
+# a field no kernel has an instance for
+NO_KERNELS = F.FieldSpec(name="no_kernels", modulus=curves.PALLAS_MODULUS, kernel_id=None)
+
+
+def counted(kernel, spec):
+    """native.counts' name of `kernel`'s instance for the field (K3: the
+    curve's coordinate field) `spec`; the kernel's own for its first."""
+    if kernel in ("ec_add", "msm_level", "ec_ladder", "plane_tree"):
+        inst = native.CURVES[spec.kernel_id]
+    elif kernel in ("sumcheck_round", "fold_all"):
+        inst = "fq" if spec.kernel_id == 1 else ""
+    else:
+        inst = native.PASTA.get(spec.kernel_id, "")
+    return f"{kernel}.{inst}" if inst else kernel
 
 
 @pytest.fixture
@@ -45,7 +65,7 @@ def rand_ints(p, n):
     return [int.from_bytes(RNG.bytes(40), "little") % p for _ in range(n)]
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 def test_mont_mul_kernel_matches_plain(cuda, spec):
     p = spec.modulus
     a = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, 1000), cuda)
@@ -54,7 +74,7 @@ def test_mont_mul_kernel_matches_plain(cuda, spec):
     assert torch.equal(F.mont_mul(spec, a, b[5]), F.mont_mul_plain(spec, a, b[5]))
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 @pytest.mark.parametrize("n", [1, 257, 1037, 1 << 16])
 def test_ew_kernel_matches_plain(cuda, spec, n):
     """Every op code of csrc/mont_mul.cu against the plain versions on the
@@ -66,8 +86,8 @@ def test_ew_kernel_matches_plain(cuda, spec, n):
         for op in range(6):
             args = [a, b, c][: F._EW_ARGS[op]]
             norm = F.norm_on_card
-            got, k = launches(lambda: no_sync(lambda: F._ew(spec, op, *args)), "mont_mul")
-            assert k == (1,) and F.norm_on_card == norm
+            got, k = launches(lambda: no_sync(lambda: F._ew(spec, op, *args)), "mont_mul", counted("mont_mul", spec))
+            assert k == (1, 1) and F.norm_on_card == norm
             vals = [x if isinstance(x, torch.Tensor) else spec.encode([x], cuda)[0] for x in args]
             want = F._ew_plain(spec, op, *vals)
             assert torch.equal(got, want.expand(got.shape)), (op, n)
@@ -164,7 +184,7 @@ def test_fold_all_kernel_matches_plain(cuda, ntables):
         assert n == (groups,) and all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 def test_mont_pow_kernel_matches_plain(cuda, spec):
     """Exponents 0, 1, 2, p - 2 and a random 254-bit one on one row and on
     304 rows with 0, 1, p - 1 and R mod p: one launch each."""
@@ -172,8 +192,8 @@ def test_mont_pow_kernel_matches_plain(cuda, spec):
     rows = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, 300), cuda)
     for a in (rows[3:4], rows):
         for e in (0, 1, 2, p - 2, int.from_bytes(RNG.bytes(32), "little") % (1 << 254) | 1 << 253):
-            got, n = launches(lambda: F.pow_fixed(spec, a, e), "mont_pow")
-            assert n == (1,) and torch.equal(got, F.pow_fixed_plain(spec, a, e)), e
+            got, n = launches(lambda: F.pow_fixed(spec, a, e), "mont_pow", counted("mont_pow", spec))
+            assert n == (1, 1) and torch.equal(got, F.pow_fixed_plain(spec, a, e)), e
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1024, 1025, (1 << 17) + 3])
@@ -186,7 +206,7 @@ def test_prefix_products_kernel_matches_plain(cuda, n):
         assert torch.equal(got, F.prefix_products_plain(Fr, x, reverse))
 
 
-@pytest.mark.parametrize("spec", [Fr, Fq], ids=["fr", "fq"])
+@pytest.mark.parametrize("spec", FIELDS, ids=FIELD_IDS)
 @pytest.mark.parametrize("n", [1, 257, 1025, (1 << 17) + 3])
 def test_batch_inv_kernel_matches_plain(cuda, spec, n):
     """Zero rows stay zero; the scan's phases and one mont_pow, a fixed
@@ -197,6 +217,21 @@ def test_batch_inv_kernel_matches_plain(cuda, spec, n):
     got, k = launches(lambda: no_sync(lambda: F.batch_inv(spec, a)), "prefix_products", "mont_pow")
     assert k == ((2 if n <= F.SCAN_TILE else 3), 1)
     assert torch.equal(got, F.batch_inv_plain(spec, a))
+
+
+@pytest.mark.parametrize("spec", [curves.Fp_pallas, curves.Fq_vesta], ids=["pallas", "vesta"])
+@pytest.mark.parametrize("n", [1, 1024, 1025, (1 << 17) + 3])
+def test_prefix_products_kernel_pasta_instances_match_plain(cuda, spec, n):
+    """The scan over the Pasta fields (csrc/mont_pasta.cu), both
+    directions, with 0, 1, p - 1 and R mod p among the rows: 1 launch up to
+    one tile, else 3, each counted to the instance."""
+    p = spec.modulus
+    x = spec.encode([0, 1, p - 1, spec.R] + rand_ints(p, n), cuda)[:n].contiguous()
+    for reverse in (False, True):
+        got, k = launches(lambda: no_sync(lambda: F.prefix_products(spec, x, reverse)), "prefix_products",
+                          counted("prefix_products", spec))
+        assert k == ((1, 1) if n <= F.SCAN_TILE else (3, 3))
+        assert torch.equal(got, F.prefix_products_plain(spec, x, reverse))
 
 
 @pytest.mark.parametrize("k", [0, 1, 5, 9, 16])
@@ -414,10 +449,10 @@ def test_msm_level_kernel_grumpkin_instance_matches_plain(cuda):
 
 
 def test_kernels_raise_for_a_field_without_instance(cuda):
-    """A CUDA tensor over a field with no compiled instance (a Pasta field,
-    kernel_id None) raises in each wrapper; nothing falls back to the plain
+    """A CUDA tensor over a field with no compiled instance (kernel_id
+    None) raises in each wrapper; nothing falls back to the plain
     version."""
-    spec = curves.Fp_pallas
+    spec = NO_KERNELS
     t = [spec.encode([1, 2, 3, 4], cuda) for _ in range(2)]
     prog = sc.lower_expression(Expression.poly(0) * Expression.poly(1), [("poly", 0, 0), ("poly", 1, 0)])
     pts = ec.identity_point(4, cuda, spec)
@@ -436,7 +471,7 @@ def test_kernels_raise_for_a_field_without_instance(cuda):
 # K3's ladder and plane tree (csrc/ec_add.cu), in both curve instances
 
 
-@pytest.mark.parametrize("curve", [curves.BN254_G1, curves.GRUMPKIN], ids=["bn254", "grumpkin"])
+@pytest.mark.parametrize("curve", CURVES, ids=CURVE_IDS)
 def test_ec_ladder_kernel_matches_plain(cuda, curve):
     """The ladder over 64 points (every fifth the identity) with a shared
     scalar (0, 1, q - 1, random, and 1 + 2^200, whose steps skip the add)
@@ -447,8 +482,7 @@ def test_ec_ladder_kernel_matches_plain(cuda, curve):
     ps, _ = chip_smoke.ec_cases(np, RNG, MJ, base.modulus, 64, curve.generator)
     pts = {k: base.encode([pt[i] for pt in ps], cuda) for i, k in enumerate(ec.COORDS)}
     host = {k: v.cpu() for k, v in pts.items()}
-    inst = "ec_ladder" + (".grumpkin" if base is Fr else "")
-    names = ("ec_ladder", inst, "ec_add")
+    names = ("ec_ladder", counted("ec_ladder", base), "ec_add")
     for k in (0, 1, q - 1, rand_ints(q, 1)[0], 1 + (1 << 200)):
         got, n = launches(lambda: no_sync(lambda: ec.ec_ladder(pts, k, nbits, base)), *names)
         want = ec.ec_ladder(host, k, nbits, base)
@@ -462,7 +496,7 @@ def test_ec_ladder_kernel_matches_plain(cuda, curve):
     assert n == (1, 1, 0) and all(torch.equal(got[c].cpu(), want[c]) for c in ec.COORDS)
 
 
-@pytest.mark.parametrize("curve", [curves.BN254_G1, curves.GRUMPKIN], ids=["bn254", "grumpkin"])
+@pytest.mark.parametrize("curve", CURVES, ids=CURVE_IDS)
 @pytest.mark.parametrize("c, W", [(2, 3), (3, 85), (4, 64), (10, 2)])
 def test_plane_tree_kernel_matches_plain(cuda, curve, c, W):
     """The plane tree over buckets with empty ones, equal points and
@@ -477,7 +511,7 @@ def test_plane_tree_kernel_matches_plain(cuda, curve, c, W):
         for k in ec.COORDS:
             bucket[k][r] = empty[k][0]
     want = MJ.bucket_planes_plain(bucket, c, W, base)
-    inst = "plane_tree" + (".grumpkin" if base is Fr else "")
+    inst = counted("plane_tree", base)
     got, n = launches(lambda: no_sync(lambda: MJ.bucket_planes(bucket, c, W, base)), "plane_tree", inst)
     assert n == (1, 1) and all(torch.equal(got[k], want[k]) for k in ec.COORDS)
 
@@ -494,8 +528,8 @@ def test_msm_launches_one_plane_tree_and_no_ec_add(cuda):
 
 
 def test_ladder_and_tree_raise_for_a_field_without_instance(cuda):
-    """A Pasta field (kernel_id None) raises in both new entries."""
-    spec = curves.Fp_pallas
+    """A field without kernels (kernel_id None) raises in both entries."""
+    spec = NO_KERNELS
     pts = ec.identity_point(4, cuda, spec)
     with pytest.raises(ValueError):
         ec.ec_ladder(pts, 5, 8, spec)
@@ -504,6 +538,97 @@ def test_ladder_and_tree_raise_for_a_field_without_instance(cuda):
     bucket = ec.identity_point(3 << 3, cuda, spec)
     with pytest.raises(ValueError):
         MJ.bucket_planes(bucket, 3, 3, spec)
+
+
+# the Pasta instances of K3 (csrc/ec_pasta.cu, csrc/msm_level_pasta.cu), K1's
+# point chunks, and the kernels that have no Pasta instance
+
+
+@pytest.mark.parametrize("curve", [curves.PALLAS, curves.VESTA], ids=["pallas", "vesta"])
+def test_ec_add_and_msm_level_kernels_pasta_instances_match_plain(cuda, curve):
+    """The complete add over 640 lanes of the five cases against the plain
+    version and host arithmetic; every level of a 64-point MSM against the
+    plain level (one launch of the instance a level); a 2^9 MSM on the card
+    against the CPU's."""
+    base, scalar = curve.base, curve.scalar
+    ps, qs = chip_smoke.ec_cases(np, RNG, MJ, base.modulus, 640, curve.generator)
+    p = {k: base.encode([pt[i] for pt in ps], cuda) for i, k in enumerate(ec.COORDS)}
+    q = {k: base.encode([pt[i] for pt in qs], cuda) for i, k in enumerate(ec.COORDS)}
+    got, n = launches(lambda: ec.ec_add(p, q, base), "ec_add", counted("ec_add", base))
+    want = ec.ec_add_plain(p, q, base)
+    assert n == (1, 1) and all(torch.equal(got[k], want[k]) for k in ec.COORDS)
+    host = [MJ.host_jac_add(a, b, base.modulus) for a, b in zip(ps, qs)]
+    assert ec.jacobian_to_affine(got, base) == MJ.host_batch_affine(host, base.modulus)
+    points = chip_smoke.msm_edge_points(np, RNG, MJ, base.modulus, cuda, curve=curve)
+    inst = counted("msm_level", base)
+    before = native.counts[inst]
+    assert chip_smoke.check_msm_levels(torch, np, RNG, cuda, points, 64, scalar, base) == 0
+    assert native.counts[inst] == before + 7
+    ps, _ = chip_smoke.ec_cases(np, RNG, MJ, base.modulus, 1 << 9, curve.generator)
+    pts = {k: base.encode([pt[i] for pt in ps]) for i, k in enumerate(ec.COORDS)}
+    scal = scalar.encode(rand_ints(scalar.modulus, 1 << 9))
+    card = ({k: v.to(cuda) for k, v in pts.items()}, scal.to(cuda))
+    assert ec.msm_to_affine_int(*card, base, scalar) == ec.msm_to_affine_int(pts, scal, base, scalar)
+
+
+def _product_expr(degree):
+    """eq * p0 p1 ... : a product of `degree` tables."""
+    acc = Expression.eq_xy(0)
+    for i in range(degree - 1):
+        acc = acc * Expression.poly(i % 3)
+    return acc
+
+
+@pytest.mark.parametrize("degree", [9, 17])
+@pytest.mark.parametrize("pairs", [1 << 10, 1037], ids=["pow2", "ragged"])
+def test_round_kernel_point_chunks_match_plain(cuda, degree, pairs):
+    """A round of degree 9 or 17 as plan_round splits it: ceil(degree / 8)
+    launches from t0 = 0, 8, 16, the messages concatenated on the card with
+    no host sync, against the plain version's degree points in one pass;
+    and one launch from t0 > 0 against the plain version at that offset."""
+    expr = _product_expr(degree)
+    keys = sc._leaf_keys(expr, 3)
+    plan = sc.plan_round(expr, keys, Fr.modulus, 0)
+    assert plan.points == sc.point_chunks(degree) and len(plan.points) == -(-degree // 8)
+    tables = [Fr.encode(rand_ints(Fr.modulus, 2 * pairs), cuda) for _ in keys]
+    tables[0][:4] = Fr.encode([0, 1, Fr.modulus - 1, Fr.R], cuda)
+    got, n = launches(lambda: no_sync(lambda: sc.round_message_planned(Fr, tables, plan, None)), "sumcheck_round")
+    assert n == (len(plan.points),) and got.shape == (degree, F.LIMBS)
+    assert torch.equal(got, sc.round_message_plain(Fr, tables, plan.program, None, degree))
+    t0, d = plan.points[-1]
+    part = no_sync(lambda: sc.round_message(Fr, tables, plan.program, None, d, t0))
+    assert t0 > 0 and torch.equal(part, sc.round_message_plain(Fr, tables, plan.program, None, d, t0))
+
+
+def test_bn254_only_kernels_raise_for_a_pasta_field(cuda):
+    """K1, K2, K5, the row sum and the eq table have no Pasta instance: a
+    CUDA tensor over either Pasta field raises in each wrapper before any
+    launch (no BN254 instance runs in its place)."""
+    for spec in (curves.Fp_pallas, curves.Fq_vesta):
+        t = [spec.encode([1, 2, 3, 4], cuda) for _ in range(2)]
+        prog = sc.lower_expression(Expression.poly(0) * Expression.poly(1), [("poly", 0, 0), ("poly", 1, 0)])
+        before = dict(native.counts)
+        for fn in (lambda: sc.round_message(spec, t, prog, None, 2), lambda: mle.fold_all(spec, t, 5),
+                   lambda: mle.fix_var_chain(spec, t[0], [5, 6], False), lambda: F.sum_reduce(spec, t[0]),
+                   lambda: mle.eq_xy(spec, [1, 2], cuda)):
+            with pytest.raises(ValueError, match="no instance"):
+                fn()
+        assert native.counts == before
+
+
+def test_entry_points_refuse_an_unknown_field_id(cuda):
+    """Every C entry point that takes a field id returns
+    cudaErrorInvalidValue for one it was not built for (4, and the Pasta
+    ids where the kernel has no Pasta instance) before it reads anything,
+    so no instance runs in its place."""
+    lib = native.lib()
+    for name, argtypes in native._SIGNATURES.items():
+        entry = name[len("h2l_"):]
+        if entry not in native.FIELD_IDS:
+            continue
+        for field in [4, -1] + [i for i in (2, 3) if i not in native.FIELD_IDS[entry]]:
+            args = [field] + [None if t is native._P else 0 for t in argtypes[1:]]
+            assert getattr(lib, name)(*args) == 1, (entry, field)  # cudaErrorInvalidValue
 
 
 # sharding: a kernel launches on the card of the tensors it is given, and a

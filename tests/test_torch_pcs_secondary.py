@@ -227,10 +227,15 @@ def test_scalar_mul_bits_matches_host():
         (0, 0) if pt == (0, 0) else (pt[0], (-pt[1]) % FQ_MODULUS) for pt in pts]
     gen = ec.curve_generator(curves.BN254_G1, "cpu")
     assert ec.jacobian_to_affine(gen) == [(1, 2)]
-    # grumpkin has device group ops too (over Fr); the Pasta curves have none
+    # grumpkin and the Pasta curves have device group ops too; a curve over
+    # a field without kernels has none
     assert ec.jacobian_to_affine(ec.curve_generator(curves.GRUMPKIN, "cpu"), Fr) == [curves.GRUMPKIN.generator]
+    assert ec.jacobian_to_affine(ec.curve_generator(curves.PALLAS, "cpu"), curves.Fp_pallas) == [
+        curves.PALLAS.generator]
+    no_kernels = F.FieldSpec(name="no_kernels", modulus=curves.PALLAS_MODULUS, kernel_id=None)
     with pytest.raises(ValueError):
-        ec.curve_generator(curves.PALLAS, "cpu")
+        ec.curve_generator(curves.CurveSpec("no_kernels", no_kernels, curves.Fq_vesta, 5, curves.PALLAS.generator),
+                           "cpu")
     assert MJ.host_batch_affine([MJ.host_jac_double((1, 2, 1), Fq.modulus)], Fq.modulus) == [
         curves.host_mul(curves.BN254_G1, (1, 2), 2)]
 

@@ -4,8 +4,12 @@ MAX_OPS or MAX_CONSTS set low the nv = 4 vanilla zero check and a GKR batch
 are cut into chunks of whole terms and prove byte-equal; a GKR batch past
 the real limits (100 grand products, 201 leaves) is byte-equal at nv = 4,
 and at nv = 6 hashes to chip_smoke.SPLIT_SHA256, the JAX package's proof;
-a right-deep expression lowers within the stack; a gate of degree 9 is
-refused at set-up on a CUDA device, before any prove work."""
+a right-deep expression lowers within the stack. Rounds past the kernel's
+MAX_DEGREE (8) are split into chunks of points: the nv = 3 HyperPlonk proof
+of a degree-9 zero check (chip_smoke.DEGREE9_SMALL) and a degree-17
+sumcheck are byte-equal to the JAX package's (the lt_table(16, 2) Lasso
+proof, degree 9 too, is in tests/test_torch_lasso_lt.py); a single product
+of more than MAX_LEAVES tables still raises."""
 
 import hashlib
 
@@ -22,11 +26,10 @@ from halo2_lasso_tpu.ops.bn254 import Fr as JFr
 from halo2_lasso_tpu.piop import gkr as jgkr
 from halo2_lasso_tpu.piop import sum_check as jsc
 from halo2_lasso_tpu.transcript import Keccak256Transcript as JTranscript
-from halo2_lasso_tpu_torch.backend.hyperplonk import HyperPlonk, fixtures, preprocessor
+from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
 from halo2_lasso_tpu_torch.expression import Expression, from_foreign
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
-from halo2_lasso_tpu_torch.pcs.multilinear_kzg import KzgParams
 from halo2_lasso_tpu_torch.piop import gkr
 from halo2_lasso_tpu_torch.piop import sum_check as sc
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
@@ -186,27 +189,61 @@ def test_too_deep_term_is_reported(monkeypatch):
         sc.plan_round(expr, sc._leaf_keys(expr, 16), P, 0)
 
 
-def degree9_circuit():
-    """The nv = 3 vanilla circuit with its first gate raised to degree 9."""
-    ci, circ = fixtures.rand_vanilla_plonk_circuit(3, np.random.RandomState(42), np.random.RandomState(43))
-    q = ci.constraints[0]
-    for _ in range(8 - q.degree):
-        q = q * Expression.poly(0)
-    ci.constraints = [q] + list(ci.constraints[1:])
-    ci.max_degree = 8
-    return ci
+def test_degree9_gate_proof_matches_jax():
+    """The nv = 3 vanilla circuit with its first gate raised to degree 8
+    (chip_smoke.DEGREE9_SMALL): a zero check of degree 9, two chunks of
+    points a round (1..8 and 9). The port's proof on the CPU is the JAX
+    package's, whose hash is chip_smoke.DEGREE9_SHA256."""
+    from halo2_lasso_tpu.backend.hyperplonk import HyperPlonk as JHyperPlonk
+    from halo2_lasso_tpu.backend.hyperplonk import new_transcript as jnew_transcript
+
+    cfg = chip_smoke.DEGREE9_SMALL
+    rngs = [np.random.RandomState(s) for s in cfg["seeds"]]
+    jci, jcirc = jfixtures.rand_vanilla_plonk_circuit(cfg["num_vars"], *rngs)
+    jci = chip_smoke.raise_gate(jci, JExpression, cfg["gate_degree"])
+    assert jpreprocessor.compose(jci)[1].degree == 9
+    jparam = JHyperPlonk.setup(jci, np.random.RandomState(cfg["setup_seed"]))
+    jpp, _ = JHyperPlonk.preprocess(jparam, jci)
+    jt = jnew_transcript()
+    JHyperPlonk.prove(jpp, jcirc, jt)
+    jproof = jt.into_proof()
+    ci, _ = chip_smoke.make_circuit(np, cfg)
+    expr = preprocessor.compose(ci)[1]
+    assert expr.degree == 9 and sc.point_chunks(expr.degree) == ((0, 8), (8, 1))
+    proof, _ = chip_smoke.hyperplonk_proof(np, cfg, "cpu")
+    assert proof == jproof
+    assert hashlib.sha256(proof).hexdigest() == chip_smoke.DEGREE9_SHA256
 
 
-def test_degree_past_the_kernel_refused_at_set_up(monkeypatch):
-    ci = degree9_circuit()
-    assert preprocessor.compose(ci)[1].degree == 9
-    param = HyperPlonk.setup(ci, np.random.RandomState(0), device="cpu")
-    monkeypatch.setattr(KzgParams, "device", property(lambda self: torch.device("cuda")))
-    with pytest.raises(sc.SumcheckError, match="degree 9.*at most 8"):
-        HyperPlonk.preprocess(param, ci)
-    sc.check_degree(9, "cpu", "a gate")  # the plain path proves any degree
-    with pytest.raises(sc.SumcheckError, match="degree 9"):
-        sc.check_degree(9, "cuda", "a gate")
+def degree17(E):
+    """eq * p0 p1 ... p15 over four polys: degree 17, three chunks of
+    points a round (1..8, 9..16, 17)."""
+    acc = E.eq_xy(0)
+    for i in range(16):
+        acc = acc * E.poly(i % 4)
+    return acc
+
+
+def test_degree17_sumcheck_matches_jax():
+    expr, jexpr = degree17(Expression), degree17(JExpression)
+    assert expr.degree == 17
+    plan = sc.plan_round(expr, sc._leaf_keys(expr, 4), P, 0)
+    assert plan.program is not None and plan.points == ((0, 8), (8, 8), (16, 1))
+    proof, jproof = sumcheck_both(expr, jexpr, 4, 0)
+    assert proof == jproof
+
+
+def test_single_product_past_max_leaves_raises():
+    """What is left of the refusal: one product of more than MAX_LEAVES
+    (128) tables, a term that no split of terms or points can cut."""
+    E = Expression
+    expr = E.poly(0)
+    for i in range(1, sc.MAX_LEAVES + 1):
+        expr = expr * E.poly(i)
+    keys = sc._leaf_keys(expr, sc.MAX_LEAVES + 1)
+    assert len(keys) == sc.MAX_LEAVES + 1
+    with pytest.raises(sc.SumcheckError, match="alone passes"):
+        sc.plan_round(expr, keys, P, 0)
 
 
 def test_foreign_split_terms_match_jax():
