@@ -166,7 +166,18 @@ Phases, each printing one line with its wall time:
      unknown field id); then the device times of phases 3, 16 and 17 from
      one fresh process, each Pasta instance's beside its BN254 twin's, its
      bound by Pasta's Montgomery product (imad_per_mont_mul: 176
-     multiply-adds, against BN254's 256).
+     multiply-adds, against BN254's 256). Profiled once each: lt_table(64,
+     8)'s prove, and each Pasta path's two MSMs and ladder.
+ 18. a term past the round kernel's limits (run_wide_phase): the product of
+     WIDE["tables"] = 129 tables at nv = 16 (RandomState(18)), one term
+     that no split of terms or points can cut, proved by sum_check.prove
+     with the term evaluated in field ops (fold_all, K4's op codes,
+     sum_reduce: the JAX package's chunked round evaluation), verified
+     against the tables' own evaluations, a flipped byte rejected; the
+     prove's launches of K1 (none), K2, K4 and sum_reduce equal to its
+     plan's (evaluated_launches), printed with its ms; its nv = 3 twin on
+     the card, alone and on SHARDS virtual shards, hashing to the JAX
+     package's proof (WIDE_SHA256).
 The kernel phase also holds ec_add bit-exact at the IPA ladder's shapes at
 nv = 16 (2^15 lanes: the doubling of the accumulator, P + P, and the add of
 the point, with identity lanes), and the field instances that phase 13 runs
@@ -187,8 +198,8 @@ that and one (on MultilinearIpa's, ec_add is nv).
 Kernel launch counts are reset just before each main path (phases 5, 7, 8,
 the nv = 16 part of 9, the two full-width paths of 10, 11, the five
 full-size paths of 12, the two of 13, the one of 14, the three sharded
-proves of 15, the eight paths of 16 and the four of 17) and read just
-after it; each path must
+proves of 15, the eight paths of 16, the four of 17 and the one of 18)
+and read just after it; each path must
 launch every kernel it names in PATH_KERNELS, the K4 family's launches (K4,
 its row sum and the mont_chain entries) and K5's are printed by path, and a
 proof path that runs the plain carry pass (ops/field.py's _norm) on a CUDA
@@ -200,6 +211,9 @@ that made them (a third prove, under torch.cuda.set_sync_debug_mode("warn")).
 
 The last lines are a JSON object with every kernel's and instance's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+A plain version's time is one call, with no warm-up (``plain_once``; in
+the kernel phase's records the call that the bit-exact check compares); a
+kernel's is the mean of 20 calls after a warm-up.
 Any failure exits non-zero; a watchdog turns a hang into a traceback and a
 non-zero exit. Without a CUDA device, or without the package beside it, the
 script exits non-zero before printing any result.
@@ -323,6 +337,8 @@ PATH_KERNELS = {
     # curve's path, "pasta_<curve>", is added by run_pasta_phase)
     "lasso_lt64": PROOF_KERNELS,
     "lasso_lt56": PROOF_KERNELS,
+    # phase 18: the evaluated term's folds, field ops and row sums; no K1
+    "wide_product": ("fold_all", "mont_mul", "sum_reduce"),
 }
 # phase 14: HyperPlonk over Brakedown, phase 7's circuit at nv = 16, and the
 # rows of its code encoded on the card against the CPU
@@ -365,6 +381,14 @@ LT16_SHA256 = "95d0888c404993165852a6350e97af474edd9f84efbcfb968899f292bf3f2a70"
 DEGREE9_SMALL = {"circuit": "raised_gate_circuit", "num_vars": 3, "seeds": (42, 43), "setup_seed": 0,
                  "gate_degree": 8}
 DEGREE9_SHA256 = "6bdcbbab8b9bc7afe34b22041cbc46a057c06477103966de1e140dc8b44b70bc"
+# phase 18: one term past the round kernel's limits, the product of
+# MAX_LEAVES + 1 = 129 tables (degree 129), proved by sum_check.prove with
+# the term evaluated in field ops as the JAX package's chunked round
+# evaluation does (piop/sum_check.py ``evaluated_message``); tables from
+# RandomState(seed), values below 2^62; its nv = 3 twin hashes to the JAX
+# package's proof (WIDE_SHA256, tests/test_torch_round_split.py)
+WIDE = {"tables": 129, "num_vars": 16, "seed": 18}
+WIDE_SHA256 = "cb2c453b8a0baa3dd1a216a2a8fe0e9d8f6b7da9bc2df74b653ff3f051d75259"
 # the lane budget of phase 16's grouped quotient MSMs
 # (HALO2_LASSO_TPU_MSM_GROUP_LANES): the nv = 16 open's 16 MSMs in three
 # segmented pipelines (2^15 and 2^14; 2^13 .. 2^5; the rest)
@@ -532,6 +556,11 @@ def main() -> int:
     # instance of K4 and K3 against its plain version
     run_degree_phase(torch, np, launches, smi)
     pasta, k1_points = run_pasta_phase(torch, np, launches, smi, fresh)
+
+    # 18. a term past the round kernel's limits (the product of 129 tables
+    # at nv = 16 and its nv = 3 twin against the JAX package's bytes),
+    # evaluated with K2, K4 and the row sum
+    run_wide_phase(torch, np, launches, smi)
 
     # the device times of phases 3, 16 and 17, in one fresh process
     t0 = time.perf_counter()
@@ -1560,11 +1589,167 @@ def run_degree_phase(torch, np, launches, smi, device="cuda"):
     print(f"  K1 in prove: lt_table(64,8) {k1['lasso_lt64']} (the primary sumcheck's {rounds} rounds in two chunks "
           f"of points each, t0 = 0 and 8), lt_table(56,8) {k1['lasso_lt56']} (one launch a round) | {smi}", flush=True)
     if device == "cuda":
+        prof = profile_prove(torch, paths["lasso_lt64"]["prove"])
+        print("  lt_table(64,8)'s second prove under torch.profiler: " + json.dumps(prof), flush=True)
+    if device == "cuda":
         proof_gate(np, lasso_proof, LT16_SMALL, LT16_SHA256, "lt16_small", "lt_table(16,2), 8 lookups, degree 9",
                    cpu=False)
         proof_gate(np, hyperplonk_proof, DEGREE9_SMALL, DEGREE9_SHA256, "degree9_small",
                    "nv=3 vanilla with a gate of degree 8, a zero check of degree 9", cpu=False)
     stage("degree", t_phase, "lt_table(64,8) proved on the card in point chunks; the small twins == JAX")
+
+
+def wide_product(Expression, tables):
+    """poly(0) * poly(1) * ... * poly(tables - 1), left-deep: one term of
+    `tables` leaf tables and degree `tables` (either package's class)."""
+    expr = Expression.poly(0)
+    for i in range(1, tables):
+        expr = expr * Expression.poly(i)
+    return expr
+
+
+def wide_product_inputs(np, cfg, num_vars):
+    """The wide product's tables: cfg["tables"] rows of 2^num_vars values
+    below 2^62 from RandomState(cfg["seed"])."""
+    rng = np.random.RandomState(cfg["seed"])
+    return rng.randint(1, 1 << 62, size=(cfg["tables"], 1 << num_vars), dtype=np.int64)
+
+
+def wide_product_proof(np, cfg, device, tamper=False, extra=None):
+    """The wide product's sum over the hypercube at cfg["num_vars"] on
+    `device`: the claim (``evaluate_torch`` over the whole tables and a row
+    sum), ``sum_check.prove``, then ``sum_check.verify`` with its final
+    evaluation held to the product of the tables' own evaluations at the
+    challenges (``mle.evaluate_stacked_ints``; the prover's must equal
+    them); with `tamper`, a proof with one flipped byte must fail. Returns
+    (proof bytes, stage records); `extra`, a dict, receives the claim and
+    the prove's launches and ms."""
+    from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_torch, hypercube_leaves
+    from halo2_lasso_tpu_torch.ops import field as F
+    from halo2_lasso_tpu_torch.ops import native
+    from halo2_lasso_tpu_torch.ops.bn254 import Fr
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+    from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
+
+    nv, p = cfg["num_vars"], Fr.modulus
+    records = []
+
+    def stage_ms(name, t0):
+        records.append((name, (time.perf_counter() - t0) * 1e3))
+
+    t0 = time.perf_counter()
+    polys = list(F.encode_dev(Fr, wide_product_inputs(np, cfg, nv), device).unbind(0))
+    expr = wide_product(Expression, cfg["tables"])
+    values = evaluate_torch(Fr, expr, hypercube_leaves(Fr, nv, polys), [], device)
+    claim = Fr.decode_ints(F.sum_reduce(Fr, values)[None])[0]
+    del values
+    stage_ms("claim", t0)
+    tw = Keccak256Transcript(p)
+    before = dict(native.counts)
+    t0 = time.perf_counter()
+    x, evals = SC.prove(Fr, nv, SC.VirtualPolynomial(expr, polys, [], []), claim, tw)
+    stage_ms("prove", t0)
+    if extra is not None:
+        extra.update(claim=claim, prove_ms=records[-1][1],
+                     prove_launches={k: native.counts[k] - before[k] for k in before})
+    proof = tw.into_proof()
+
+    def verify(proof):
+        final, xs = SC.verify(p, nv, expr.degree, claim, Keccak256Transcript(p, proof=proof))
+        own = mle.evaluate_stacked_ints(Fr, polys, xs)
+        if final != SC.evaluate_at_point(expr, p, nv, {Query(i): v for i, v in enumerate(own)}, [], [], xs):
+            raise SC.SumcheckError("the final evaluation is not the product of the tables' evaluations")
+        return xs, own
+
+    t0 = time.perf_counter()
+    if verify(proof) != (x, evals):
+        raise SystemExit("the prover's challenges or final evaluations differ from the verifier's")
+    stage_ms("verify", t0)
+    if tamper:
+        rejects_flipped_byte(verify, proof)
+    return proof, records
+
+
+def evaluated_launches(SC, plan, pairs, tables):
+    """The launches by kernel of rounds of ``sum_check.prove`` over `tables`
+    leaf tables under a split `plan`, one round for each of `pairs` (its
+    tables' pairs): each chunk of points launches K1 once a term chunk, one
+    row sum adding the parts and, for each evaluated term, K2 at each of its
+    points once for each FOLD_MAX_TABLES of its tables, then a pass of
+    ``point_batch`` points at a time (its ``field_ops`` of K4 and one row
+    sum; a term that reads no table: one more K4, the product by half, and
+    no row sum) and one K4 product by its coefficient; and each round folds
+    every table."""
+    from halo2_lasso_tpu_torch.poly import multilinear as mle
+
+    def groups(n):
+        return -(-n // mle.FOLD_MAX_TABLES)
+
+    r = {"sumcheck_round": 0, "fold_all": 0, "mont_mul": 0, "sum_reduce": 0}
+    for h in pairs:
+        r["fold_all"] += groups(tables)
+        for _, d in plan.points:
+            r["sumcheck_round"] += len(plan.chunks)
+            r["sum_reduce"] += 1
+            for e in plan.evaluated:
+                passes = -(-d // SC.point_batch(e, h))
+                r["fold_all"] += d * groups(len(e.leaves)) if e.leaves else 0
+                r["mont_mul"] += passes * (e.field_ops + (0 if e.leaves else 1)) + 1
+                r["sum_reduce"] += passes if e.leaves else 0
+    return r
+
+
+def run_wide_phase(torch, np, launches, smi, device="cuda", cfg=None):
+    """Phase 18: one term past the round kernel's limits. (1) The product of
+    WIDE["tables"] (MAX_LEAVES + 1) tables at WIDE["num_vars"] on the card
+    (a main path, "wide_product"): claim, prove, verify, a flipped byte
+    rejected. Its plan holds no chunk for K1, one evaluated term; the
+    prove's launches of K1 (none), K2, K4 and the row sum must be the
+    plan's (``evaluated_launches``), and are printed with its ms and the
+    card's name and power limit. (2) The nv = 3 twin on the card, alone and
+    on SHARDS virtual shards of it (its first round's message a shard at a
+    time), hashing to the JAX package's proof (WIDE_SHA256;
+    tests/test_torch_round_split.py holds the CPU's to it). A CPU rehearsal
+    passes device "cpu" and a small `cfg`; it skips the launch gate and the
+    twins."""
+    from halo2_lasso_tpu_torch.expression import Expression
+    from halo2_lasso_tpu_torch.ops.bn254 import Fr
+    from halo2_lasso_tpu_torch.parallel import sharding
+    from halo2_lasso_tpu_torch.piop import sum_check as SC
+
+    cfg = cfg or WIDE
+    t_phase = time.perf_counter()
+    expr = wide_product(Expression, cfg["tables"])
+    plan = SC.plan_round(expr, SC._leaf_keys(expr, cfg["tables"]), Fr.modulus, 0)
+    if plan.program is not None or plan.chunks or len(plan.evaluated) != 1:
+        raise SystemExit(f"the product of {cfg['tables']} tables is not one evaluated term")
+    extra = {}
+    run_path(launches, "wide_product", "wide_product",
+             f"the product of {cfg['tables']} tables at nv={cfg['num_vars']}, degree {expr.degree}: one term past "
+             f"the round kernel's {SC.MAX_LEAVES} leaves",
+             lambda: wide_product_proof(np, cfg, device, tamper=True, extra=extra))
+    nv = cfg["num_vars"]
+    want = evaluated_launches(SC, plan, [1 << (nv - 1 - r) for r in range(nv)], cfg["tables"])
+    got = {k: extra["prove_launches"][k] for k in want}
+    if device == "cuda" and got != want:
+        raise SystemExit(f"the wide product's prove launched {got}, not its plan's {want}")
+    ev = plan.evaluated[0]
+    print(f"  prove {extra['prove_ms']:.1f}ms, launches {json.dumps(got)} == the plan's: no term chunk, one "
+          f"evaluated term of {len(ev.leaves)} tables, {ev.field_ops} K4 a pass of up to "
+          f"{SC.point_batch(ev, 1 << (nv - 1))} points, {len(plan.points)} chunks of points a round | {smi}",
+          flush=True)
+    if device == "cuda":
+        proof_gate(np, wide_product_proof, {**cfg, "num_vars": 3}, WIDE_SHA256, "wide_small",
+                   f"the product of {cfg['tables']} tables at nv=3", cpu=False)
+
+        def on_mesh(np, cfg, device):
+            with sharding.use_mesh(sharding.Mesh([torch.device(device, 0)] * SHARDS)):
+                return wide_product_proof(np, cfg, device)
+
+        proof_gate(np, on_mesh, {**cfg, "num_vars": 3}, WIDE_SHA256, "wide_small_sharded",
+                   f"the same on {SHARDS} virtual shards of the card", cpu=False)
+    stage("wide", t_phase, f"one term past the round kernel's limits proved, verified, tamper rejected | {smi}")
 
 
 def run_pasta_phase(torch, np, launches, smi, fresh, device="cuda", n=1 << 16, lanes=1 << 15):
@@ -1624,6 +1809,11 @@ def run_pasta_phase(torch, np, launches, smi, fresh, device="cuda", n=1 << 16, l
             raise SystemExit(f"the {path} path ran the plain carry pass on the card {F.norm_on_card} times")
         stage(path, t0, f"2^{n.bit_length() - 1} points: the production MSM ({msm_ms:.1f}ms wall) == msm_affine "
               f"({affine_ms:.1f}ms wall), on the curve; a {lanes}-lane ladder, 64 lanes == host_mul | {smi}")
+        if dev.type == "cuda":
+            prof = profile_prove(torch, lambda: (ec.variable_base_msm(points, scal, base, scalar),
+                                                 msm_affine.msm_affine(points, scal, base, scalar),
+                                                 ec.ec_ladder(lp, k, scalar.num_bits, base)))
+            print(f"  {path}'s two MSMs and ladder again under torch.profiler: " + json.dumps(prof), flush=True)
         t0 = time.perf_counter()
         check_pasta_instances(torch, np, dev, rng, curve, points, lp, fresh, results)
         stage(f"{path}_instances", t0, f"every {curve.name} instance of K4 and K3 bit-exact against its plain "
@@ -1698,7 +1888,7 @@ def check_pasta_instances(torch, np, dev, rng, curve, points, lp, fresh, results
         b_ms, b_by = bound_ms(bytes_moved, imads)
         r = results[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": 0, "max_abs_err": 0,
-            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain_fn, 1), "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(fn, 20), "plain_ms": plain_once(torch, plain_fn)[1], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "shape": shape}
         # the BN254 twin's job is one for both curves (the second's inputs)
         for key, (call, args, expect), field in ((name, job, "device_ms"),
@@ -1761,7 +1951,7 @@ def check_pasta_instances(torch, np, dev, rng, curve, points, lp, fresh, results
                             f"{bin(e).count('1')} set; the twin's BN254 Fq p - 2, {fe.bit_length()} bits, "
                             f"{bin(fe).count('1')} set)")
     r["batch_inv_ms"] = cuda_ms(lambda: F.batch_inv(base, big), 20)
-    r["batch_inv_plain_ms"] = cuda_ms(lambda: F.batch_inv_plain(base, big), 1)
+    r["batch_inv_plain_ms"] = plain_once(torch, lambda: F.batch_inv_plain(base, big))[1]
     r["batch_inv_bound_ms"], r["batch_inv_bound_by"] = bound_ms(
         64 * 2 * n, (4 * 2 * n + e.bit_length() - 2 + bin(e).count("1")) * mm)
     for key, a_, spec in ((f"batch_inv.{inst}", big, base), ("batch_inv.twin", fbig, Fq)):
@@ -1873,7 +2063,8 @@ def check_point_chunks(torch, np, dev, fresh, k1_timed, n=1 << 16):
         if launched != len(plan.points) or plan.program is None:
             raise SystemExit(f"K1 over {label} launched {native.counts['sumcheck_round'] - before} times, not "
                              f"{len(plan.points)}")
-        if not torch.equal(got, SC.round_message_plain(Fr, tables, plan.program, None, expr.degree)):
+        want, plain_ms = plain_once(torch, lambda: SC.round_message_plain(Fr, tables, plan.program, None, expr.degree))
+        if not torch.equal(got, want):
             raise SystemExit(f"kernel sumcheck_round disagrees with its plain version over {label}")
         for t0, d in plan.points[1:]:
             if not torch.equal(SC.round_message(Fr, tables, plan.program, None, d, t0),
@@ -1886,7 +2077,7 @@ def check_point_chunks(torch, np, dev, fresh, k1_timed, n=1 << 16):
             "shape": f"{label}: {len(keys)} leaves, degree {expr.degree}, {len(plan.points)} launch(es) "
                      f"{plan.points}, 2^{n.bit_length() - 1} rows", "ms": cuda_ms(
                          lambda: SC.round_message_planned(Fr, tables, plan, None), 20),
-            "plain_ms": cuda_ms(lambda: SC.round_message_plain(Fr, tables, plan.program, None, expr.degree), 1),
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "launches_a_round": len(plan.points)}
         fresh.add(key, "round", {"tables": tables, "plan": plan, "base": Fr.kernel_id},
                   {"round_kernel": len(plan.points)})
@@ -2007,13 +2198,15 @@ def check_kernels(torch, np, dev, fresh):
     results = {}
 
     def record(name, src, replaces, kernel_fn, plain_fn, bytes_moved, imads, err):
-        """Check and time one kernel at a shape of the main path."""
-        err = max(err, same(name, kernel_fn, plain_fn))
+        """Check and time one kernel at a shape of the main path (the plain
+        version's one call, compared and timed)."""
+        want, plain_ms = plain_once(torch, plain_fn)
+        err = max(err, same(name, kernel_fn, lambda: want))
         b_ms, b_by = bound_ms(bytes_moved, imads)
         results[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": 0, "max_abs_err": err,
-            "ms": cuda_ms(kernel_fn, 20), "plain_ms": cuda_ms(plain_fn, 2),
+            "ms": cuda_ms(kernel_fn, 20), "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
 
@@ -2024,7 +2217,7 @@ def check_kernels(torch, np, dev, fresh):
         b_ms, b_by = bound_ms(bytes_moved, imads)
         dev_ms = device_ms(fn, 20, symbols)
         return {"ms": cuda_ms(fn, 20), "device_ms": sum(dev_ms[s] for s in symbols), "bound_ms": b_ms,
-                "bound_by": b_by, "plain_ms": cuda_ms(plain_fn, 2)}
+                "bound_by": b_by, "plain_ms": plain_once(torch, plain_fn)[1]}
 
     # K4, csrc/mont_mul.cu's elementwise kernel: every op code in Fr and Fq
     # at n = 1, 257, 1037 and 2^16 over the operands of ew_cases (full,
@@ -2157,7 +2350,7 @@ def check_kernels(torch, np, dev, fresh):
     pp["device_ms"] = device_ms(lambda: F.prefix_products(Fr, big), 20, ["scan_kernel"])["scan_kernel"]
     bi_dev = device_ms(lambda: F.batch_inv(Fr, big), 20, ["scan_kernel", "mont_pow_kernel"])
     pp.update(batch_inv_ms=cuda_ms(lambda: F.batch_inv(Fr, big), 20),
-              batch_inv_plain_ms=cuda_ms(lambda: F.batch_inv_plain(Fr, big), 2),
+              batch_inv_plain_ms=plain_once(torch, lambda: F.batch_inv_plain(Fr, big))[1],
               batch_inv_device_ms=bi_dev["scan_kernel"] + bi_dev["mont_pow_kernel"])
     pp["batch_inv_bound_ms"], pp["batch_inv_bound_by"] = bound_ms(
         64 << 17, (4 * (1 << 17) + e.bit_length() - 2 + bin(e).count("1")) * IMAD_PER_MONT_MUL)
@@ -2199,7 +2392,7 @@ def check_kernels(torch, np, dev, fresh):
         kernel_fn = lambda: [SC.round_message(Fr, leaves, prog, chal, expr.degree)]  # noqa: E731
         plain_fn = lambda: [SC.round_message_plain(Fr, leaves, prog, chal, expr.degree)]  # noqa: E731
         k1_err = max(k1_err, same("sumcheck_round", kernel_fn, plain_fn))
-    primary = {"primary_ms": cuda_ms(kernel_fn, 20), "primary_plain_ms": cuda_ms(plain_fn, 2)}
+    primary = {"primary_ms": cuda_ms(kernel_fn, 20), "primary_plain_ms": plain_once(torch, plain_fn)[1]}
     primary["primary_bound_ms"], primary["primary_bound_by"] = bound_ms(
         len(leaves) * n * 32, expr.degree * program_muls(SC, prog) * (n // 2) * IMAD_PER_MONT_MUL)
 
@@ -2340,7 +2533,8 @@ def check_kernels(torch, np, dev, fresh):
     results["ec_add"].update(
         max_abs_err=max(results["ec_add"]["max_abs_err"], k3_err),
         ladder_shape=f"IPA ladder doubling step, {lanes} lanes ({live} not the identity)",
-        ladder_ms=cuda_ms(lambda: ec.ec_add(acc, acc), 20), ladder_plain_ms=cuda_ms(lambda: ec.ec_add_plain(acc, acc), 2),
+        ladder_ms=cuda_ms(lambda: ec.ec_add(acc, acc), 20),
+        ladder_plain_ms=plain_once(torch, lambda: ec.ec_add_plain(acc, acc))[1],
         ladder_bound_ms=b_ms, ladder_bound_by=b_by)
     del base, acc, dbl
     if planes["x"].shape[0] != c * W:
@@ -2741,17 +2935,6 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
         f" ({curve.name}: halo2_lasso_tpu/ops/msm_jacobian.py:90 over halo2_lasso_tpu/ops/pallas_field.py:225)"
         if suffix else "")
 
-    def once(fn):
-        """(fn(), its ms by CUDA events over one call): a plain version's
-        time, seconds a call."""
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out = fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return out, t0.elapsed_time(t1)
-
     def check(name, got, want):
         if not all(torch.equal(got[k], want[k].to(got[k].device)) for k in ec.COORDS):
             raise SystemExit(f"kernel {name} disagrees with its plain version")
@@ -2772,7 +2955,7 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
     k = int.from_bytes(rng.bytes(32), "little") % q
     bits = [(k >> i) & 1 for i in range(nbits)]
     got = no_sync(torch, lambda: ec.ec_ladder(pts, k, nbits, base))
-    want, plain_ms = once(lambda: ec.scalar_mul_bits_plain(pts, bits, base))
+    want, plain_ms = plain_once(torch, lambda: ec.scalar_mul_bits_plain(pts, bits, base))
     check(lname, got, want)
     del want
     limbs = F.from_numpy_u32(F.ints_to_u32([k] * lanes), dev)
@@ -2817,7 +3000,7 @@ def check_ladder_and_tree(torch, np, dev, rng, rand_field, results, fresh, curve
     # the plane tree
     for i, (label, bucket, c, W, key) in enumerate(trees):
         got = no_sync(torch, lambda: MJ.bucket_planes(bucket, c, W, base))
-        want, p_ms = once(lambda: MJ.bucket_planes_plain(bucket, c, W, base))
+        want, p_ms = plain_once(torch, lambda: MJ.bucket_planes_plain(bucket, c, W, base))
         check(tname, got, want)
         live = ~F.is_zero(bucket["z"][: W << c])[MJ._tree_rows(c, W, str(dev))]
         adds = 0
@@ -2990,6 +3173,21 @@ def ew_cases(t, x, y):
         (t[n : 2 * n], one, y),
         (st[:, 1::2], st[:, 0::2], st[:, :n]),
     ]
+
+
+def plain_once(torch, fn):
+    """(fn(), its ms by CUDA events over one call): a plain version's output
+    and time. A plain version takes milliseconds to seconds a call and has
+    nothing to warm up, so one call, where possible the one that a bit-exact
+    check compares, is its time (a kernel's is the mean of many calls,
+    ``cuda_ms``)."""
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def no_sync(torch, fn):

@@ -26,9 +26,13 @@ chunk, the messages added on the device before the round's one read. A
 round of degree d past MAX_DEGREE (8) is split into ceil(d / 8) chunks of
 points, t0 + 1 .. t0 + 8 from t0 = 0, 8, 16, ..., one launch a point chunk
 (and term chunk), the messages concatenated on the device: the JAX
-package's message is the evaluations at 1..d whatever d is. What still
-raises is a single term past a limit (a product of more than MAX_LEAVES
-tables).
+package's message is the evaluations at 1..d whatever d is. A single term
+that alone passes a limit (a product of more than MAX_LEAVES tables) is
+evaluated as the JAX package's chunked round evaluation does
+(piop/sum_check.py:198-250, ``evaluated_message``): at each point t its
+leaf tables bound to t by ``fold_all`` (K2), the term over them by
+``evaluate_torch`` (K4's op codes), the pairs summed by ``sum_reduce``; its
+message is added to the chunks' on the device. No expression is refused.
 
 Under a mesh (``parallel/sharding.py``'s ``use_mesh``) the leaf tables are
 built whole and split by their high index bits over the mesh's shards;
@@ -49,7 +53,7 @@ import numpy as np
 import torch
 
 from halo2_lasso_tpu_torch.errors import Halo2LassoError
-from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host, split_challenge_terms
+from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host, evaluate_torch, split_challenge_terms
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops import native
 from halo2_lasso_tpu_torch.ops.field import FieldSpec
@@ -131,6 +135,7 @@ MAX_LEAVES = 128
 MAX_OPS = 640
 MAX_CONSTS = 32
 ROUND_THREADS = 128  # threads a block, at most (csrc/sumcheck_round.cu gives the times)
+EVAL_BYTES = 4 << 30  # the device memory one pass of ``evaluated_message`` takes at most
 _MAX_BLOCKS = 2048
 _SMEM_MAX = 226 * 1024  # the card's shared memory a block, less the kernel's own
 
@@ -298,23 +303,40 @@ def point_chunks(degree: int) -> Tuple[Tuple[int, int], ...]:
 
 
 @dataclasses.dataclass
+class EvaluatedTerm:
+    """A term that alone passes the round kernel's limits, evaluated with
+    the field ops (``evaluated_message``): its leaf tables `leaves`
+    (indices into the round's tables) under their `keys`, its coefficient
+    the challenge row `row`; `field_ops` is the K4 launches one evaluation
+    makes on the card (``_field_ops``)."""
+
+    term: Expression
+    leaves: Tuple[int, ...]
+    keys: Tuple[Tuple, ...]
+    row: int
+    field_ops: int
+
+
+@dataclasses.dataclass
 class RoundPlan:
     """How a sumcheck's round message is computed. Within the kernel's
     limits: one program over every leaf table, one launch a round. Past
     them: the expression split into challenge-weighted terms
     (``split_challenge_terms``), packed into chunks of whole terms that each
-    fit every limit, one launch a chunk; the coefficients are challenge-only
-    expressions evaluated on the host, as the JAX package does
-    (piop/sum_check.py:555-560), and the chunks' messages are added on the
-    device (a stack, one ``sum_reduce``) before the round's one read. Either
-    way, a degree past MAX_DEGREE is evaluated in the chunks of points
-    ``points`` (``point_chunks``), one launch (or one a term chunk) each,
-    their messages concatenated on the device."""
+    fit every limit, one launch a chunk; a term that fits no chunk alone is
+    ``evaluated``. The coefficients are challenge-only expressions
+    evaluated on the host, as the JAX package does
+    (piop/sum_check.py:555-560), and the chunks' and evaluated terms'
+    messages are added on the device (a stack, one ``sum_reduce``) before
+    the round's one read. Either way, a degree past MAX_DEGREE is evaluated
+    in the chunks of points ``points`` (``point_chunks``), one launch (or
+    one a term chunk) each, their messages concatenated on the device."""
 
     program: Optional[RoundProgram]
     chunks: Tuple[RoundChunk, ...] = ()
     coeffs: Tuple[Expression, ...] = ()
     points: Tuple[Tuple[int, int], ...] = ()  # set by plan_round
+    evaluated: Tuple[EvaluatedTerm, ...] = ()
 
     def challenge_rows(self, p: int, challenges: Sequence[int]) -> List[int]:
         """The challenges the launches read: the sumcheck's own and, for a
@@ -331,7 +353,7 @@ _PLANS: Dict[Tuple, RoundPlan] = {}
 def plan_round(expression: Expression, keys: Sequence[Tuple], p: int, num_challenges: int) -> RoundPlan:
     """The round plan of a sumcheck (see ``RoundPlan``), cached on the
     expression's structural key. Decided on the host the same way on every
-    device. Raises where one term alone passes a limit."""
+    device."""
     cache_key = (expression.structural_key, tuple(keys), p, num_challenges)
     plan = _PLANS.get(cache_key)
     if plan is not None:
@@ -368,40 +390,108 @@ def _split_plan(expression: Expression, keys: Sequence[Tuple], p: int, num_chall
         return RoundChunk(_program(ops, consts), tuple(leaves))
 
     chunks: List[RoundChunk] = []
+    evaluated: List[EvaluatedTerm] = []
     members: List[int] = []
-    for j in range(len(terms)):
-        trial = lower(members + [j])
-        if _fits(trial.program, len(trial.leaves)):
-            members.append(j)
+    for j, (_, term) in enumerate(terms):
+        if members:
+            trial = lower(members + [j])
+            if _fits(trial.program, len(trial.leaves)):
+                members.append(j)
+                continue
+        alone = lower([j])
+        if not _fits(alone.program, len(alone.leaves)):
+            leaves = tuple(sorted(reads(term)))
+            evaluated.append(EvaluatedTerm(term, leaves, tuple(keys[i] for i in leaves), num_challenges + j,
+                                           _field_ops(term)))
             continue
-        if not members:
-            raise SumcheckError(
-                f"a term of depth {_depth(terms[j][1])} alone passes the round kernel's limits "
-                f"({len(trial.leaves)} leaves, {len(trial.program.ops)} ops, {len(trial.program.consts)} "
-                f"constants, a stack of {trial.program.max_stack}; at most {MAX_LEAVES}, {MAX_OPS}, "
-                f"{MAX_CONSTS} and {MAX_STACK})"
-            )
-        chunks.append(lower(members))
+        if members:
+            chunks.append(lower(members))
         members = [j]
     if members:
         chunks.append(lower(members))
-    return RoundPlan(None, tuple(chunks), tuple(c for c, _ in terms))
+    return RoundPlan(None, tuple(chunks), tuple(c for c, _ in terms), evaluated=tuple(evaluated))
+
+
+def _field_ops(term: Expression) -> int:
+    """The K4 launches of one ``evaluate_torch`` of `term`: every negation,
+    sum or product with a tensor operand (a leaf or a challenge row) once,
+    shared subexpressions once; constants fold on the host."""
+    ops = 0
+
+    def op(*args):
+        nonlocal ops
+        tensor = any(args)
+        ops += tensor
+        return tensor
+
+    term.evaluate(lambda _: False, lambda _: True, lambda _: True, lambda _: True, op, op, op, lambda a, _: op(a))
+    return ops
 
 
 def round_message_planned(spec: FieldSpec, tables: Sequence[torch.Tensor], plan: RoundPlan,
                           challenges: Optional[torch.Tensor]) -> torch.Tensor:
     """(degree, 8): the round message by `plan`, for each chunk of points
-    one ``round_message`` a term chunk (one for a plan within the limits),
-    the term chunks' messages added on the tables' device with one
-    ``sum_reduce``, the point chunks' concatenated there."""
+    one ``round_message`` a term chunk (one for a plan within the limits)
+    and one ``evaluated_message`` an evaluated term, their messages added on
+    the tables' device with one ``sum_reduce``, the point chunks'
+    concatenated there."""
     outs = []
     for t0, d in plan.points:
         if plan.program is not None:
             outs.append(round_message(spec, tables, plan.program, challenges, d, t0))
             continue
         parts = [round_message(spec, [tables[i] for i in c.leaves], c.program, challenges, d, t0) for c in plan.chunks]
+        parts += [evaluated_message(spec, tables, e, challenges, d, t0) for e in plan.evaluated]
         outs.append(F.sum_reduce(spec, torch.stack(parts)))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def point_batch(ev: EvaluatedTerm, h: int) -> int:
+    """The points that ``evaluated_message`` evaluates in one pass over h
+    pairs: as many as EVAL_BYTES holds with the bound tables and the
+    evaluation's intermediates, 1 to MAX_DEGREE."""
+    per_point = (len(ev.leaves) + ev.field_ops) * h * 4 * F.LIMBS
+    return max(1, min(MAX_DEGREE, EVAL_BYTES // max(1, per_point)))
+
+
+def evaluated_message(spec: FieldSpec, tables: Sequence[torch.Tensor], ev: EvaluatedTerm, challenges: torch.Tensor,
+                      degree: int, t0: int = 0) -> torch.Tensor:
+    """(degree, 8): an evaluated term's message c * sum over pairs of the
+    term at t = t0+1..t0+degree, as the JAX package's ``_make_chunk_fn``
+    (piop/sum_check.py:198-250) computes it, a batch of points
+    (``point_batch``) a pass: at each t the term's leaf tables bound to t
+    (``fold_all``: lo + t (hi - lo), its e1 + (t - 1) step) into one (points,
+    tables, h, 8) buffer, the term over the batch (``evaluate_torch``, each
+    op one launch for every point), the pairs of every point summed (one
+    ``sum_reduce``; a term constant over the hypercube is half * v), then
+    one product by its coefficient row. On a CUDA tensor each step launches
+    K2, K4 or the row sum, or raises; CPU tensors take their plain
+    versions."""
+    leaves = [tables[i] for i in ev.leaves]
+    h = tables[0].shape[0] // 2
+    device = tables[0].device
+    step = point_batch(ev, h)
+    sums = []
+    for b in range(t0, t0 + degree, step):
+        ts = range(b + 1, min(b + step, t0 + degree) + 1)
+        values = {}
+        if leaves:
+            bound = torch.empty((len(ts), len(leaves), h, F.LIMBS), dtype=torch.int32, device=device)
+            for j, t in enumerate(ts):
+                mle.fold_all(spec, leaves, t, out=bound[j])
+            values = {k: bound[:, i] for i, k in enumerate(ev.keys)}
+
+        def leaf(kind, arg):
+            if kind == "poly":
+                return values[("poly", arg.poly, arg.rotation)]
+            if kind == "eq_xy":
+                return values[("eq", arg)]
+            return values[(kind,) if kind == "identity" else (kind, arg)]
+
+        v = evaluate_torch(spec, ev.term, leaf, challenges, device)
+        sums.append(F.sum_reduce(spec, v.transpose(0, 1)) if v.dim() > 1
+                    else F.mont_mul(spec, v, h).expand(len(ts), F.LIMBS))
+    return F.mont_mul(spec, torch.cat(sums), challenges[ev.row])
 
 
 def round_message_plain(

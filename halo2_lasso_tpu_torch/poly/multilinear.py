@@ -24,7 +24,7 @@ points (``evaluate_for_rotation``); the verifier's recombination
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -54,19 +54,26 @@ def fold_all_plain(
 FOLD_MAX_TABLES = 64  # csrc/fold.cu's tables a launch
 
 
-def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = False) -> List[torch.Tensor]:
+def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = False,
+             out: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """Bind one variable of every (2h, 8) table to the challenge x, a host
     int or an (8,) tensor on the tables' device: out = (hi - lo) * x + lo,
     with (lo, hi) = (t[2i], t[2i+1]) for the lowest variable, or (t[i],
     t[i+h]) for the highest (``last``). On the card the table pointers and
     an int challenge travel by value, one launch for up to FOLD_MAX_TABLES
-    tables."""
+    tables. ``out``, a contiguous (len(tables), h, 8) int32 tensor on the
+    tables' device, receives the bound tables."""
     tables = list(tables)
     by_value = not isinstance(x, torch.Tensor)
-    if tables[0].device.type == "cpu":
-        return fold_all_plain(spec, tables, spec.encode([x])[0] if by_value else x, last)
-    fid = native.field_id("fold_all", spec)
     n = tables[0].shape[0]
+    if out is not None and (out.shape != (len(tables), n // 2, F.LIMBS) or out.dtype != torch.int32
+                            or not out.is_contiguous() or out.device != tables[0].device):
+        raise ValueError(f"fold_all: out must be a contiguous int32 ({len(tables)}, {n // 2}, {F.LIMBS}) tensor "
+                         "on the tables' device")
+    if tables[0].device.type == "cpu":
+        bound = fold_all_plain(spec, tables, spec.encode([x])[0] if by_value else x, last)
+        return bound if out is None else list(out.copy_(torch.stack(bound)).unbind(0))
+    fid = native.field_id("fold_all", spec)
     if any(t.shape != (n, F.LIMBS) for t in tables) or n % 2:
         raise ValueError("fold_all: tables must share one even length")
     native.require_cuda("fold_all", *tables, *([] if by_value else [x]))
@@ -79,7 +86,8 @@ def fold_all(spec: FieldSpec, tables: Sequence[torch.Tensor], x, last: bool = Fa
     else:
         x_host, x_dev = None, x.data_ptr()
     h = n // 2
-    out = torch.empty((len(tables), h, F.LIMBS), dtype=torch.int32, device=tables[0].device)
+    if out is None:
+        out = torch.empty((len(tables), h, F.LIMBS), dtype=torch.int32, device=tables[0].device)
     for g in range(0, len(tables), FOLD_MAX_TABLES):
         ins = tables[g : g + FOLD_MAX_TABLES]
         ins_p = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])

@@ -600,6 +600,31 @@ def test_round_kernel_point_chunks_match_plain(cuda, degree, pairs):
     assert t0 > 0 and torch.equal(part, sc.round_message_plain(Fr, tables, plan.program, None, d, t0))
 
 
+@pytest.mark.parametrize("pairs", [37, 64], ids=["ragged", "pow2"])
+def test_evaluated_term_matches_plain(cuda, pairs):
+    """A round past the round kernel's limits on the card: the product of
+    MAX_LEAVES + 1 tables (an evaluated term, degree 129, 17 chunks of
+    points, each one pass) beside a challenge-weighted product that one K1
+    chunk takes. The message, with no host sync, equals the plain path's
+    on copies of the tables on the CPU, bit for bit; it launches K1 once a
+    chunk of points, and K2, K4 and the row sum as the plan says
+    (chip_smoke.evaluated_launches over one round, less its fold)."""
+    E = Expression
+    expr = chip_smoke.wide_product(E, sc.MAX_LEAVES + 1) + E.challenge(0) * E.poly(0) * E.poly(1)
+    keys = sc._leaf_keys(expr, sc.MAX_LEAVES + 1)
+    plan = sc.plan_round(expr, keys, Fr.modulus, 1)
+    assert len(plan.chunks) == 1 and len(plan.evaluated) == 1 and len(plan.points) == 17
+    chal = Fr.encode(plan.challenge_rows(Fr.modulus, rand_ints(Fr.modulus, 1)), cuda)
+    tables = list(F.encode_dev(Fr, RNG.randint(0, 1 << 62, size=(len(keys), 2 * pairs), dtype=np.int64), cuda))
+    tables[0][:4] = Fr.encode([0, 1, Fr.modulus - 1, Fr.R], cuda)
+    names = ("sumcheck_round", "fold_all", "mont_mul", "sum_reduce")
+    got, n = launches(lambda: no_sync(lambda: sc.round_message_planned(Fr, tables, plan, chal)), *names)
+    assert n == tuple(chip_smoke.evaluated_launches(sc, plan, [pairs], 0)[k] for k in names)
+    assert n[0] == len(plan.points) and got.shape == (expr.degree, F.LIMBS)
+    want = sc.round_message_planned(Fr, [t.cpu() for t in tables], plan, chal.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
 def test_bn254_only_kernels_raise_for_a_pasta_field(cuda):
     """K1, K2, K5, the row sum and the eq table have no Pasta instance: a
     CUDA tensor over either Pasta field raises in each wrapper before any

@@ -8,8 +8,13 @@ a right-deep expression lowers within the stack. Rounds past the kernel's
 MAX_DEGREE (8) are split into chunks of points: the nv = 3 HyperPlonk proof
 of a degree-9 zero check (chip_smoke.DEGREE9_SMALL) and a degree-17
 sumcheck are byte-equal to the JAX package's (the lt_table(16, 2) Lasso
-proof, degree 9 too, is in tests/test_torch_lasso_lt.py); a single product
-of more than MAX_LEAVES tables still raises."""
+proof, degree 9 too, is in tests/test_torch_lasso_lt.py). A term that alone
+passes a limit is evaluated with the field ops as the JAX package's chunked
+round evaluation does (``evaluated_message``): the product of MAX_LEAVES + 1
+tables (chip_smoke.WIDE at nv = 3, WIDE_SHA256) and terms past MAX_STACK,
+MAX_OPS or MAX_CONSTS (set low), alone or beside K1's chunks and under a
+mesh of 4 CPU shards, prove byte-equal, both packages' verifiers accepting
+the port's proof."""
 
 import hashlib
 
@@ -22,16 +27,20 @@ import chip_smoke
 from halo2_lasso_tpu.backend.hyperplonk import fixtures as jfixtures
 from halo2_lasso_tpu.backend.hyperplonk import preprocessor as jpreprocessor
 from halo2_lasso_tpu.expression import Expression as JExpression
+from halo2_lasso_tpu.expression import Query as JQuery
 from halo2_lasso_tpu.ops.bn254 import Fr as JFr
 from halo2_lasso_tpu.piop import gkr as jgkr
 from halo2_lasso_tpu.piop import sum_check as jsc
 from halo2_lasso_tpu.transcript import Keccak256Transcript as JTranscript
 from halo2_lasso_tpu_torch.backend.hyperplonk import fixtures, preprocessor
-from halo2_lasso_tpu_torch.expression import Expression, from_foreign
+from halo2_lasso_tpu_torch.expression import Expression, Query, evaluate_host, from_foreign
 from halo2_lasso_tpu_torch.ops import field as F
 from halo2_lasso_tpu_torch.ops.bn254 import Fr
+from halo2_lasso_tpu_torch.parallel import sharding
 from halo2_lasso_tpu_torch.piop import gkr
 from halo2_lasso_tpu_torch.piop import sum_check as sc
+from halo2_lasso_tpu_torch.poly import multilinear as mle
+from halo2_lasso_tpu_torch.poly.bh import BooleanHypercube
 from halo2_lasso_tpu_torch.transcript import Keccak256Transcript
 
 P = Fr.modulus
@@ -85,6 +94,60 @@ def sumcheck_both(expr, jexpr, n_polys, n_chal, k=NV):
     out = sc.prove(Fr, k, sc.VirtualPolynomial(expr, tpolys, chals, [y]), claim, tt)
     assert out == jout
     return tt.into_proof(), jt.into_proof()
+
+
+def hypercube_sum(expr, k, polys, chals, y):
+    """The expression's sum over the hypercube, on host ints."""
+    seq = BooleanHypercube(k).iter_indices()
+    total = 0
+    for b in range(1 << k):
+        def leaf(kind, arg):
+            if kind == "poly":
+                return polys[arg.poly][b]
+            if kind == "eq_xy":
+                return mle.eq_xy_eval_host(P, [(b >> i) & 1 for i in range(k)], y)
+            if kind == "identity":
+                return b
+            return int(b == int(seq[arg % (1 << k)]))
+
+        total += evaluate_host(expr, P, leaf, chals)
+    return total % P
+
+
+def both_verifiers_accept(expr, jexpr, k, claim, proof, tpolys, out, chals=(), y=()):
+    """Both packages' verifiers read the port's proof to the prover's
+    challenges, and its final evaluation is the expression at the tables'
+    own evaluations there (which the prover's equal)."""
+    final, xs = sc.verify(P, k, expr.degree, claim, Keccak256Transcript(P, proof=proof))
+    assert jsc.verify(P, k, jexpr.degree, claim, JTranscript(P, proof=proof)) == (final, xs)
+    own = mle.evaluate_stacked_ints(Fr, tpolys, xs)
+    assert (xs, own) == tuple(out)
+    ys = [list(y)] if y else []
+    assert final == sc.evaluate_at_point(expr, P, k, {Query(i): v for i, v in enumerate(own)}, chals, ys, xs)
+    assert final == jsc.evaluate_at_point(jexpr, P, k, {JQuery(i): v for i, v in enumerate(own)}, chals, ys, xs)
+
+
+def sumcheck_verified(expr, jexpr, n_polys, n_chal, k=NV, mesh=None):
+    """``sumcheck_both`` on the true claim: the port's proof (under `mesh`
+    when given) byte-equal to the JAX package's, and accepted by both
+    packages' verifiers."""
+    polys = [rand_fes(1 << k) for _ in range(n_polys)]
+    chals, y = rand_fes(n_chal), rand_fes(k)
+    claim = hypercube_sum(expr, k, polys, chals, y)
+    jt = JTranscript(P)
+    jpolys = [jnp.asarray(JFr.encode(v)) for v in polys]
+    jout = jsc.prove(JFr, k, jsc.VirtualPolynomial(jexpr, jpolys, chals, [y]), claim, jt)
+    tt = Keccak256Transcript(P)
+    tpolys = [F.from_jax_limbs(np.asarray(v)) for v in jpolys]
+    if mesh is None:
+        out = sc.prove(Fr, k, sc.VirtualPolynomial(expr, tpolys, chals, [y]), claim, tt)
+    else:
+        with sharding.use_mesh(mesh):
+            out = sc.prove(Fr, k, sc.VirtualPolynomial(expr, tpolys, chals, [y]), claim, tt)
+    assert out == jout
+    proof = tt.into_proof()
+    assert proof == jt.into_proof()
+    both_verifiers_accept(expr, jexpr, k, claim, proof, tpolys, out, chals, y)
 
 
 def gkr_both(b, k=NV, seed=5):
@@ -177,16 +240,18 @@ def test_right_deep_expression_fits_the_stack():
 
 def test_too_deep_term_is_reported(monkeypatch):
     """A program that still needs more than MAX_STACK (set to 2 here) is
-    refused with its depth named, and a term that alone does not fit ends
-    the split."""
+    refused by ``lower_expression`` with its depth named (no prove calls
+    it: plan_round lowers with ``_lower``), and a term that alone does not
+    fit is planned as an evaluated term, not refused."""
     monkeypatch.setattr(sc, "MAX_STACK", 2)
     monkeypatch.setattr(sc, "_PLANS", {})
     expr = right_deep(Expression)
     E = Expression
     with pytest.raises(sc.SumcheckError, match="depth 3 needs a stack of 3"):
         sc.lower_expression(E.poly(0) * E.poly(1) + E.poly(2) * E.poly(3), [("poly", i, 0) for i in range(4)])
-    with pytest.raises(sc.SumcheckError, match="alone passes"):
-        sc.plan_round(expr, sc._leaf_keys(expr, 16), P, 0)
+    plan = sc.plan_round(expr, sc._leaf_keys(expr, 16), P, 0)
+    assert plan.chunks == () and [e.term.structural_key for e in plan.evaluated] == [expr.structural_key]
+    assert plan.evaluated[0].leaves == tuple(range(17)) and plan.evaluated[0].row == 0
 
 
 def test_degree9_gate_proof_matches_jax():
@@ -233,17 +298,86 @@ def test_degree17_sumcheck_matches_jax():
     assert proof == jproof
 
 
-def test_single_product_past_max_leaves_raises():
-    """What is left of the refusal: one product of more than MAX_LEAVES
-    (128) tables, a term that no split of terms or points can cut."""
-    E = Expression
-    expr = E.poly(0)
-    for i in range(1, sc.MAX_LEAVES + 1):
-        expr = expr * E.poly(i)
+def test_single_product_past_max_leaves_matches_jax():
+    """One product of MAX_LEAVES + 1 (129) tables, a term that no split of
+    terms or points can cut, at nv = 3 (chip_smoke.WIDE's twin): one
+    evaluated term of 128 products a point, the proof the JAX package's
+    (WIDE_SHA256), both verifiers accepting it."""
+    cfg = {**chip_smoke.WIDE, "num_vars": 3}
+    expr = chip_smoke.wide_product(Expression, cfg["tables"])
+    jexpr = chip_smoke.wide_product(JExpression, cfg["tables"])
     keys = sc._leaf_keys(expr, sc.MAX_LEAVES + 1)
-    assert len(keys) == sc.MAX_LEAVES + 1
-    with pytest.raises(sc.SumcheckError, match="alone passes"):
-        sc.plan_round(expr, keys, P, 0)
+    assert cfg["tables"] == len(keys) == sc.MAX_LEAVES + 1
+    plan = sc.plan_round(expr, keys, P, 0)
+    assert plan.program is None and plan.chunks == () and len(plan.points) == 17
+    assert [(e.leaves, e.field_ops) for e in plan.evaluated] == [(tuple(range(129)), 128)]
+    extra = {}
+    proof, _ = chip_smoke.wide_product_proof(np, cfg, "cpu", tamper=True, extra=extra)
+    vals = chip_smoke.wide_product_inputs(np, cfg, 3)
+    jt = JTranscript(P)
+    jpolys = [jnp.asarray(JFr.encode([int(v) for v in row])) for row in vals]
+    jout = jsc.prove(JFr, 3, jsc.VirtualPolynomial(jexpr, jpolys, [], []), extra["claim"], jt)
+    assert proof == jt.into_proof()
+    assert hashlib.sha256(proof).hexdigest() == chip_smoke.WIDE_SHA256
+    assert extra["claim"] == hypercube_sum(expr, 3, [[int(v) for v in row] for row in vals], [], [])
+    both_verifiers_accept(expr, jexpr, 3, extra["claim"], proof, list(F.encode_dev(Fr, vals)), jout)
+
+
+def past_a_limit(E, name):
+    """(expression, polys, challenges) of each case: a term past MAX_STACK
+    (a balanced product under eq, a stack of 3), MAX_OPS (the identity
+    times a product of ten tables, one with a challenge added: 25 ops),
+    MAX_CONSTS (three constants beside a Lagrange column), and beside K1's
+    chunks ("mixed": a product of ten tables of degree 10, two chunks of
+    points, weighted by a challenge, and two small terms in one chunk)."""
+    p = [E.poly(i) for i in range(10)]
+    if name == "MAX_STACK":
+        return E.eq_xy(0) * ((p[0] * p[1]) * (p[2] * p[3])), 4, 0
+    if name == "MAX_OPS":
+        acc = E.identity() * (p[0] + E.challenge(0))
+        for q in p[1:]:
+            acc = acc * q
+        return acc, 10, 1
+    if name == "MAX_CONSTS":
+        return E.lagrange(1) * (p[0] + 3) * (p[1] - 5) * (p[2] * 7), 3, 0
+    acc = p[0]
+    for q in p[1:]:
+        acc = acc * q
+    return E.challenge(0) * acc + E.eq_xy(0) * p[0] * p[1] + E.challenge(1) * p[2] * p[3], 10, 2
+
+
+PAST_A_LIMIT = [("MAX_STACK", 2), ("MAX_OPS", 20), ("MAX_CONSTS", 2), ("MAX_LEAVES", 8)]
+
+
+@pytest.mark.parametrize("low_limit", PAST_A_LIMIT, indirect=True,
+                         ids=["MAX_STACK", "MAX_OPS", "MAX_CONSTS", "mixed"])
+def test_term_past_a_limit_matches_jax(low_limit):
+    name = "mixed" if low_limit[0] == "MAX_LEAVES" else low_limit[0]
+    expr, n_polys, n_chal = past_a_limit(Expression, name)
+    plan = sc.plan_round(expr, sc._leaf_keys(expr, n_polys), P, n_chal)
+    assert plan.program is None and len(plan.evaluated) == 1
+    if name == "mixed":
+        assert len(plan.chunks) == 1 and plan.points == ((0, 8), (8, 2)) and plan.evaluated[0].row == n_chal
+    else:
+        assert plan.chunks == ()
+    for c in plan.chunks:
+        assert len(c.leaves) <= sc.MAX_LEAVES and len(c.program.ops) <= sc.MAX_OPS
+    sumcheck_verified(expr, past_a_limit(JExpression, name)[0], n_polys, n_chal)
+
+
+def test_evaluated_term_under_cpu_mesh_matches_jax(monkeypatch):
+    """The mixed case under a mesh of 4 CPU shards: its evaluated term's
+    message computed a shard at a time (2 pairs each) in the split rounds,
+    the proof the JAX package's."""
+    monkeypatch.setattr(sc, "MAX_LEAVES", 8)
+    monkeypatch.setattr(sc, "_PLANS", {})
+    rows = []
+    real = sc.evaluated_message
+    monkeypatch.setattr(sc, "evaluated_message", lambda spec, t, *a: rows.append(t[0].shape[0]) or real(spec, t, *a))
+    expr, n_polys, n_chal = past_a_limit(Expression, "mixed")
+    sumcheck_verified(expr, past_a_limit(JExpression, "mixed")[0], n_polys, n_chal,
+                      mesh=sharding.Mesh(["cpu"] * 4))
+    assert rows[:8] == [4] * 8 and 16 not in rows
 
 
 def test_foreign_split_terms_match_jax():
